@@ -1,0 +1,94 @@
+"""Carry the JAX package's PosePredictor params and run configs across.
+
+`state_dict_from_jax` takes the flax params as a nested dict of numpy
+arrays (the caller reads the checkpoint; this module needs neither JAX nor
+orbax) and returns the port's `state_dict`:
+  - conv kernels HWIO -> OIHW,
+  - Dense kernels `[in, out]` -> `[out, in]`,
+  - GroupNorm scale/bias -> weight/bias.
+`config_from_run_json` reads `runs/*/config.json` into a
+`PosePredictorConfig`, as `TrainingConfig.model_config_kwargs` does in
+the JAX package, plus the mesh database settings of the run.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from ..models.pose_predictor import PosePredictorConfig
+
+
+def _conv(p: Mapping[str, Any]) -> np.ndarray:
+    return np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
+
+
+def _norm(prefix: str, p: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.asarray(p["scale"]), f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def _dense(prefix: str, p: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.asarray(p["kernel"]).T, f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def _backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """flax `ResNet` params -> `backbones.ResNet` keys (prefix `backbone.`)."""
+    sd = {"stem.weight": _conv(p["Conv_0"]), **_norm("stem_norm", p["GroupNorm_0"])}
+    n_blocks = sum(1 for k in p if k.startswith("BasicBlock_"))
+    for i in range(n_blocks):
+        b, pre = p[f"BasicBlock_{i}"], f"blocks.{i}"
+        sd[f"{pre}.conv1.weight"] = _conv(b["Conv_0"])
+        sd.update(_norm(f"{pre}.norm1", b["GroupNorm_0"]))
+        sd[f"{pre}.conv2.weight"] = _conv(b["Conv_1"])
+        sd.update(_norm(f"{pre}.norm2", b["GroupNorm_1"]))
+        if "Conv_2" in b:
+            sd[f"{pre}.downsample.0.weight"] = _conv(b["Conv_2"])
+            sd.update(_norm(f"{pre}.downsample.1", b["GroupNorm_2"]))
+    if "Conv_1" in p:  # spatial head
+        sd["head_conv.weight"] = _conv(p["Conv_1"])
+        sd.update(_norm("head_norm", p["GroupNorm_1"]))
+    sd.update(_dense("fc", p["Dense_0"]))
+    return {f"backbone.{k}": v for k, v in sd.items()}
+
+
+def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax `PosePredictor` params (with or without the top-level
+    `"params"` key) -> the port's `PosePredictor.state_dict()`."""
+    if "params" in params:
+        params = params["params"]
+    sd = _backbone(params["backbone"])
+    if "pose_fc" in params:
+        sd.update(_dense("pose_fc", params["pose_fc"]))
+    if "views_logits_fc" in params:
+        sd.update(_dense("views_logits_fc", params["views_logits_fc"]))
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def config_from_run_json(path: str | Path) -> tuple[PosePredictorConfig, dict[str, int]]:
+    """`runs/<run>/config.json` -> (model config, mesh DB settings
+    `{"max_faces", "n_points_mesh", "n_sym"}`). A `multiview_type` without
+    the `TCO+` prefix gains it (`front_1view` -> `TCO+front_1view`)."""
+    d = json.loads(Path(path).read_text())
+    mv = d["multiview_type"]
+    if not mv.startswith("TCO+") and not mv.startswith("sphere"):
+        mv = f"TCO+{mv}"
+    cfg = PosePredictorConfig(
+        backbone=d["backbone_str"],
+        render_size=tuple(d["render_size"]),
+        n_rendered_views=d["n_rendered_views"],
+        multiview_type=mv,
+        views_inplane_rotations=d["views_inplane_rotations"],
+        remove_TCO_rendering=d["remove_TCO_rendering"],
+        render_normals=d["render_normals"],
+        render_depth=d["render_depth"],
+        predict_pose_update=d["predict_pose_update"],
+        predict_rendered_views_logits=d["predict_rendered_views_logits"],
+        input_depth=d["input_depth"],
+        compute_dtype=d["compute_dtype"],
+    )
+    db = {k: int(d[k]) for k in ("max_faces", "n_points_mesh", "n_sym")}
+    return cfg, db
