@@ -4,7 +4,8 @@
 
 Phases, each printing one line with its wall time:
   1. device: the card's name and power limit;
-  2. build: the visibility kernel (csrc/visibility.cu) with nvcc;
+  2. build: the visibility kernel (csrc/visibility.cu) with nvcc, its
+     registers and spills, and the shared loads of its loops (SASS);
   3. kernel vs plain: renders of a cube, a UV sphere and a BOP model at
      240x320 for 64 poses, through the kernel and its plain torch twin;
   4. pipeline: the full RGB pipeline (576-rotation coarse grid, 5
@@ -13,8 +14,11 @@ Phases, each printing one line with its wall time:
      with the kernel's launches counted;
   5. cross-check: the pipeline's phases at a small size on the GPU against
      the same models on the CPU (plain phase B), in f32;
-  6. kernel timing at the coarse sweep's shapes, against its plain twin and
-     its bound;
+  6. kernel timing at the shapes of every render of one request (coarse
+     sweep, refiner, rescore), each launch held bit for bit against the
+     plain twin, and their sum per request; at the coarse shape also the
+     plain twin, the bound, the store floor (the same tables with no active
+     chunk) and the share of face evaluations the kernel's cull leaves;
   7. profile: one more request under torch.profiler: the device's busy
      share of the request's wall time and the kernels with the most device
      time.
@@ -25,9 +29,12 @@ The line before the last is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -41,9 +48,9 @@ from megapose6d_tpu_torch.meshes import io as mesh_io
 from megapose6d_tpu_torch.meshes.mesh_db import MeshDataBase, RigidObject, RigidObjectDataset
 from megapose6d_tpu_torch.models.pose_predictor import PosePredictorConfig, build_pose_predictor
 from megapose6d_tpu_torch.ops import rasterizer_tiled as rt
+from megapose6d_tpu_torch.ops._nvcc import BUILD_DIR
 from megapose6d_tpu_torch.ops._precision import pin_f32
 from megapose6d_tpu_torch.ops.camera import masked_boxes_from_uv, project_points_robust
-from megapose6d_tpu_torch.ops.se3 import normalize_T
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "runs/ar_baseline/synthdemo"
@@ -245,7 +252,6 @@ def phase_pipeline():
 
     rt.visibility_kernel.launches = 0  # the main path starts here
     expected = 0
-    results = []
     for i, (obs, dets, _) in enumerate(requests):
         t0 = time.perf_counter()
         poses, extra = est.run_inference_pipeline(obs, dets)
@@ -263,11 +269,10 @@ def phase_pipeline():
         orth = (R @ R.transpose(1, 2) - torch.eye(3, device="cuda")).abs().max().item()
         check(orth < 1e-4, f"poses are not rotations: {orth}")
         check(tuple(extra["coarse"]["logits"].shape) == (len(dets), 576), "coarse logits shape")
-        results.append((poses, extra))
     launches = rt.visibility_kernel.launches  # read right after the main path
     print(f"  kernel launches on the main path: {launches} (expected {expected})", flush=True)
     check(launches == expected and launches > 0, "the main path did not launch the kernel as expected")
-    return est, requests, results, launches, db_kw
+    return est, requests, launches, db_kw
 
 
 def phase_cross_check(requests, db_kw) -> None:
@@ -304,39 +309,124 @@ def phase_cross_check(requests, db_kw) -> None:
           f"refined rot_err_deg={deg:.3g} trans_err_mm={mm:.3g}", flush=True)
 
 
-def phase_kernel_timing(est, requests, results, errors: list[float]) -> dict:
-    """The kernel at the coarse sweep's shapes (the 576 hypotheses of the
-    first detection of the last request), its plain twin, and its bound."""
-    obs, dets, _ = requests[-1]
-    model = est.coarse_model
-    with torch.inference_mode():
-        idx = est.mesh_db.label_to_index(dets.labels[:1])
-        TCO = normalize_T(results[-1][1]["coarse"]["TCO_init"][0])
-        B = TCO.shape[0]
-        meshes = est.mesh_db.select(idx.expand(B))
-        K = obs.K.expand(B, 3, 3)
-        _, K_crop, _, _ = model.crop_inputs(obs.images, K, TCO, TCO[:, :3, 3], meshes)
-        cfg = model.cfg
-        TCO, coefs, ids, n_act = rt.prepare_render(
-            meshes.vertices, meshes.normals, meshes.colors, meshes.faces, meshes.face_valid,
-            TCO, K_crop, tuple(cfg.render_size), cfg.z_near, cfg.tile_face_chunk, cfg.backface_cull)
-        vis = (coefs, ids, n_act, tuple(cfg.render_size), cfg.tile_face_chunk)
-        errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
-        ms = cuda_ms(lambda: rt.visibility_kernel(*vis), reps=20, warmup=3)
-        plain_ms = cuda_ms(lambda: rt.visibility_plain(*vis), reps=2, warmup=1)
-    H, W = cfg.render_size
-    tile_px = rt.TILE_H * rt.TILE_W
-    chunk = cfg.tile_face_chunk
-    # Each edge/1/z plane is 2 multiplies and 2 adds per (pixel, face) of
-    # every active chunk.
-    flops = 4 * 4 * chunk * tile_px * int(n_act.sum())
+def bound(coefs, ids, n_act, hw, chunk) -> dict:
+    """The least time the card could take for one launch: bytes (inputs
+    read once, 32 bytes of output per pixel) over the memory rate, against
+    the plane evaluations of every face of every active chunk (2 multiplies
+    and 2 adds per edge/1/z plane per face-pixel) over the f32 rate."""
+    B = coefs.shape[0]
+    H, W = hw
+    flops = 4 * 4 * chunk * rt.TILE_H * rt.TILE_W * int(n_act.sum())
     nbytes = (coefs.numel() * 4 + ids.numel() * 4 + n_act.numel() * 4 + B * H * W * (4 + 4 + 4 * 6))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    print(f"  coarse shapes: B={B} F={coefs.shape[1]} T={ids.shape[1]} "
-          f"active_chunks={int(n_act.sum())} flops={flops:.4g} bytes={nbytes:.4g} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={max(t_ops, t_bytes):.4f}", flush=True)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+    return dict(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def live_face_warps(coefs, ids, n_act, hw) -> tuple[int, int]:
+    """(face, warp) pairs the kernel's cull leaves to evaluate, and all
+    (face, warp) pairs of the active chunks, counted with its plain twin
+    `rt.cull_plain` a few images at a time."""
+    live = 0
+    for s in range(0, coefs.shape[0], 16):
+        live += int(rt.cull_plain(coefs[s : s + 16], ids[s : s + 16], n_act[s : s + 16], hw).sum())
+    return live, int(n_act.sum()) * rt.KERNEL_CHUNK * (rt.TILE_H // rt.WARP_ROWS)
+
+
+def capture_launches(est, obs, dets) -> list[tuple]:
+    """The phase-B inputs of every render of one more request, in launch
+    order (the kernel launches as on the main path)."""
+    captured = []
+    visibility = rt.visibility
+
+    def record(coefs, ids, n_act, hw, chunk):
+        captured.append((coefs.clone(), ids.clone(), n_act.clone(), tuple(hw), chunk))
+        return visibility(coefs, ids, n_act, hw, chunk)
+
+    rt.visibility = record
+    try:
+        est.run_inference_pipeline(obs, dets)
+    finally:
+        rt.visibility = visibility
+    return captured
+
+
+def phase_kernel_timing(est, requests, errors: list[float]) -> dict:
+    """The kernel at the phase-B inputs of every render of one more
+    request: the coarse sweep (576 hypotheses per detection), the refiner
+    iterations and the rescoring. Each launch is held bit for bit against
+    the plain twin and timed. At the first coarse launch also: the plain
+    twin's time, the bound, the store floor (the same tables with no active
+    chunk: only the outputs' stores) and the share of face evaluations that
+    the kernel's cull leaves."""
+    obs, dets, _ = requests[-1]
+    with torch.inference_mode():
+        launches = capture_launches(est, obs, dets)
+        per_launch = []
+        for vis in launches:
+            errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
+            per_launch.append(cuda_ms(lambda: rt.visibility_kernel(*vis), reps=20, warmup=3))
+        coarse = launches[0]
+        coefs, ids, n_act, hw, chunk = coarse
+        plain_ms = cuda_ms(lambda: rt.visibility_plain(*coarse), reps=2, warmup=1)
+        empty = (coefs, ids, torch.zeros_like(n_act), hw, chunk)
+        errors.append(compare_visibility(rt.visibility_kernel(*empty), rt.visibility_plain(*empty)))
+        store_floor_ms = cuda_ms(lambda: rt.visibility_kernel(*empty), reps=20, warmup=3)
+        live, pairs = live_face_warps(coefs, ids, n_act, hw)
+    check(len(launches) == expected_launches(len(dets), est.cfg), "captured launches")
+    b = bound(*coarse)
+    print(f"  coarse shapes: B={coefs.shape[0]} F={coefs.shape[1]} T={ids.shape[1]} "
+          f"active_chunks={int(n_act.sum())} flops={b['flops']:.4g} bytes={b['bytes']:.4g} "
+          f"kernel_ms={per_launch[0]:.4f} plain_ms={plain_ms:.3f} bound_ms={b['bound_ms']:.4f}", flush=True)
+    print(f"  store floor (no active chunk): kernel_ms={store_floor_ms:.4f}; cull: {live} of {pairs} "
+          f"(face, warp) pairs evaluated ({live / max(pairs, 1):.4f}), "
+          f"{live * rt.WARP_ROWS * rt.TILE_W:.4g} face-pixel evaluations", flush=True)
+
+    # Per shape: the mean over the request's launches of that batch size.
+    names = {576: "coarse", 20: "refiner", 10: "rescore"}
+    by_shape = {}
+    for B in dict.fromkeys(vis[0].shape[0] for vis in launches):
+        idx = [i for i, vis in enumerate(launches) if vis[0].shape[0] == B]
+        with torch.inference_mode():
+            p_ms = cuda_ms(lambda: rt.visibility_plain(*launches[idx[0]]), reps=2, warmup=1)
+        bd = bound(*launches[idx[0]])
+        ms = [per_launch[i] for i in idx]
+        by_shape[f"{names.get(B, 'other')}_B{B}"] = dict(
+            launches=len(idx), ms=sum(ms) / len(ms), plain_ms=p_ms, bound_ms=bd["bound_ms"],
+            bound_by=bd["bound_by"])
+        print(f"  {names.get(B, 'other')}_B{B}: launches_per_request={len(idx)} "
+              f"kernel_ms={sum(ms) / len(ms):.4f} (per launch {', '.join(f'{t:.4f}' for t in ms)}) "
+              f"plain_ms={p_ms:.3f} bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})", flush=True)
+    request_ms = sum(per_launch)
+    print(f"  kernel device time per request: {request_ms:.4f} ms over {len(launches)} launches",
+          flush=True)
+    return dict(ms=per_launch[0], plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                store_floor_ms=store_floor_ms, request_ms=request_ms, by_shape=by_shape)
+
+
+def sass_report(build_dir: Path = BUILD_DIR) -> None:
+    """The kernel's loops in the SASS of the library built in `build_dir`
+    (where the toolkit has cuobjdump): for each loop (a branch back), its
+    instructions, its shared-memory loads and its f32 multiplies and adds.
+    The listing goes to `visibility.sass` beside the library."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = sorted(build_dir.glob("visibility-*.so"))
+    if not Path(cuobjdump).exists() or not libs:
+        print("  cuobjdump or the library not found: SASS not read", flush=True)
+        return
+    proc = subprocess.run([cuobjdump, "-sass", str(libs[-1])], capture_output=True, text=True, timeout=120)
+    (build_dir / "visibility.sass").write_text(proc.stdout)
+    code = [(int(m.group(1), 16), m.group(2)) for m in
+            re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", proc.stdout)]
+    op = lambda i: i.split()[1] if i.startswith("@") else i.split()[0]
+    loads = lambda seq: ", ".join(f"{k} {v}" for k, v in sorted(Counter(op(i) for _, i in seq).items())
+                                  if k.startswith(("LDS", "FMUL", "FADD"))) or "no LDS, FMUL or FADD"
+    print(f"  sass, whole kernel: {len(code)} instructions, {loads(code)}", flush=True)
+    for end, instr in code:
+        target = instr.split()[-1]
+        if op(instr) == "BRA" and target.startswith("0x") and int(target, 16) < end:
+            body = [(a, i) for a, i in code if int(target, 16) <= a <= end]
+            print(f"  sass, loop {target}-{end:#x}: {len(body)} instructions, {loads(body)}", flush=True)
 
 
 def phase_profile(est, requests) -> None:
@@ -380,14 +470,15 @@ def main() -> int:
         for line in rt.visibility_kernel.build_report.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
+        sass_report()
     with Phase("kernel vs plain"):
         phase_kernel_vs_plain(errors)
     with Phase("pipeline"):
-        est, requests, results, launches, db_kw = phase_pipeline()
+        est, requests, launches, db_kw = phase_pipeline()
     with Phase("cross-check vs cpu"):
         phase_cross_check(requests, db_kw)
     with Phase("kernel timing"):
-        timing = phase_kernel_timing(est, requests, results, errors)
+        timing = phase_kernel_timing(est, requests, errors)
     with Phase("profile"):
         phase_profile(est, requests)
     record = {"kernels": [{

@@ -4,139 +4,322 @@
 // megapose6d_tpu/ops/rasterizer_tiled.py. Phase A (torch) packs, per image,
 // one row of 32 floats per face: 3 edge planes, the 1/z plane and 6
 // attribute/z planes (rgb, object normal), each as (a, b, c) with
-// value = a*u + b*v + c; and, per screen tile, the list of face chunks whose
-// faces overlap the tile, sorted front to back. For each pixel this kernel
-// walks those chunks, takes each chunk's nearest covering face (largest 1/z;
-// on equal 1/z the largest face id), replaces the pixel's z-buffer only on
-// a strictly larger 1/z, and then evaluates the winner's 6 attribute planes.
+// value = a*u + b*v + c; and, per 16x32 screen tile, the list of face chunks
+// (16 faces each) whose faces overlap the tile, sorted front to back. For
+// each pixel this kernel walks those chunks, takes each chunk's nearest
+// covering face (largest 1/z; on equal 1/z the largest face id), replaces
+// the pixel's z-buffer only on a strictly larger 1/z, and then evaluates the
+// winner's 6 attribute planes.
 //
-// What bounds it: bytes. Every pixel writes 32 bytes (1/z, face id and 6
-// attributes), covered or not; at the coarse sweep's shape (576 images of
-// 240x320, 1536 faces) that is 1.42 GB of the 1.56 GB moved, 0.47 ms at
-// 3.35 TB/s, against ~0.35 ms for the plane evaluations at the f32 rate
-// outside the tensor cores (4 planes of 2 multiplies and 2 adds per
-// (pixel, face) of the active chunks).
+// The arithmetic is fixed: each plane constant is rebased (c + a*col0 +
+// b*row0) to the origin of the 32x128 cell of the TPU kernel's tiling that
+// holds the pixel, and every multiply and add is rounded separately
+// (__fmul_rn/__fadd_rn: no fused multiply-add), so the kernel reproduces the
+// plain torch version `visibility_plain` bit for bit.
 //
-// The simple design: one block per (image, 16x32 tile), one thread per
-// pixel, and each thread writes its outputs once, coalesced along a row.
-// The block stages each active chunk's coefficients (chunk x 32 floats) in
-// shared memory; every thread then reads the same row at the same time
-// (a broadcast). A thread keeps its own 1/z, face id and 6 attributes in
-// registers: on a win it evaluates the winner's attribute planes from the
-// staged row directly, which is the per-thread gather that the TPU kernel
-// avoided with a masked max over the chunk. While staging, each plane's
-// constant is rebased (c + a*col0 + b*row0) to the origin of the 32x128
-// cell of the TPU kernel's tiling that holds the block, so f32 evaluation
-// stays accurate and each pixel sees exactly the arithmetic of the TPU
-// kernel. Every multiply and add is rounded separately
-// (__fmul_rn/__fadd_rn: no fused multiply-add), so the kernel also
-// reproduces the plain torch version bit for bit. Any face count and any
-// batch run in one launch; nothing is segmented. Writing only covered
-// pixels would lower the bound; that waits for a faster design.
+// The first design (one block of 512 threads per tile, one pixel per thread,
+// every face of every active chunk at every pixel) ran at 2.16-2.19 ms at
+// the coarse sweep's shape (576 images of 240x320, 1536 faces, 181,347
+// active (tile, chunk) pairs) on an H100 80GB HBM3 at 700 W. Its SASS shows
+// what held it: not shared-memory loads (its face loop, unrolled by 2, read
+// a face's 12 test coefficients with 3 broadcast 16-byte loads: 4.6e7
+// warp-faces x 3 = 1.4e8 loads, ~0.6 ms at one per SM and cycle) but
+// instruction throughput: 30 instructions per face-pixel over 1.49e9
+// face-pixels, 1.4e9 warp instructions, ~1.5 ms at 4 per SM and cycle over
+// 132 SMs at ~1.75 GHz. Separately rounded multiplies and adds run one per
+// FP32 lane and cycle, half the FMA rate the 67 TFLOP/s peak counts.
+//
+// This design cuts the face-pixels and the instructions per face-pixel.
+// One block of 4 warps per 16x32 tile; warp w owns pixel rows 4w..4w+3 and
+// each thread one column of 4 pixels.
+// - Per chunk (16 faces, a compile-time constant), the block restages the
+//   faces' rebased planes into a 16-byte-aligned shared layout: per face,
+//   the a's, b's and c's of the 3 edge planes and the 1/z plane as three
+//   float4. A thread reads a face's test planes with 3 broadcast vector
+//   loads, forms a*u once for its column, and uses both for its 4 pixels.
+//   The next chunk's coefficients are fetched into registers while the
+//   current one is evaluated (a register double buffer; cp.async or TMA
+//   would add nothing at 2 KB a chunk).
+// - Each warp culls, with 3 ballots, the faces that provably cover none of
+//   its 4x32 pixels (see `cull_mask`), and loops in ascending face order
+//   over the rest only. The loop is warp-uniform. At the coarse shape it
+//   leaves 28% of the (face, warp) pairs of the active chunks.
+// - A pixel's winning attributes go to shared memory, where its warp's 4
+//   rows lie as they lie in the output. 1/z and face ids are stored a row
+//   of 32 pixels per warp store; the attributes of a whole tile of an image
+//   of even width leave as 6 16-byte stores a lane (elsewhere row by row,
+//   8 bytes a lane, masked at the ragged edge of the image). Tiles with no
+//   active chunk store the background constants only.
+// What bounds it: bytes, by the roofline. Every pixel writes 32 bytes (1/z,
+// face id and 6 attributes), covered or not: at the coarse shape 1.42 GB of
+// the 1.56 GB moved, 0.466 ms at 3.35 TB/s; the same tables with no active
+// chunk, which only store, take 0.48 ms. The face evaluations that the cull
+// leaves (105 instructions a warp for a face at 4 pixels) and the chunk
+// loop's latency come on top. Tensor cores do not fit: the product has
+// depth 3, and TF32 would change the bits. Writing only covered pixels, or
+// fusing phase C, would lower the bound; that waits for a later design.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kCoefW = 32;
 constexpr int kNAttr = 6;
-constexpr int kNPlanes = 10;  // 3 edges, 1/z, 6 attributes
-constexpr int kTileH = 16;  // one block per tile, one thread per pixel
+constexpr int kNTest = 4;  // 3 edge planes and the 1/z plane
+constexpr int kNPlanes = kNTest + kNAttr;
+constexpr int kChunk = 16;  // faces per chunk: the only chunk size taken
+constexpr int kTileH = 16;  // one block per 16x32 tile
 constexpr int kTileW = 32;
+constexpr int kRows = 4;  // pixel rows per thread (one column of 4)
+constexpr int kWarps = kTileH / kRows;
+constexpr int kThreads = 32 * kWarps;
 constexpr int kRebaseH = 32;  // the TPU kernel's tile: planes are rebased
 constexpr int kRebaseW = 128;  // to the origin of the cell holding a pixel
+constexpr int kItems = kChunk * kNPlanes;  // planes staged per chunk
+constexpr int kItemsPerThread = (kItems + kThreads - 1) / kThreads;
 static_assert(kRebaseH % kTileH == 0 && kRebaseW % kTileW == 0,
               "a block must lie in one rebasing cell");
+static_assert(kTileW == 32 && 2 * kChunk == 32,
+              "a warp spans a tile row; the cull's ballot holds two "
+              "footprint rows of a chunk");
 
-// a*u + b*v + c of plane k of a staged (rebased) row, at local (u, v).
-__device__ __forceinline__ float plane(const float* row, int k, float pu,
-                                       float pv) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(row[3 * k], pu),
-                             __fmul_rn(row[3 * k + 1], pv)),
-                   row[3 * k + 2]);
+// One chunk's planes, rebased. Plane e of the test planes (e0, e1, e2, 1/z)
+// of face j is (a[j][e], b[j][e], c[j][e]); attribute plane k is
+// attr[j][k] = (a, b, c, unused).
+struct Staged {
+  float4 a[kChunk];
+  float4 b[kChunk];
+  float4 c[kChunk];
+  float4 attr[kChunk][kNAttr];
+};
+
+__device__ __forceinline__ float lane_of(const float4& q, int e) {
+  return e == 0 ? q.x : e == 1 ? q.y : e == 2 ? q.z : q.w;
 }
 
-__global__ void visibility_kernel(const float* __restrict__ coefs,
-                                  const int* __restrict__ chunk_ids,
-                                  const int* __restrict__ n_active,
-                                  float* __restrict__ invz_out,
-                                  int* __restrict__ fid_out,
-                                  float* __restrict__ attr_out, int F, int T,
-                                  int n_chunks, int H, int W, int n_tw,
-                                  int chunk) {
-  extern __shared__ float s_coef[];  // [chunk, kCoefW]
-  const int b = blockIdx.x / T;
+// (a*u + b*v) + c with a*u given, rounded as the plain version rounds it.
+__device__ __forceinline__ float plane_au(float au, float b, float c,
+                                          float v) {
+  return __fadd_rn(__fadd_rn(au, __fmul_rn(b, v)), c);
+}
+
+// Bit j set: face j of the staged chunk covers no pixel of the warp's
+// footprint, columns [u_lo, u_hi] x rows [v_lo, v_hi] (rebased local
+// coordinates), so skipping it changes no output.
+//
+// Lane l tests face l % 16 at the footprint's top (l < 16) or bottom row;
+// a face is skipped when one of its edge planes, computed exactly as the
+// inside test computes it, is below 0 at all 4 corner pixel centres. Why
+// that is sound, with no margin: rounding to nearest is monotone, so
+// fl(a*u) is monotone in u (a's sign is fixed), fl(b*v) in v, and their
+// rounded sum plus c in each, infinities included. At a pixel whose value
+// is a number, that value is then at most the value at the corner that
+// the signs of a and b pick: an infinity that made the corner NaN would
+// make the pixel -inf or NaN too, and inf*0 (a = +-inf at u = 0) happens
+// at a corner column as well. So a face below 0 at the 4 corners fails the
+// inside test (e >= 0) at every pixel of the warp, and its candidate would
+// have been -inf, which neither wins nor ties a finite 1/z nor sets a
+// chunk's NaN flag. A corner that computes NaN is not below 0, so a face
+// with a NaN edge is kept; the neutral row of invalid faces (edge 0
+// constant -1e30, a = b = 0) is always skipped. A bounding-box test would
+// not do: a pixel centre lying exactly on an edge is inside.
+__device__ __forceinline__ unsigned cull_mask(const Staged& s, int lane,
+                                              float u_lo, float u_hi,
+                                              float v_lo, float v_hi) {
+  const int j = lane & (kChunk - 1);
+  const float v_row = lane < kChunk ? v_lo : v_hi;
+  const float4 A = s.a[j], B = s.b[j], C = s.c[j];
+  unsigned skip = 0;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float a = lane_of(A, e), b = lane_of(B, e), c = lane_of(C, e);
+    const float bv = __fmul_rn(b, v_row);
+    const float left = __fadd_rn(__fadd_rn(__fmul_rn(a, u_lo), bv), c);
+    const float right = __fadd_rn(__fadd_rn(__fmul_rn(a, u_hi), bv), c);
+    const unsigned m = __ballot_sync(0xffffffffu, left < 0.f && right < 0.f);
+    skip |= m & (m >> kChunk);  // both rows of corners of face j
+  }
+  return ~skip & ((1u << kChunk) - 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    visibility_kernel(const float* __restrict__ coefs,
+                      const int* __restrict__ chunk_ids,
+                      const int* __restrict__ n_active,
+                      float* __restrict__ invz_out, int* __restrict__ fid_out,
+                      float* __restrict__ attr_out, int F, int T,
+                      int n_chunks, int H, int W, int n_tw) {
+  __shared__ Staged s;
+  // The winners' attributes of the warp's pixels, row by row as they lie
+  // in the output: pixel (r, lane) at s_attr[warp][r][6 * lane + k].
+  __shared__ __align__(16) float s_attr[kWarps][kRows][kTileW * kNAttr];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int img = blockIdx.x / T;
   const int t = blockIdx.x % T;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  constexpr int n_threads = kTileH * kTileW;
   const int row0 = (t / n_tw) * kTileH;  // the block's pixel origin
   const int col0 = (t % n_tw) * kTileW;
   const int reb_row0 = row0 / kRebaseH * kRebaseH;  // its 32x128 cell
   const int reb_col0 = col0 / kRebaseW * kRebaseW;
   const float frow0 = static_cast<float>(reb_row0);
   const float fcol0 = static_cast<float>(reb_col0);
-  const float pu = static_cast<float>(col0 - reb_col0 + threadIdx.x);
-  const float pv = static_cast<float>(row0 - reb_row0 + threadIdx.y);
+  // The warp's footprint in local coordinates; the thread's column pu.
+  const int u0 = col0 - reb_col0;
+  const int v0 = row0 - reb_row0 + warp * kRows;
+  const float u_lo = static_cast<float>(u0);
+  const float u_hi = static_cast<float>(u0 + kTileW - 1);
+  const float v_lo = static_cast<float>(v0);
+  const float v_hi = static_cast<float>(v0 + kRows - 1);
+  const float pu = static_cast<float>(u0 + lane);
+  float pv[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) pv[r] = static_cast<float>(v0 + r);
 
-  float best = -CUDART_INF_F;
-  int best_fid = -1;
-  float attr[kNAttr] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float best[kRows];
+  int best_fid[kRows];
+  float2* my_attr[kRows];  // this thread's 6 attributes of row r
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    best[r] = -CUDART_INF_F;
+    best_fid[r] = -1;
+    my_attr[r] = reinterpret_cast<float2*>(&s_attr[warp][r][lane * kNAttr]);
+#pragma unroll
+    for (int k = 0; k < kNAttr / 2; ++k) my_attr[r][k] = make_float2(0.f, 0.f);
+  }
 
-  const long long bt = static_cast<long long>(b) * T + t;
-  const int na = n_active[bt];
+  // The tile's chunk count and first chunk are loaded side by side.
+  const long long bt = static_cast<long long>(img) * T + t;
   const int* ids = chunk_ids + bt * n_chunks;
-  const float* img_coefs = coefs + static_cast<long long>(b) * F * kCoefW;
-  const int chunk_floats = chunk * kCoefW;
+  const int na = n_active[bt];
+  const int ci0 = n_chunks > 0 ? ids[0] : 0;
+  const float* img_coefs = coefs + static_cast<long long>(img) * F * kCoefW;
+
+  // Item k of a chunk is plane k % kNPlanes of face k / kNPlanes; a thread
+  // fetches the (a, b, c) of its items of the next chunk ahead of time.
+  float pre[kItemsPerThread][3];
+  auto fetch = [&](int ci) {
+    const float* src = img_coefs + static_cast<long long>(ci) * kChunk * kCoefW;
+#pragma unroll
+    for (int m = 0; m < kItemsPerThread; ++m) {
+      const int k = threadIdx.x + m * kThreads;
+      if (k < kItems) {
+        const float* q = src + (k / kNPlanes) * kCoefW + 3 * (k % kNPlanes);
+        pre[m][0] = __ldg(q);
+        pre[m][1] = __ldg(q + 1);
+        pre[m][2] = __ldg(q + 2);
+      }
+    }
+  };
+  if (na > 0) fetch(ci0);
 
   for (int i = 0; i < na; ++i) {
     const int ci = ids[i];
-    const float* src = img_coefs + static_cast<long long>(ci) * chunk_floats;
     __syncthreads();  // the previous chunk is no longer read
-    for (int k = tid; k < chunk_floats; k += n_threads) s_coef[k] = src[k];
-    __syncthreads();
-    for (int k = tid; k < chunk * kNPlanes; k += n_threads) {
-      float* p = s_coef + (k / kNPlanes) * kCoefW + 3 * (k % kNPlanes);
-      p[2] = __fadd_rn(__fadd_rn(p[2], __fmul_rn(p[0], fcol0)),
-                       __fmul_rn(p[1], frow0));
-    }
-    __syncthreads();
-
-    float c_best = -CUDART_INF_F;
-    int c_j = 0;
-    bool nan_seen = false;
-    for (int j = 0; j < chunk; ++j) {
-      const float* row = s_coef + j * kCoefW;
-      const float e0 = plane(row, 0, pu, pv);
-      const float e1 = plane(row, 1, pu, pv);
-      const float e2 = plane(row, 2, pu, pv);
-      const float iz = plane(row, 3, pu, pv);
-      const bool inside = (e0 >= 0.f) && (e1 >= 0.f) && (e2 >= 0.f);
-      const float cand = inside ? iz : -CUDART_INF_F;
-      if (cand != cand) nan_seen = true;  // a NaN max voids the chunk
-      if (cand >= c_best) {  // ascending j: ties go to the largest id
-        c_best = cand;
-        c_j = j;
+#pragma unroll
+    for (int m = 0; m < kItemsPerThread; ++m) {
+      const int k = threadIdx.x + m * kThreads;
+      if (k < kItems) {
+        const int j = k / kNPlanes, p = k % kNPlanes;
+        const float a = pre[m][0], b = pre[m][1];
+        const float c = __fadd_rn(__fadd_rn(pre[m][2], __fmul_rn(a, fcol0)),
+                                  __fmul_rn(b, frow0));
+        if (p < kNTest) {
+          reinterpret_cast<float*>(&s.a[j])[p] = a;
+          reinterpret_cast<float*>(&s.b[j])[p] = b;
+          reinterpret_cast<float*>(&s.c[j])[p] = c;
+        } else {
+          s.attr[j][p - kNTest] = make_float4(a, b, c, 0.f);
+        }
       }
     }
-    if (!nan_seen && c_best > best) {  // strict: earlier chunks win ties
-      best = c_best;
-      best_fid = ci * chunk + c_j;
-      const float* row = s_coef + c_j * kCoefW;
+    __syncthreads();
+    if (i + 1 < na) fetch(ids[i + 1]);
+
+    float c_best[kRows];
+    int c_j[kRows];
+    bool c_nan[kRows];
 #pragma unroll
-      for (int k = 0; k < kNAttr; ++k)
-        attr[k] = plane(row, 4 + k, pu, pv);
+    for (int r = 0; r < kRows; ++r) {
+      c_best[r] = -CUDART_INF_F;
+      c_j[r] = 0;
+      c_nan[r] = false;
+    }
+    // Ascending j with >=: on equal 1/z the largest face id wins. A
+    // skipped face would only have offered -inf.
+    for (unsigned live = cull_mask(s, lane, u_lo, u_hi, v_lo, v_hi); live;
+         live &= live - 1) {
+      const int j = __ffs(live) - 1;
+      const float4 A = s.a[j], B = s.b[j], C = s.c[j];
+      const float au0 = __fmul_rn(A.x, pu), au1 = __fmul_rn(A.y, pu);
+      const float au2 = __fmul_rn(A.z, pu), auz = __fmul_rn(A.w, pu);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float e0 = plane_au(au0, B.x, C.x, pv[r]);
+        const float e1 = plane_au(au1, B.y, C.y, pv[r]);
+        const float e2 = plane_au(au2, B.z, C.z, pv[r]);
+        const float iz = plane_au(auz, B.w, C.w, pv[r]);
+        const bool inside = (e0 >= 0.f) && (e1 >= 0.f) && (e2 >= 0.f);
+        const float cand = inside ? iz : -CUDART_INF_F;
+        c_nan[r] |= cand != cand;  // a NaN max voids the chunk
+        if (cand >= c_best[r]) {
+          c_best[r] = cand;
+          c_j[r] = j;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (!c_nan[r] && c_best[r] > best[r]) {  // strict: earlier chunks win
+        best[r] = c_best[r];
+        best_fid[r] = ci * kChunk + c_j[r];
+        float v[kNAttr];
+#pragma unroll
+        for (int k = 0; k < kNAttr; ++k) {
+          const float4 P = s.attr[c_j[r]][k];
+          v[k] = plane_au(__fmul_rn(P.x, pu), P.y, P.z, pv[r]);
+        }
+#pragma unroll
+        for (int k = 0; k < kNAttr / 2; ++k)
+          my_attr[r][k] = make_float2(v[2 * k], v[2 * k + 1]);
+      }
     }
   }
 
-  const int y = row0 + threadIdx.y;
-  const int x = col0 + threadIdx.x;
-  if (y < H && x < W) {
-    const long long p = (static_cast<long long>(b) * H + y) * W + x;
-    invz_out[p] = best;
-    fid_out[p] = best_fid;
+  // Stores. 1/z and face ids a row of 32 pixels per warp store. A row's
+  // attributes are contiguous in [B, H, W, 6]: in a whole tile of an image
+  // of even width every row starts 16-byte aligned, and a warp's 4 rows
+  // leave as 6 float4 stores a lane; elsewhere row by row, 8 bytes a lane,
+  // masked at the ragged edge of the image.
+  __syncwarp();
+  const int y0 = row0 + warp * kRows;
+  const int n_px = min(kTileW, W - col0);
+  const long long p0 = (static_cast<long long>(img) * H + y0) * W + col0;
 #pragma unroll
-    for (int k = 0; k < kNAttr; ++k) attr_out[p * kNAttr + k] = attr[k];
+  for (int r = 0; r < kRows; ++r) {
+    if (y0 + r < H && lane < n_px) {
+      invz_out[p0 + r * W + lane] = best[r];
+      fid_out[p0 + r * W + lane] = best_fid[r];
+    }
+  }
+  constexpr int kRowVec = kTileW * kNAttr / 4;  // float4 in a tile row
+  const bool whole = n_px == kTileW && y0 + kRows <= H && (W & 1) == 0 &&
+                     (reinterpret_cast<uintptr_t>(attr_out) & 15) == 0;
+  if (whole) {
+#pragma unroll
+    for (int m = 0; m < kRows * kRowVec / 32; ++m) {
+      const int k = lane + 32 * m, r = k / kRowVec, q = k % kRowVec;
+      reinterpret_cast<float4*>(attr_out + (p0 + r * W) * kNAttr)[q] =
+          reinterpret_cast<const float4*>(s_attr[warp][r])[q];
+    }
+  } else {
+    for (int r = 0; r < kRows && y0 + r < H; ++r) {
+      float2* dst = reinterpret_cast<float2*>(attr_out + (p0 + r * W) * kNAttr);
+      for (int q = lane; q < n_px * kNAttr / 2; q += 32)
+        dst[q] = reinterpret_cast<const float2*>(s_attr[warp][r])[q];
+    }
   }
 }
 
@@ -144,20 +327,20 @@ __global__ void visibility_kernel(const float* __restrict__ coefs,
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
 // coefs [B, F, 32] f32, chunk_ids [B, T, n_chunks] i32, n_active [B, T] i32,
-// T the row-major 16x32 tiles of H x W;
+// T the row-major 16x32 tiles of H x W, chunk 16 (any other is refused);
 // outputs invz [B, H, W] f32, fid [B, H, W] i32, attr [B, H, W, 6] f32.
 extern "C" int visibility_launch(const float* coefs, const int* chunk_ids,
                                  const int* n_active, float* invz, int* fid,
                                  float* attr, int B, int F, int T,
                                  int n_chunks, int H, int W, int chunk,
                                  void* stream) {
+  if (chunk != kChunk) return cudaErrorInvalidValue;
   const int n_tw = (W + kTileW - 1) / kTileW;
   const long long n_blocks = static_cast<long long>(B) * T;
   if (n_blocks <= 0 || n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(chunk) * kCoefW * sizeof(float);
-  visibility_kernel<<<static_cast<unsigned>(n_blocks), dim3(kTileW, kTileH),
-                      smem, static_cast<cudaStream_t>(stream)>>>(
-      coefs, chunk_ids, n_active, invz, fid, attr, F, T, n_chunks, H, W, n_tw,
-      chunk);
+  visibility_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      coefs, chunk_ids, n_active, invz, fid, attr, F, T, n_chunks, H, W,
+      n_tw);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,11 +15,11 @@ Counterpart of `megapose6d_tpu/ops/rasterizer_tiled.py`:
 
 The TPU kernel's hypothesis packing and 8192-face segments exist for TPU
 VMEM; here a tile is one CUDA block of 16x32 pixels (`TILE_H`, `TILE_W`,
-fixed in `csrc/visibility.cu` too) and any face count renders in one
-launch. Plane constants are still rebased to the origin of the TPU
-kernel's 32x128 tile that holds the pixel (`REBASE_HW`), so every pixel
-sees the TPU kernel's arithmetic. The outputs do not depend on the batch
-or the face count.
+fixed in `csrc/visibility.cu` too), the kernel takes chunks of
+`KERNEL_CHUNK` faces, and any face count renders in one launch. Plane
+constants are still rebased to the origin of the TPU kernel's 32x128 tile
+that holds the pixel (`REBASE_HW`), so every pixel sees the TPU kernel's
+arithmetic. The outputs do not depend on the batch or the face count.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ from .rasterizer import RenderOutput, project_to_screen
 
 Tensor = torch.Tensor
 
-TILE_H = 16  # one CUDA block per tile, one thread per pixel
+TILE_H = 16  # one CUDA block per tile
 TILE_W = 32
+KERNEL_CHUNK = 16  # faces per chunk, a constant of the CUDA kernel
+WARP_ROWS = 4  # each of the kernel's warps owns 4 rows x 32 columns of a tile
 REBASE_HW = (32, 128)  # the TPU kernel's tile; a tile lies in one such cell
 N_ATTR = 6  # r, g, b, nx, ny, nz
 COEF_W = 32  # 9 edge + 3 invz + 18 attr + 2 pad
@@ -231,6 +233,52 @@ def visibility_plain(
     )
 
 
+def cull_plain(
+    coefs: Tensor,
+    chunk_ids: Tensor,
+    n_active: Tensor,
+    resolution: tuple[int, int],
+) -> Tensor:
+    """The CUDA kernel's per-warp face cull (`cull_mask` in
+    `csrc/visibility.cu`), the same arithmetic in torch.
+
+    Returns `[B, T, n, KERNEL_CHUNK, TILE_H // WARP_ROWS]` bool, with `n`
+    the largest `n_active`: True where warp `w` of tile `t` evaluates face
+    `j` of the tile's `i`-th chunk, False where the kernel skips it
+    (and past `n_active`). A face is skipped when one of its edge planes,
+    rebased and evaluated as phase B evaluates it, is below 0 at the 4
+    corner pixel centres of the warp's 4x32 pixels. Rounding is monotone,
+    so the computed plane is largest at one of those corners, and such a
+    face fails the inside test at every pixel of the warp."""
+    B, F, _ = coefs.shape
+    T = chunk_ids.shape[1]
+    n_tw = -(-resolution[1] // TILE_W)
+    n = int(n_active.max()) if n_active.numel() else 0
+    dev = coefs.device
+    t = torch.arange(T, device=dev)
+    tile_row0, tile_col0 = (t // n_tw) * TILE_H, (t % n_tw) * TILE_W
+    row0 = tile_row0 // REBASE_HW[0] * REBASE_HW[0]  # rebase origin [T]
+    col0 = tile_col0 // REBASE_HW[1] * REBASE_HW[1]
+    # Footprint corners in local coordinates, shaped [1, T, 1, 1, warp, 1].
+    fp = lambda x: x.float()[None, :, None, None, :, None]
+    warps = torch.arange(TILE_H // WARP_ROWS, device=dev) * WARP_ROWS
+    u_lo = fp((tile_col0 - col0)[:, None].expand(-1, len(warps)))
+    u_hi = u_lo + (TILE_W - 1)
+    v_lo = fp((tile_row0 - row0)[:, None] + warps)
+    v_hi = v_lo + (WARP_ROWS - 1)
+    cf = coefs.reshape(B, F // KERNEL_CHUNK, KERNEL_CHUNK, COEF_W)
+    cf = cf[torch.arange(B, device=dev)[:, None, None], chunk_ids[:, :, :n].long()]  # [B, T, n, 16, 32]
+    a, b, c = cf[..., 0:9:3], cf[..., 1:9:3], cf[..., 2:9:3]  # the edge planes
+    c = c + a * col0.float()[None, :, None, None, None] + b * row0.float()[None, :, None, None, None]
+    a, b, c = (x[..., None, :] for x in (a, b, c))  # [B, T, n, 16, 1, 3]
+    below = True
+    for u in (u_lo, u_hi):
+        for v in (v_lo, v_hi):
+            below = below & (a * u + b * v + c < 0)
+    active = torch.arange(n, device=dev) < n_active[..., None]  # [B, T, n]
+    return ~below.any(-1) & active[..., None, None]
+
+
 class _VisibilityKernel:
     """ctypes binding of `csrc/visibility.cu`, built at first use.
 
@@ -268,6 +316,8 @@ class _VisibilityKernel:
             raise ValueError("chunk_ids/n_active do not match coefs")
         if T != -(-H // TILE_H) * -(-W // TILE_W) or n_chunks * chunk != F:
             raise ValueError("tile or chunk layout does not match the inputs")
+        if chunk != KERNEL_CHUNK:
+            raise ValueError(f"the kernel takes chunks of {KERNEL_CHUNK} faces, not {chunk}")
         for x in (coefs, chunk_ids, n_active):
             if not x.is_cuda or not x.is_contiguous() or x.device != coefs.device:
                 raise ValueError("inputs must be contiguous tensors on one CUDA device")

@@ -6,7 +6,9 @@ repository's conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_visibility_cuda.py
 
 The kernel repeats the twin's arithmetic operation for operation, so face
-ids and background must be equal and 1/z and attributes bit-identical.
+ids and background must be equal and 1/z and attributes bit-identical. The
+kernel also skips, per warp of 4x32 pixels, faces that provably cover none
+of its pixels; the cases below put edges where that test is tightest.
 """
 
 import numpy as np
@@ -26,7 +28,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def tables(device, B, hw, mesh, seed=0):
+def tables(device, B, hw, mesh, seed=0, center=None):
     rng = np.random.RandomState(seed)
     rep = lambda a: torch.as_tensor(np.repeat(np.asarray(a)[None], B, 0), device=device)
     TCO = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
@@ -34,8 +36,8 @@ def tables(device, B, hw, mesh, seed=0):
     TCO[:, 0, 0], TCO[:, 0, 2], TCO[:, 2, 0], TCO[:, 2, 2] = np.cos(ang), np.sin(ang), -np.sin(ang), np.cos(ang)
     TCO[:, :3, 3] = np.stack([rng.normal(scale=0.01, size=B), rng.normal(scale=0.01, size=B),
                               rng.uniform(0.3, 0.5, B)], -1)
-    K = np.tile(np.asarray([[200.0, 0, hw[1] / 2 - 0.5], [0, 200.0, hw[0] / 2 - 0.5], [0, 0, 1]],
-                           np.float32), (B, 1, 1))
+    cx, cy = center if center is not None else (hw[1] / 2 - 0.5, hw[0] / 2 - 0.5)
+    K = np.tile(np.asarray([[200.0, 0, cx], [0, 200.0, cy], [0, 0, 1]], np.float32), (B, 1, 1))
     valid = torch.ones((B, mesh.n_faces), dtype=torch.bool, device=device)
     _, coefs, ids, n_act = rt.prepare_render(
         rep(mesh.vertices), rep(mesh.vertex_normals), rep(mesh.vertex_colors), rep(mesh.faces),
@@ -80,3 +82,84 @@ def test_kernel_refuses_bad_inputs(cuda):
         rt.visibility_kernel(coefs, ids, n_act, (64, 96), 16)  # tables of another tiling
     with pytest.raises(ValueError):
         rt.visibility_kernel(coefs.cpu(), ids, n_act, (64, 64), 16)
+
+
+def screen_tables(device, tri_uv, hw, seed=0, chunk=16):
+    """Phase A tables of triangles given in pixel coordinates, `tri_uv`
+    `[B, F, 3, 2]`, at random depths in [1, 2]."""
+    rng = np.random.RandomState(seed)
+    B, F = tri_uv.shape[:2]
+    z = rng.uniform(1.0, 2.0, size=(B, F, 3, 1))
+    screen = np.concatenate([tri_uv, z], -1).reshape(B, F * 3, 3).astype(np.float32)
+    normals = rng.normal(size=screen.shape).astype(np.float32)
+    colors = rng.uniform(size=screen.shape).astype(np.float32)
+    faces = np.tile(np.arange(F * 3, dtype=np.int32).reshape(1, F, 3), (B, 1, 1))
+    t = lambda a: torch.as_tensor(a, device=device)
+    valid = torch.ones((B, F), dtype=torch.bool, device=device)
+    return rt.prepare(t(screen), t(normals), t(colors), t(faces), valid, hw, chunk, 0.01)
+
+
+def test_kernel_equals_plain_on_slivers(cuda):
+    """Long triangles a thousandth to half a pixel wide, at every angle:
+    the faces whose edges pass nearest to the most pixel centres."""
+    rng = np.random.RandomState(1)
+    hw, B, F = (96, 160), 4, 512
+    p0 = rng.uniform([-10, -10], [hw[1] + 10, hw[0] + 10], size=(B, F, 2))
+    ang = rng.uniform(0, 2 * np.pi, size=(B, F, 1))
+    d = np.concatenate([np.cos(ang), np.sin(ang)], -1)
+    length = rng.uniform(5, 120, size=(B, F, 1))
+    width = 10.0 ** rng.uniform(-3, np.log10(0.5), size=(B, F, 1))
+    p1 = p0 + d * length
+    p2 = p1 + np.concatenate([-d[..., 1:], d[..., :1]], -1) * width
+    vis = screen_tables(cuda, np.stack([p0, p1, p2], 2), hw) + (hw, 16)
+    out = rt.visibility_kernel(*vis)
+    assert (out[1] >= 0).sum() > 1000
+    assert_identical(out, rt.visibility_plain(*vis))
+
+
+def test_kernel_equals_plain_on_footprint_borders(cuda):
+    """Triangles with integer vertices on the rows and columns that bound
+    the warps' 4x32 footprints, the 16x32 tiles and the 32x128 rebasing
+    cells: their edges run exactly through pixel centres on those borders
+    (edge value exactly 0, which is inside)."""
+    rng = np.random.RandomState(2)
+    hw, B, F = (64, 256), 3, 256
+    ys = np.array([y for k in range(0, 65, 4) for y in (k - 1, k) if 0 <= y < 64] + [-3, 70], float)
+    xs = np.array([x for k in range(0, 257, 32) for x in (k - 1, k) if 0 <= x < 256] + [-5, 300], float)
+    tri = np.stack([rng.choice(xs, size=(B, F, 3)), rng.choice(ys, size=(B, F, 3))], -1)
+    # Half of them are the two halves of border-aligned rectangles, whose
+    # shared diagonal and sides pass through pixel centres.
+    x0, x1 = np.sort(rng.choice(xs, size=(2, B, F // 4)), 0)
+    y0, y1 = np.sort(rng.choice(ys, size=(2, B, F // 4)), 0)
+    a, b, c, d = (np.stack(p, -1) for p in ((x0, y0), (x1, y0), (x1, y1), (x0, y1)))
+    tri[:, : F // 2] = np.concatenate([np.stack([a, b, c], 2), np.stack([a, c, d], 2)], 1)
+    vis = screen_tables(cuda, tri, hw, seed=3) + (hw, 16)
+    out = rt.visibility_kernel(*vis)
+    assert (out[1] >= 0).sum() > 1000
+    assert_identical(out, rt.visibility_plain(*vis))
+
+
+def test_kernel_equals_plain_across_rebasing_cells(cuda):
+    """A sphere whose silhouette straddles the corner of four 32x128
+    rebasing cells (the principal point between columns 127 and 128 and
+    rows 31 and 32)."""
+    mesh = mesh_io.make_uv_sphere(0.05, 20, 30)
+    hw = (96, 256)
+    vis = tables(cuda, 5, hw, mesh, center=(127.5, 31.5)) + (hw, 16)
+    out = rt.visibility_kernel(*vis)
+    fid = out[1]
+    assert (fid[:, :32, :128] >= 0).any() and (fid[:, 32:, 128:] >= 0).any()
+    assert_identical(out, rt.visibility_plain(*vis))
+
+
+def test_kernel_refuses_other_chunks(cuda):
+    """The kernel is built for chunks of 16 faces: tables of another chunk
+    are refused, never rendered another way."""
+    tri = np.random.RandomState(4).uniform(0, 64, size=(1, 64, 3, 2))
+    vis = screen_tables(cuda, tri, (64, 64), chunk=8) + ((64, 64), 8)
+    before = rt.visibility_kernel.launches
+    with pytest.raises(ValueError):
+        rt.visibility_kernel(*vis)
+    with pytest.raises(ValueError):
+        rt.visibility(*vis)
+    assert rt.visibility_kernel.launches == before
