@@ -16,9 +16,10 @@ Phases, each printing one line with its wall time:
      the same models on the CPU (plain phase B), in f32;
   6. kernel timing at the shapes of every render of one request (coarse
      sweep, refiner, rescore), each launch held bit for bit against the
-     plain twin, and their sum per request; at the coarse shape also the
-     plain twin, the bound, the store floor (the same tables with no active
-     chunk) and the share of face evaluations the kernel's cull leaves;
+     plain twin; per phase the kernel's and the plain twin's times and the
+     bound, and the kernel's sum per request; at the coarse shape also the
+     store floor (the same tables with no active chunk) and the share of
+     face evaluations the kernel's cull leaves;
   7. profile: one more request under torch.profiler: the device's busy
      share of the request's wall time and the kernels with the most device
      time.
@@ -230,13 +231,14 @@ def scene_requests(est: PoseEstimator, n: int):
     return requests
 
 
-def expected_launches(n_det: int, cfg: InferenceConfig) -> int:
-    """One kernel launch per render call: coarse chunks, then per refiner
-    chunk one per iteration, then one per rescoring chunk."""
+def launch_phases(n_det: int, cfg: InferenceConfig) -> list[str]:
+    """The phase of each kernel launch of one request, in launch order: one
+    launch per render call, the coarse chunks, then per refiner chunk one per
+    iteration, then one per rescoring chunk."""
     coarse = -(-n_det * cfg.SO3_grid_size // min(cfg.bsz_images, n_det * cfg.SO3_grid_size))
     n = n_det * cfg.n_pose_hypotheses
     chunks = -(-n // min(cfg.bsz_objects, n))
-    return coarse + chunks * cfg.n_refiner_iterations + chunks
+    return ["coarse"] * coarse + ["refiner"] * (chunks * cfg.n_refiner_iterations) + ["rescore"] * chunks
 
 
 def phase_pipeline():
@@ -257,7 +259,7 @@ def phase_pipeline():
         poses, extra = est.run_inference_pipeline(obs, dets)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        expected += expected_launches(len(dets), icfg)
+        expected += len(launch_phases(len(dets), icfg))
         tm = extra["timing"]
         print(f"  request {i}{' (warm-up)' if i == 0 else ''}: detections={len(dets)} "
               f"coarse_s={tm['coarse']:.4f} refiner_s={tm['refiner']:.4f} "
@@ -309,18 +311,31 @@ def phase_cross_check(requests, db_kw) -> None:
           f"refined rot_err_deg={deg:.3g} trans_err_mm={mm:.3g}", flush=True)
 
 
-def bound(coefs, ids, n_act, hw, chunk) -> dict:
-    """The least time the card could take for one launch: bytes (inputs
-    read once, 32 bytes of output per pixel) over the memory rate, against
-    the plane evaluations of every face of every active chunk (2 multiplies
-    and 2 adds per edge/1/z plane per face-pixel) over the f32 rate."""
-    B = coefs.shape[0]
+def work(coefs, ids, n_act, hw, chunk) -> tuple[int, int]:
+    """(flops, bytes) of one launch: the plane evaluations of every face of
+    every active chunk (2 multiplies and 2 adds per edge/1/z plane per
+    face-pixel), and the bytes this launch's data needs, each read or
+    written once: `n_active`, the active entries of each tile's chunk list,
+    the 30 plane coefficients (not the 2 of padding) of each face of a chunk
+    that some tile of its image makes active, and 32 bytes of output per
+    pixel."""
+    B, _, n_chunks = ids.shape
     H, W = hw
-    flops = 4 * 4 * chunk * rt.TILE_H * rt.TILE_W * int(n_act.sum())
-    nbytes = (coefs.numel() * 4 + ids.numel() * 4 + n_act.numel() * 4 + B * H * W * (4 + 4 + 4 * 6))
+    n_pairs = int(n_act.sum())
+    active = torch.arange(n_chunks, device=ids.device) < n_act[..., None]
+    used = torch.zeros((B, n_chunks + 1), dtype=torch.bool, device=ids.device)
+    used.scatter_(1, torch.where(active, ids.long(), n_chunks).reshape(B, -1), True)
+    n_coefs = int(used[:, :n_chunks].sum()) * chunk * (rt.COEF_W - 2)
+    flops = 4 * 4 * chunk * rt.TILE_H * rt.TILE_W * n_pairs
+    nbytes = n_act.numel() * 4 + n_pairs * 4 + n_coefs * 4 + B * H * W * (4 + 4 + 4 * 6)
+    return flops, nbytes
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for this work, and what sets it:
+    the flops over the f32 rate against the bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return dict(flops=flops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def live_face_warps(coefs, ids, n_act, hw) -> tuple[int, int]:
@@ -355,67 +370,68 @@ def phase_kernel_timing(est, requests, errors: list[float]) -> dict:
     """The kernel at the phase-B inputs of every render of one more
     request: the coarse sweep (576 hypotheses per detection), the refiner
     iterations and the rescoring. Each launch is held bit for bit against
-    the plain twin and timed. At the first coarse launch also: the plain
-    twin's time, the bound, the store floor (the same tables with no active
-    chunk: only the outputs' stores) and the share of face evaluations that
-    the kernel's cull leaves."""
+    the plain twin, and both are timed. Per phase and batch size: the means
+    over its launches of the kernel's and the plain twin's times and of the
+    bound. At the first coarse launch also: the store floor (the same
+    tables with no active chunk: only the outputs' stores) and the share of
+    face evaluations that the kernel's cull leaves."""
     obs, dets, _ = requests[-1]
     with torch.inference_mode():
         launches = capture_launches(est, obs, dets)
-        per_launch = []
+        per_launch, plain, works = [], [], []
         for vis in launches:
             errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
             per_launch.append(cuda_ms(lambda: rt.visibility_kernel(*vis), reps=20, warmup=3))
+            plain.append(cuda_ms(lambda: rt.visibility_plain(*vis), reps=1, warmup=0))
+            works.append(work(*vis))
         coarse = launches[0]
         coefs, ids, n_act, hw, chunk = coarse
-        plain_ms = cuda_ms(lambda: rt.visibility_plain(*coarse), reps=2, warmup=1)
         empty = (coefs, ids, torch.zeros_like(n_act), hw, chunk)
         errors.append(compare_visibility(rt.visibility_kernel(*empty), rt.visibility_plain(*empty)))
         store_floor_ms = cuda_ms(lambda: rt.visibility_kernel(*empty), reps=20, warmup=3)
         live, pairs = live_face_warps(coefs, ids, n_act, hw)
-    check(len(launches) == expected_launches(len(dets), est.cfg), "captured launches")
-    b = bound(*coarse)
+    phases = launch_phases(len(dets), est.cfg)
+    check(len(launches) == len(phases), "captured launches")
+    bound_ms, bound_by = bound(*works[0])
     print(f"  coarse shapes: B={coefs.shape[0]} F={coefs.shape[1]} T={ids.shape[1]} "
-          f"active_chunks={int(n_act.sum())} flops={b['flops']:.4g} bytes={b['bytes']:.4g} "
-          f"kernel_ms={per_launch[0]:.4f} plain_ms={plain_ms:.3f} bound_ms={b['bound_ms']:.4f}", flush=True)
+          f"active_chunks={int(n_act.sum())} flops={works[0][0]:.4g} bytes={works[0][1]:.4g}", flush=True)
     print(f"  store floor (no active chunk): kernel_ms={store_floor_ms:.4f}; cull: {live} of {pairs} "
           f"(face, warp) pairs evaluated ({live / max(pairs, 1):.4f}), "
           f"{live * rt.WARP_ROWS * rt.TILE_W:.4g} face-pixel evaluations", flush=True)
 
-    # Per shape: the mean over the request's launches of that batch size.
-    names = {576: "coarse", 20: "refiner", 10: "rescore"}
+    # Per phase and batch size: the mean over the request's launches.
+    groups: dict[str, list[int]] = {}
+    for i, (phase, vis) in enumerate(zip(phases, launches)):
+        groups.setdefault(f"{phase}_B{vis[0].shape[0]}", []).append(i)
     by_shape = {}
-    for B in dict.fromkeys(vis[0].shape[0] for vis in launches):
-        idx = [i for i, vis in enumerate(launches) if vis[0].shape[0] == B]
-        with torch.inference_mode():
-            p_ms = cuda_ms(lambda: rt.visibility_plain(*launches[idx[0]]), reps=2, warmup=1)
-        bd = bound(*launches[idx[0]])
-        ms = [per_launch[i] for i in idx]
-        by_shape[f"{names.get(B, 'other')}_B{B}"] = dict(
-            launches=len(idx), ms=sum(ms) / len(ms), plain_ms=p_ms, bound_ms=bd["bound_ms"],
-            bound_by=bd["bound_by"])
-        print(f"  {names.get(B, 'other')}_B{B}: launches_per_request={len(idx)} "
-              f"kernel_ms={sum(ms) / len(ms):.4f} (per launch {', '.join(f'{t:.4f}' for t in ms)}) "
-              f"plain_ms={p_ms:.3f} bound_ms={bd['bound_ms']:.4f} ({bd['bound_by']})", flush=True)
+    for key, idx in groups.items():
+        mean = lambda xs: sum(xs[i] for i in idx) / len(idx)
+        g_ms, g_by = bound(mean([w[0] for w in works]), mean([w[1] for w in works]))
+        by_shape[key] = dict(launches=len(idx), ms=mean(per_launch), plain_ms=mean(plain),
+                             bound_ms=g_ms, bound_by=g_by)
+        print(f"  {key}: launches_per_request={len(idx)} kernel_ms={mean(per_launch):.4f} "
+              f"plain_ms={mean(plain):.3f} bound_ms={g_ms:.4f} ({g_by}); per launch (kernel / bound ms) "
+              f"{', '.join(f'{per_launch[i]:.4f} / {bound(*works[i])[0]:.4f}' for i in idx)}", flush=True)
     request_ms = sum(per_launch)
-    print(f"  kernel device time per request: {request_ms:.4f} ms over {len(launches)} launches",
-          flush=True)
-    return dict(ms=per_launch[0], plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+    print(f"  first coarse launch: kernel_ms={per_launch[0]:.4f} bound_ms={bound_ms:.4f} "
+          f"share_of_bound={bound_ms / per_launch[0]:.4f}; kernel device time per request: "
+          f"{request_ms:.4f} ms over {len(launches)} launches", flush=True)
+    return dict(ms=per_launch[0], plain_ms=plain[0], bound_ms=bound_ms, bound_by=bound_by,
                 store_floor_ms=store_floor_ms, request_ms=request_ms, by_shape=by_shape)
 
 
-def sass_report(build_dir: Path = BUILD_DIR) -> None:
-    """The kernel's loops in the SASS of the library built in `build_dir`
-    (where the toolkit has cuobjdump): for each loop (a branch back), its
-    instructions, its shared-memory loads and its f32 multiplies and adds.
-    The listing goes to `visibility.sass` beside the library."""
+def sass_report() -> None:
+    """The kernel's loops in the SASS of the built library (where the
+    toolkit has cuobjdump): for each loop (a branch back), its instructions,
+    its shared-memory loads and its f32 multiplies and adds. The listing
+    goes to `visibility.sass` beside the library."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    libs = sorted(build_dir.glob("visibility-*.so"))
+    libs = sorted(BUILD_DIR.glob("visibility-*.so"))
     if not Path(cuobjdump).exists() or not libs:
         print("  cuobjdump or the library not found: SASS not read", flush=True)
         return
     proc = subprocess.run([cuobjdump, "-sass", str(libs[-1])], capture_output=True, text=True, timeout=120)
-    (build_dir / "visibility.sass").write_text(proc.stdout)
+    (BUILD_DIR / "visibility.sass").write_text(proc.stdout)
     code = [(int(m.group(1), 16), m.group(2)) for m in
             re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", proc.stdout)]
     op = lambda i: i.split()[1] if i.startswith("@") else i.split()[0]

@@ -52,10 +52,10 @@
 //   active chunk store the background constants only.
 // What bounds it: bytes, by the roofline. Every pixel writes 32 bytes (1/z,
 // face id and 6 attributes), covered or not: at the coarse shape 1.42 GB of
-// the 1.56 GB moved, 0.466 ms at 3.35 TB/s; the same tables with no active
-// chunk, which only store, take 0.48 ms. The face evaluations that the cull
-// leaves (105 instructions a warp for a face at 4 pixels) and the chunk
-// loop's latency come on top. Tensor cores do not fit: the product has
+// the 1.48 GB it must move, 0.441 ms at 3.35 TB/s; the same tables with no
+// active chunk, which only store, take 0.48 ms. The face evaluations that
+// the cull leaves (105 instructions a warp for a face at 4 pixels) and the
+// chunk loop's latency come on top. Tensor cores do not fit: the product has
 // depth 3, and TF32 would change the bits. Writing only covered pixels, or
 // fusing phase C, would lower the bound; that waits for a later design.
 
