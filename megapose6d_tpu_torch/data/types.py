@@ -1,6 +1,7 @@
-"""Observation tensor.
+"""Object and camera annotations, and the observation tensor.
 
-Counterpart of `ObservationTensor` in `megapose6d_tpu/data/types.py`.
+Counterpart of `ObjectData`, `CameraData` and `ObservationTensor` in
+`megapose6d_tpu/data/types.py` (the fields the port reads).
 """
 
 from __future__ import annotations
@@ -9,6 +10,26 @@ import dataclasses
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class ObjectData:
+    """One annotated object instance of a frame."""
+
+    label: str
+    TWO: np.ndarray | None = None  # [4, 4], world == camera for BOP frames
+    unique_id: int | None = None
+    bbox_amodal: np.ndarray | None = None  # [4] xyxy
+    bbox_modal: np.ndarray | None = None  # [4] xyxy, the visible part
+    visib_fract: float | None = None
+
+
+@dataclasses.dataclass
+class CameraData:
+    """A frame's camera."""
+
+    K: np.ndarray | None = None  # [3, 3]
+    resolution: tuple[int, int] | None = None  # (h, w)
 
 
 @dataclasses.dataclass

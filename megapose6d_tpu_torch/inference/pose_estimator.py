@@ -12,8 +12,8 @@ batch dimensions are written out, loops are Python, and the last chunk is
 simply shorter. Every hypothesis is computed independently, so the
 results do not depend on the chunking. The fused and sharded modes, the
 hierarchical prune, the coarse LOD database, low-resolution coarse
-renders, f32 rescoring, external initial poses and depth refinement are
-not ported yet and raise.
+renders, f32 rescoring, external initial poses, detector boxes and depth
+refinement are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..data.tensor_collection import TensorCollection
@@ -43,6 +44,7 @@ def _check_supported(cfg: InferenceConfig) -> None:
         "rescore_f32": cfg.rescore_f32,
         "run_depth_refiner": cfg.run_depth_refiner,
         "coarse_estimation_type=external": cfg.coarse_estimation_type == "external",
+        "detection_type=detector": cfg.detection_type == "detector",
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
@@ -148,10 +150,14 @@ class PoseEstimator:
 
         Args:
           observation: batch size 1.
-          detections: labels + `bboxes [D, 4]` (+ `scores [D]`).
+          detections: infos (`label`, `score`, ...) + `bboxes [D, 4]`.
         Returns:
-          (labels + `poses [D, 4, 4]`, `pose_score [D]`, `pose_logit [D]`;
-          extra data with per-phase timing and intermediate results).
+          (the detections' infos with `pose_score` and `pose_logit` columns
+          added, and the tensors `poses [D, 4, 4]`, `pose_score [D]`,
+          `pose_logit [D]`; extra data with per-phase timing and
+          intermediate results, among them the refiner's trajectory
+          `[n_iter, D, K, 4, 4]` and the rescored logits `[D, K]` of all K
+          hypotheses).
         """
         cfg = self.cfg
         n_iter = n_refiner_iterations or cfg.n_refiner_iterations
@@ -165,12 +171,12 @@ class PoseEstimator:
 
         if len(detections) > cfg.max_detections:
             # Keep the highest-scoring rows, in their original order.
-            scores = detections.tensors.get("scores")
+            scores = detections.infos.get("score")
             if scores is None:
-                keep = torch.arange(cfg.max_detections)
+                keep = np.arange(cfg.max_detections)
             else:
-                order = torch.sort(-scores.cpu(), stable=True).indices
-                keep = torch.sort(order[: cfg.max_detections]).values
+                order = np.argsort(-np.asarray(scores, np.float64), kind="stable")
+                keep = np.sort(order[: cfg.max_detections])
             detections = detections[keep]
         D = len(detections)
         mesh_idx = self.mesh_db.label_to_index(detections.labels)
@@ -207,9 +213,11 @@ class PoseEstimator:
         timing["total"] = self._clock() - t_start
         self.timing_ = timing
 
+        pose_score = torch.sigmoid(best_logit)
         poses = TensorCollection(
-            detections.labels, poses=TCO_best, pose_score=torch.sigmoid(best_logit),
-            pose_logit=best_logit,
+            infos={**detections.infos, "pose_score": pose_score.cpu().numpy(),
+                   "pose_logit": best_logit.cpu().numpy()},
+            poses=TCO_best, pose_score=pose_score, pose_logit=best_logit,
         )
         extra = {
             "timing": timing,

@@ -17,6 +17,7 @@ from ..data.tensor_collection import TensorCollection
 
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
+    detection_type: str = "gt"  # "detector": not ported yet
     coarse_estimation_type: str = "SO3_grid"  # "external": not ported yet
     SO3_grid_size: int = 576
     SO3_prune_grid_size: int = 0  # hierarchical coarse mode: not ported yet
@@ -37,8 +38,14 @@ def make_detections(
     scores=None,
     device: str | torch.device = "cuda",
 ) -> TensorCollection:
-    """Detections: labels + `bboxes [D, 4]` (x1, y1, x2, y2) + `scores [D]`."""
+    """Detections: infos `label, score, batch_im_id, instance_id` (as the
+    JAX package's `make_detections`) + `bboxes [D, 4]` (x1, y1, x2, y2)."""
     n = len(labels)
     bboxes = torch.as_tensor(np.asarray(bboxes, np.float32).reshape(n, 4), device=device)
-    scores = torch.ones(n) if scores is None else torch.as_tensor(np.asarray(scores, np.float32))
-    return TensorCollection(labels, bboxes=bboxes, scores=scores.to(device))
+    infos = {
+        "label": list(labels),
+        "score": np.ones(n) if scores is None else np.asarray(scores),
+        "batch_im_id": np.zeros(n, np.int64),
+        "instance_id": np.arange(n, dtype=np.int64),
+    }
+    return TensorCollection(infos=infos, bboxes=bboxes)

@@ -1,8 +1,8 @@
 """Mesh loading and preprocessing (host-side numpy).
 
-Counterpart of `megapose6d_tpu/meshes/io.py` for PLY meshes with vertex
-colours. Texture images are not read (textured rendering waits), so the
-port needs no image library.
+Counterpart of `megapose6d_tpu/meshes/io.py`: PLY and OBJ meshes with
+vertex colours or a texture image (`comment TextureFile` of a BOP PLY, the
+`map_Kd` of an OBJ's material), read by the port's own PNG decoder.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
+
+from ..utils.png import read_png
 
 
 @dataclasses.dataclass
@@ -21,6 +23,10 @@ class TriMesh:
     faces: np.ndarray  # [F, 3]
     vertex_normals: np.ndarray | None = None  # [V, 3]
     vertex_colors: np.ndarray | None = None  # [V, 3] in [0, 1]
+    # Per-pixel texturing: per-vertex uv in image convention (u right,
+    # v down) and the texture image; both None for untextured meshes.
+    vertex_uvs: np.ndarray | None = None  # [V, 2] float32 in [0, 1]
+    texture: np.ndarray | None = None  # [TH, TW, 3] uint8
 
     def __post_init__(self):
         self.vertices = np.ascontiguousarray(self.vertices, np.float32)
@@ -87,12 +93,15 @@ def load_ply(path: str | Path) -> TriMesh:
 
     fmt = None
     elements: list[tuple[str, int, list]] = []  # (name, count, props)
+    texture_file = None
     for line in header:
         tok = line.strip().split()
         if not tok:
             continue
         if tok[0] == "format":
             fmt = tok[1]
+        elif tok[0] == "comment" and len(tok) >= 3 and tok[1] == "TextureFile":
+            texture_file = tok[2]  # BOP: `comment TextureFile obj_000001.png`
         elif tok[0] == "element":
             elements.append((tok[1], int(tok[2]), []))
         elif tok[0] == "property":
@@ -103,7 +112,7 @@ def load_ply(path: str | Path) -> TriMesh:
     if fmt not in ("ascii", "binary_little_endian"):
         raise ValueError(f"unsupported PLY format {fmt!r}: {path}")
 
-    verts = normals = colors = faces = None
+    verts = normals = colors = uvs = faces = None
     if fmt == "ascii":
         rows = body.decode("ascii").split("\n")
         cursor = 0
@@ -112,7 +121,7 @@ def load_ply(path: str | Path) -> TriMesh:
             cursor += count
             if name == "vertex":
                 arr = np.array([r.split() for r in chunk], dtype=np.float64)
-                verts, normals, colors = _extract_vertex_cols(arr, [p[2] for p in props])
+                verts, normals, colors, uvs = _extract_vertex_cols(arr, [p[2] for p in props])
             elif name == "face":
                 faces = _parse_ascii_faces(chunk)
     else:
@@ -125,7 +134,7 @@ def load_ply(path: str | Path) -> TriMesh:
                 if name == "vertex":
                     cols = [p[2] for p in props]
                     flat = np.stack([arr[c].astype(np.float64) for c in cols], -1)
-                    verts, normals, colors = _extract_vertex_cols(flat, cols)
+                    verts, normals, colors, uvs = _extract_vertex_cols(flat, cols)
                 continue
             # An element with a list property: parse row by row.
             polys = []
@@ -147,12 +156,33 @@ def load_ply(path: str | Path) -> TriMesh:
 
     if verts is None or faces is None:
         raise ValueError(f"PLY missing vertices or faces: {path}")
+    texture = None
+    if texture_file is not None and uvs is not None:
+        tex_path = Path(path).parent / texture_file
+        if tex_path.exists():
+            texture = _read_rgb(tex_path)
+            uvs = np.stack([uvs[:, 0], 1.0 - uvs[:, 1]], axis=-1)  # GL v up -> image rows
+    if texture is None:
+        uvs = None
     return TriMesh(
         vertices=verts.astype(np.float32),
         faces=faces.astype(np.int32),
         vertex_normals=None if normals is None else normals.astype(np.float32),
         vertex_colors=None if colors is None else colors.astype(np.float32),
+        vertex_uvs=None if uvs is None else uvs.astype(np.float32),
+        texture=texture,
     )
+
+
+def _read_rgb(path: Path) -> np.ndarray:
+    """A texture image as `[H, W, 3]` uint8 (grey replicated, alpha
+    dropped, as PIL's `convert("RGB")`)."""
+    img = read_png(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"texture must be an 8-bit image: {path}")
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    return np.ascontiguousarray(img[..., :3])
 
 
 def _extract_vertex_cols(arr, cols):
@@ -163,7 +193,10 @@ def _extract_vertex_cols(arr, cols):
     colors = get(["red", "green", "blue"])
     if colors is not None and colors.max() > 1.0:
         colors = colors / 255.0
-    return get(["x", "y", "z"]), get(["nx", "ny", "nz"]), colors
+    uvs = get(["texture_u", "texture_v"])
+    if uvs is None:
+        uvs = get(["s", "t"])
+    return get(["x", "y", "z"]), get(["nx", "ny", "nz"]), colors, uvs
 
 
 def _parse_ascii_faces(rows: list[str]) -> np.ndarray:
@@ -181,11 +214,132 @@ def _triangulate(polys: list[np.ndarray]) -> np.ndarray:
     return np.asarray(tris, np.int64)
 
 
-def load_mesh(path: str | Path) -> TriMesh:
-    """Load a mesh by extension (PLY; OBJ waits with textures)."""
-    if Path(path).suffix.lower() != ".ply":
-        raise NotImplementedError(f"only PLY meshes are read by the port: {path}")
-    return load_ply(path)
+def _wrap_unit(u: np.ndarray) -> np.ndarray:
+    """Wrap texture coordinates into [0, 1], keeping values already in
+    range (u = 1.0 stays 1.0, where `% 1.0` would give 0.0)."""
+    u = np.asarray(u, np.float64)
+    return np.where((u >= 0.0) & (u <= 1.0), u, u - np.floor(u))
+
+
+def load_obj(path: str | Path, bake_texture: bool = True) -> TriMesh:
+    """Parse a Wavefront OBJ. The first `map_Kd` of its `.mtl` is baked to
+    vertex colours, or with `bake_texture=False` kept for per-pixel
+    texturing: vertices are then split on unique (v, vt) pairs so that uvs
+    are per vertex."""
+    path = Path(path)
+    vs, vts, faces_v, faces_vt = [], [], [], []
+    mtl_file = None
+    with open(path, "r", errors="replace") as f:
+        for line in f:
+            tok = line.split()
+            if not tok:
+                continue
+            if tok[0] == "v":
+                vs.append([float(x) for x in tok[1:4]])
+            elif tok[0] == "vt":
+                vts.append([float(tok[1]), float(tok[2])])
+            elif tok[0] == "mtllib":
+                mtl_file = tok[1]
+            elif tok[0] == "f":
+                idxs, tidxs = [], []
+                for vert in tok[1:]:
+                    parts = vert.split("/")
+                    idxs.append(int(parts[0]))
+                    if len(parts) > 1 and parts[1]:
+                        tidxs.append(int(parts[1]))
+                for k in range(1, len(idxs) - 1):
+                    faces_v.append((idxs[0], idxs[k], idxs[k + 1]))
+                    if len(tidxs) == len(idxs):
+                        faces_vt.append((tidxs[0], tidxs[k], tidxs[k + 1]))
+
+    verts = np.asarray(vs, np.float64)
+    nv = len(verts)
+    faces = np.asarray(faces_v, np.int64)
+    faces = np.where(faces > 0, faces - 1, faces + nv)  # 1-based, or negative from the end
+
+    tex = fvt = uvs_raw = None
+    if mtl_file and vts and len(faces_vt) == len(faces_v):
+        tex = _load_mtl_texture(path.parent / mtl_file)
+        if tex is not None:
+            uvs_raw = np.asarray(vts, np.float64)
+            fvt = np.asarray(faces_vt, np.int64)
+            fvt = np.where(fvt > 0, fvt - 1, fvt + len(uvs_raw))
+
+    colors = vertex_uvs = texture_u8 = None
+    if tex is not None:
+        if bake_texture:
+            colors = _bake_vertex_colors(nv, faces, fvt, uvs_raw, tex)
+        else:
+            pairs = np.stack([faces.reshape(-1), fvt.reshape(-1)], axis=1)
+            uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
+            verts = verts[uniq[:, 0]]
+            uv = uvs_raw[uniq[:, 1]]
+            # OBJ v is GL convention (v up); flip to image rows.
+            vertex_uvs = np.stack([_wrap_unit(uv[:, 0]), 1.0 - _wrap_unit(uv[:, 1])], axis=-1)
+            vertex_uvs = vertex_uvs.astype(np.float32)
+            faces = inv.reshape(-1, 3)
+            texture_u8 = (np.clip(tex, 0, 1) * 255).astype(np.uint8)
+
+    return TriMesh(
+        vertices=verts.astype(np.float32),
+        faces=faces.astype(np.int32),
+        vertex_colors=colors,
+        vertex_uvs=vertex_uvs,
+        texture=texture_u8,
+    )
+
+
+def _load_mtl_texture(mtl_path: Path) -> np.ndarray | None:
+    """The first `map_Kd` image of a material file, `[H, W, 3]` float in
+    [0, 1], or None."""
+    if not mtl_path.exists():
+        return None
+    tex_file = None
+    with open(mtl_path, "r", errors="replace") as f:
+        for line in f:
+            tok = line.split()
+            if tok and tok[0].lower() == "map_kd":
+                tex_file = tok[-1]
+                break
+    if tex_file is None or not (mtl_path.parent / tex_file).exists():
+        return None
+    return _read_rgb(mtl_path.parent / tex_file).astype(np.float32) / 255.0
+
+
+def _bake_vertex_colors(nv, faces, faces_vt, uvs, tex) -> np.ndarray:
+    """Average the texel colour of each vertex's texcoords over its face
+    corners."""
+    H, W, _ = tex.shape
+    colors = np.zeros((nv, 3), np.float64)
+    counts = np.zeros((nv, 1), np.float64)
+    uv = uvs[faces_vt.reshape(-1)]  # [F*3, 2]
+    u = np.clip((uv[:, 0] % 1.0) * (W - 1), 0, W - 1).astype(np.int64)
+    v = np.clip(((1.0 - uv[:, 1]) % 1.0) * (H - 1), 0, H - 1).astype(np.int64)
+    vidx = faces.reshape(-1)
+    np.add.at(colors, vidx, tex[v, u])
+    np.add.at(counts, vidx, 1.0)
+    return (colors / np.maximum(counts, 1.0)).astype(np.float32)
+
+
+def bake_texture_to_colors(mesh: TriMesh) -> TriMesh:
+    """Vertex colours from the texel at each vertex uv; drops the texture."""
+    if mesh.texture is None or mesh.vertex_uvs is None:
+        return mesh
+    H, W, _ = mesh.texture.shape
+    u = np.clip(mesh.vertex_uvs[:, 0] * (W - 1), 0, W - 1).astype(np.int64)
+    v = np.clip(mesh.vertex_uvs[:, 1] * (H - 1), 0, H - 1).astype(np.int64)
+    colors = mesh.texture[v, u].astype(np.float32) / 255.0
+    return dataclasses.replace(mesh, vertex_colors=colors, vertex_uvs=None, texture=None)
+
+
+def load_mesh(path: str | Path, **kw) -> TriMesh:
+    """Load a PLY or OBJ mesh by extension (`kw` goes to `load_obj`)."""
+    suffix = Path(path).suffix.lower()
+    if suffix == ".ply":
+        return load_ply(path)
+    if suffix == ".obj":
+        return load_obj(path, **kw)
+    raise ValueError(f"unsupported mesh format: {path}")
 
 
 def simplify_vertex_clustering(mesh: TriMesh, target_faces: int) -> TriMesh:

@@ -186,7 +186,7 @@ class PosePredictor(nn.Module):
             mesh_mv.face_valid, TCV_O.reshape(B * V, 4, 4), KV.reshape(B * V, 3, 3),
             (H, W), z_near=cfg.z_near, chunk=cfg.tile_face_chunk,
             light_ambient=light_ambient, light_point=light_point,
-            backface_cull=cfg.backface_cull,
+            backface_cull=cfg.backface_cull, **mesh_mv.texture_kw,
         )
         chans = [out.rgb, out.normals] if cfg.render_normals else [out.rgb]
         r = torch.cat(chans, dim=-1).reshape(B, V, H, W, -1)

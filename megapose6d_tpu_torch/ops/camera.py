@@ -11,6 +11,14 @@ import torch
 Tensor = torch.Tensor
 
 
+def project_points(points_3d: Tensor, K: Tensor, TCO: Tensor) -> Tensor:
+    """Object-frame points `[B, N, 3]` -> pixels `[B, N, 2]`."""
+    P = K @ TCO[..., :3, :]
+    pts_h = torch.cat([points_3d, torch.ones_like(points_3d[..., :1])], dim=-1)
+    suv = torch.einsum("...ij,...nj->...ni", P, pts_h)
+    return suv[..., :2] / suv[..., 2:3]
+
+
 def project_points_robust(
     points_3d: Tensor, K: Tensor, TCO: Tensor, z_min: float = 0.1
 ) -> Tensor:

@@ -10,8 +10,9 @@ Counterpart of `megapose6d_tpu/ops/rasterizer_tiled.py`:
     interpolated attributes. On a CUDA tensor it launches
     `csrc/visibility.cu` (the port of the Pallas `_visibility_kernel`); on
     a CPU tensor it runs `visibility_plain`, the same arithmetic in torch.
-  Phase C (`render_meshes_tiled` tail): perspective divide, lighting and
-    eye-space normals.
+  Phase C (`shade`): perspective divide, the texture lookup of textured
+    meshes (their uv rides through phases A and B in the colour slots, so
+    the kernel is the same for both), lighting and eye-space normals.
 
 The TPU kernel's hypothesis packing and 8192-face segments exist for TPU
 VMEM; here a tile is one CUDA block of 16x32 pixels (`TILE_H`, `TILE_W`,
@@ -29,7 +30,7 @@ import threading
 
 import torch
 
-from .rasterizer import RenderOutput, project_to_screen
+from .rasterizer import RenderOutput, apply_uv_as_colors, project_to_screen, sample_textures_bilinear
 
 Tensor = torch.Tensor
 
@@ -196,35 +197,37 @@ def visibility_plain(
     pix = torch.arange(P, device=dev)
     pu = ((tile_col0 - col0)[:, None] + pix % TILE_W).float()  # [T, P] local coords
     pv = ((tile_row0 - row0)[:, None] + pix // TILE_W).float()
-    row0, col0 = row0.float()[None, :, None], col0.float()[None, :, None]  # [1, T, 1]
+    row0, col0 = row0.float(), col0.float()  # [T]
 
     best = torch.full((B, T, P), float("-inf"), device=dev)
     fid = torch.full((B, T, P), -1, dtype=torch.int32, device=dev)
     attr = torch.zeros((B, T, P, N_ATTR), device=dev)
     coefs_c = coefs.reshape(B, F // chunk, chunk, COEF_W)
-    bidx = torch.arange(B, device=dev)[:, None]
-    j_ids = torch.arange(chunk, device=dev)[None, None, :, None]
+    j_ids = torch.arange(chunk, device=dev)[None, :, None]
     n_max = int(n_active.max()) if n_active.numel() else 0
     for i in range(n_max):
-        ci = chunk_ids[:, :, i].long()  # [B, T]
-        cf = coefs_c[bidx, ci]  # [B, T, chunk, 32]
-        # Edge and 1/z planes of every face at every pixel: [B, T, chunk, 4, P].
+        # Only the (image, tile) pairs whose i-th chunk is active: M of them.
+        bi, ti = torch.nonzero(i < n_active, as_tuple=True)
+        ci = chunk_ids[bi, ti, i].long()  # [M]
+        cf = coefs_c[bi, ci]  # [M, chunk, 32]
+        c0, r0 = col0[ti, None, None, None], row0[ti, None, None, None]
+        # Edge and 1/z planes of every face at every pixel: [M, chunk, 4, P].
         a, b, c = cf[..., 0:12:3, None], cf[..., 1:12:3, None], cf[..., 2:12:3, None]
-        c = c + a * col0[..., None, None] + b * row0[..., None, None]
-        val = a * pu[:, None, None] + b * pv[:, None, None] + c
-        inside = (val[:, :, :, 0] >= 0) & (val[:, :, :, 1] >= 0) & (val[:, :, :, 2] >= 0)
-        cand = torch.where(inside, val[:, :, :, 3], float("-inf"))  # [B, T, chunk, P]
-        c_best = cand.amax(dim=2)  # NaN propagates and voids the chunk
-        c_j = torch.where(cand >= c_best[:, :, None], j_ids, -1).amax(dim=2)
-        better = (c_best > best) & (i < n_active)[..., None]
-        best = torch.where(better, c_best, best)
-        fid = torch.where(better, (ci[..., None] * chunk + c_j).int(), fid)
-        # The winner's 6 attribute planes at each pixel: [B, T, P, 6].
-        row = torch.gather(cf, 2, c_j.clamp_min(0)[..., None].expand(-1, -1, -1, COEF_W))
+        c = c + a * c0 + b * r0
+        val = a * pu[ti, None, None] + b * pv[ti, None, None] + c
+        inside = (val[:, :, 0] >= 0) & (val[:, :, 1] >= 0) & (val[:, :, 2] >= 0)
+        cand = torch.where(inside, val[:, :, 3], float("-inf"))  # [M, chunk, P]
+        c_best = cand.amax(dim=1)  # NaN propagates and voids the chunk
+        c_j = torch.where(cand >= c_best[:, None], j_ids, -1).amax(dim=1)  # [M, P]
+        better = c_best > best[bi, ti]
+        best[bi, ti] = torch.where(better, c_best, best[bi, ti])
+        fid[bi, ti] = torch.where(better, (ci[:, None] * chunk + c_j).int(), fid[bi, ti])
+        # The winner's 6 attribute planes at each pixel: [M, P, 6].
+        row = torch.gather(cf, 1, c_j.clamp_min(0)[..., None].expand(-1, -1, COEF_W))
         a, b, c = row[..., 12:30:3], row[..., 13:30:3], row[..., 14:30:3]
-        c = c + a * col0[..., None] + b * row0[..., None]
-        win_attr = a * pu[..., None] + b * pv[..., None] + c
-        attr = torch.where(better[..., None], win_attr, attr)
+        c = c + a * c0[..., 0] + b * r0[..., 0]
+        win_attr = a * pu[ti, :, None] + b * pv[ti, :, None] + c
+        attr[bi, ti] = torch.where(better[..., None], win_attr, attr[bi, ti])
 
     return (
         _tiles_to_image(best[:, :, :, None], n_th, n_tw, H, W)[..., 0],
@@ -394,8 +397,12 @@ def shade(
     TCO: Tensor,
     light_ambient: float | Tensor = 0.1,
     light_point: float | Tensor = 0.4,
+    textures: Tensor | None = None,
+    has_tex: Tensor | None = None,
 ) -> RenderOutput:
-    """Phase C: perspective divide, lighting `ambient + point * |n_obj|_1`
+    """Phase C: perspective divide, the albedo (the texture at the
+    interpolated uv where `has_tex [B]`, given `textures [B, TS, TS, 3]`;
+    else the interpolated colour), lighting `ambient + point * |n_obj|_1`
     (six axis lights in the object frame), eye-space normals."""
     B = invz.shape[0]
     hit = fid >= 0
@@ -403,6 +410,9 @@ def shade(
     depth = torch.where(hit, 1.0 / invz_safe, torch.zeros_like(invz_safe))
     attrs = attrs / invz_safe[..., None]  # perspective divide
     albedo = attrs[..., 0:3].clamp(0.0, 1.0)
+    if textures is not None and has_tex is not None:
+        tex_rgb = sample_textures_bilinear(textures, attrs[..., 0:2].clamp(0.0, 1.0))
+        albedo = torch.where(has_tex[:, None, None, None], tex_rgb, albedo)
     n_obj = attrs[..., 3:6]
     n_obj = n_obj / torch.linalg.norm(n_obj, dim=-1, keepdim=True).clamp_min(1e-9)
     amb = torch.as_tensor(light_ambient, dtype=torch.float32, device=invz.device)
@@ -430,6 +440,9 @@ def render_meshes_tiled(
     light_ambient: float | Tensor = 0.1,
     light_point: float | Tensor = 0.4,
     backface_cull: bool = False,
+    uvs: Tensor | None = None,
+    textures: Tensor | None = None,
+    has_tex: Tensor | None = None,
 ) -> RenderOutput:
     """Render `B` meshes (`vertices/normals/colors [B, V, 3]`, `faces
     [B, F, 3]`, `face_valid [B, F]`) at poses `TCO [B, 4, 4]` with
@@ -437,10 +450,14 @@ def render_meshes_tiled(
 
     `backface_cull=True` needs outward-CCW winding and closed surfaces
     (meshes from `MeshDataBase`). Poses with non-finite entries render
-    empty."""
+    empty. Textured meshes pass `uvs [B, V, 2]`, `textures [B, TS, TS, 3]`
+    uint8 and `has_tex [B]`."""
+    if uvs is None or textures is None or has_tex is None:
+        uvs = textures = has_tex = None  # textured only with all three
+    colors = apply_uv_as_colors(colors, uvs, has_tex)
     TCO, coefs, chunk_ids, n_active = prepare_render(
         vertices, normals, colors, faces, face_valid, TCO, K, resolution, z_near, chunk,
         backface_cull,
     )
     invz, fid, attrs = visibility(coefs, chunk_ids, n_active, resolution, chunk)
-    return shade(invz, fid, attrs, TCO, light_ambient, light_point)
+    return shade(invz, fid, attrs, TCO, light_ambient, light_point, textures, has_tex)

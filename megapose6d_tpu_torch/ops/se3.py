@@ -93,3 +93,10 @@ def rotmat_from_euler_sxyz(euler: Tensor) -> Tensor:
     Rz = torch.stack([cz, -sz, zero, sz, cz, zero, zero, zero, one], -1)
     return Rz.reshape(shape) @ (Ry.reshape(shape) @ Rx.reshape(shape))
 
+
+def geodesic_distance(R1: Tensor, R2: Tensor) -> Tensor:
+    """Angle (radians) between rotations `[..., 3, 3]`: acos of
+    (trace(R1 R2^T) - 1) / 2, clipped to [-1, 1]."""
+    m = R1 @ R2.transpose(-2, -1)
+    tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    return torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0))

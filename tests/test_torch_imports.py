@@ -43,6 +43,11 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.ops.rasterizer_tiled", "megapose6d_tpu_torch.meshes.mesh_db",
         "megapose6d_tpu_torch.models.pose_predictor", "megapose6d_tpu_torch.interop.from_jax",
         "megapose6d_tpu_torch.inference.pose_estimator", "megapose6d_tpu_torch.data.types",
+        "megapose6d_tpu_torch.utils.png", "megapose6d_tpu_torch.inference.load_model",
+        "megapose6d_tpu_torch.data.bop_scene_dataset", "megapose6d_tpu_torch.data.datasets_cfg",
+        "megapose6d_tpu_torch.evaluation.meters", "megapose6d_tpu_torch.evaluation.vsd",
+        "megapose6d_tpu_torch.evaluation.bop", "megapose6d_tpu_torch.evaluation.evaluation",
+        "megapose6d_tpu_torch.scripts.run_eval",
     }
     assert expected <= set(out["modules"])
 
@@ -55,6 +60,11 @@ def test_entry_points_default_to_cuda():
     from megapose6d_tpu_torch.models.pose_predictor import build_pose_predictor
     from megapose6d_tpu_torch.ops.so3_grid import make_so3_grid
 
+    from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig
+    from megapose6d_tpu_torch.inference.load_model import build_model, load_or_init_models
+
+    assert EvalConfig().device == "cuda"
     for fn in (PoseEstimator.__init__, make_detections, MeshDataBase.batched,
-               build_pose_predictor, make_so3_grid, ObservationTensor.from_numpy):
+               build_pose_predictor, make_so3_grid, ObservationTensor.from_numpy,
+               build_model, load_or_init_models):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn

@@ -51,8 +51,8 @@ def test_procedural_db_matches_jax():
 
 
 def test_bop_models_db_matches_jax():
-    """The committed PLY models (mm units; the port skips their texture
-    image, the JAX DB keeps it beside identical vertex colors)."""
+    """The committed PLY models (mm units, textured; the texture fields are
+    compared in tests/test_torch_textures.py)."""
     def objects(db):
         return db.RigidObjectDataset(
             [db.RigidObject(label=p.stem, mesh_path=p, mesh_units="mm")

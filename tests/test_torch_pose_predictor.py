@@ -4,10 +4,15 @@ Random flax params are carried across with `interop.from_jax` and
 `score_views` / `refine_step` are held against the JAX module at a small
 size (48x64 renders, resnet18-spatial, f32, TF32 off). The committed `runs/coarse_dr` and
 `runs/refiner_dr` weights are read with the JAX package's own loader,
-converted, and `net_forward` is held at f32 at the full 240x320 width.
+converted, and `net_forward` is held at f32 and at bf16 (the runs'
+`compute_dtype`) at the full 240x320 width.
 Tolerances: logits and 9D outputs atol 1e-4 (f32 CNN sums taken in another
 order); poses atol 1e-5; crops and renders atol 1e-4. The trained
 checkpoints' outputs reach ~6, so there atol 1e-4 is joined by rtol 1e-4.
+At bf16 each package rounds activations to 8 mantissa bits at its own
+places: measured on two random inputs, the largest difference was 0.9% of
+the largest output for coarse_dr's logits and 1.4% for refiner_dr's 9D
+outputs, so bf16 is held to 3% of the largest output.
 """
 
 from pathlib import Path
@@ -116,13 +121,19 @@ def test_refine_step_matches_jax(rng):
     close(jout["TCO_output"], tout["TCO_output"], 1e-5)
 
 
-@pytest.mark.parametrize("run", ["coarse_dr", "refiner_dr"])
-def test_committed_checkpoint_net_forward_f32(rng, run):
-    """The committed weights give the JAX model's outputs at f32."""
+@pytest.mark.parametrize("run,dtype", [
+    pytest.param("coarse_dr", "float32", id="coarse_dr"),
+    pytest.param("refiner_dr", "float32", id="refiner_dr"),
+    pytest.param("coarse_dr", "bfloat16", id="coarse_dr-bf16"),
+    pytest.param("refiner_dr", "bfloat16", id="refiner_dr-bf16"),
+])
+def test_committed_checkpoint_net_forward_f32(rng, run, dtype):
+    """The committed weights give the JAX model's outputs at f32, and at
+    bf16 as the runs compute."""
     run_dir = RUNS / run
     jcfg = load_config(run_dir / "config.json")
     jmodel = jpp.PosePredictor(jpp.PosePredictorConfig(
-        **{**jcfg.model_config_kwargs(), "compute_dtype": "float32"}))
+        **{**jcfg.model_config_kwargs(), "compute_dtype": dtype}))
     tiny = MeshDataBase.from_object_ds(
         RigidObjectDataset([RigidObject(label="cube", mesh=make_cube(0.04))]),
         max_faces=64, n_points=16, n_sym=2).batched(align=16)
@@ -141,7 +152,7 @@ def test_committed_checkpoint_net_forward_f32(rng, run):
     if run == "refiner_dr":
         assert tcfg.multiview_type == "TCO+front_1view" and tcfg.n_rendered_views == 2
     tmodel = tpp.PosePredictor(tpp.PosePredictorConfig(
-        **{**tcfg.__dict__, "compute_dtype": "float32"})).eval()
+        **{**tcfg.__dict__, "compute_dtype": dtype})).eval()
     tmodel.load_state_dict(state_dict_from_jax(params))
 
     x = rng.uniform(size=(2,) + tuple(tcfg.render_size) + (tcfg.n_inputs,)).astype(np.float32)
@@ -150,4 +161,8 @@ def test_committed_checkpoint_net_forward_f32(rng, run):
         tout = tmodel.net_forward(torch.as_tensor(x))
     assert set(jout) == set(tout)
     for k in jout:
-        close(jout[k], tout[k], 1e-4, rtol=1e-4)
+        if dtype == "float32":
+            close(jout[k], tout[k], 1e-4, rtol=1e-4)
+        else:
+            a, b = np.asarray(jout[k], np.float32), tout[k].float().numpy()
+            assert np.abs(a - b).max() <= 0.03 * np.abs(a).max(), (k, np.abs(a - b).max())
