@@ -36,12 +36,33 @@ Phases, each printing one line with its wall time:
   9. eval run: the port's run_eval (gt detections, grid 576, K=4, 3
      refiner iterations, 2 detections, as the committed eval_config.json)
      on the first 8 frames with seeded weights, or on all 56 frames with
-     the trained weights when build/weights/coarse_dr.npz and
-     refiner_dr.npz exist (written by `python -m tests.test_torch_checkpoints
-     export ...` where the JAX package is installed); with the trained
+     the trained weights when build/weights/coarse_dr@5000.npz and
+     refiner_dr@24000.npz exist (written by `python -m
+     tests.test_torch_checkpoints export <run> <npz> <step>` where the JAX
+     package is installed); with the trained
      weights also the same frames with the models in f32, and each of the
      two runs against the other and against the committed JAX predictions,
-     per instance.
+     per instance;
+ 10. depth refiners: ICPRefiner and GNCRegistrationRefiner on frames of
+     runs/ar_gnc/synthdemo at ground-truth poses perturbed from a seed, on
+     the GPU and on the CPU (plain phase B), poses held to each other; each
+     refiner's depth render (B = the frame's objects, 120x160) held bit for
+     bit against the plain twin and timed, beside each refiner's time per
+     frame and the parts that should set it (the ICP distance passes and
+     6x6 solves, GNC's batched 3x3 SVDs);
+ 11. rgbd: load_named_model("megapose-1.0-RGBD") and
+     ("megapose-1.0-RGB-multi-hypothesis-icp") at full width (resnet34,
+     240x320, grid 576, bf16, seeded weights), two requests each on an
+     ar_gnc frame with its measured depth, per-phase seconds and launches;
+ 12. depth eval: the ported demo_ar_baseline on runs/ar_gnc/synthdemo (10
+     frames, grid 64, 3 iterations, K=4, 2 detections) with ICP and with
+     GNC: RGB, ICP and GNC AR beside the committed reports; with
+     build/weights/coarse_dr@5000.npz and refiner_dr@24000.npz in f32 (as
+     the committed reports, made on a CPU) and in bf16, each pass held per
+     instance against the JAX package's own rerun at those steps on a CPU
+     when build/jax_ar_gnc/predictions_{icp,gnc}.npz are in the copy
+     (written by `python -m tests.jax_demo_ar_rerun`); seeded in bf16
+     otherwise.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -69,21 +90,33 @@ from megapose6d_tpu_torch.evaluation.evaluation import load_predictions, run_eva
 from megapose6d_tpu_torch.evaluation.meters import BOPScoreMeter
 from megapose6d_tpu_torch.evaluation.runner import EvaluationRunner
 from megapose6d_tpu_torch.evaluation.vsd import BOP19_THRESHOLDS
+from megapose6d_tpu_torch.data.tensor_collection import TensorCollection
+from megapose6d_tpu_torch.inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
+from megapose6d_tpu_torch.inference.load_model import load_named_model
 from megapose6d_tpu_torch.inference.pose_estimator import PoseEstimator
 from megapose6d_tpu_torch.inference.types import InferenceConfig, make_detections
 from megapose6d_tpu_torch.interop.from_jax import config_from_run_json
 from megapose6d_tpu_torch.meshes import io as mesh_io
 from megapose6d_tpu_torch.meshes.mesh_db import MeshDataBase, RigidObject, RigidObjectDataset
 from megapose6d_tpu_torch.models.pose_predictor import PosePredictorConfig, build_pose_predictor
-from megapose6d_tpu_torch.ops import rasterizer_tiled as rt
+from megapose6d_tpu_torch.ops import icp, rasterizer_tiled as rt
 from megapose6d_tpu_torch.ops._nvcc import BUILD_DIR
 from megapose6d_tpu_torch.ops._precision import pin_f32
+from megapose6d_tpu_torch.scripts import demo_ar_baseline
+from megapose6d_tpu_torch.utils import threefry
 
 ROOT = Path(__file__).resolve().parent
 SCENE = ROOT / "runs/ar_baseline/synthdemo"
 EVAL_DATA = ROOT / "runs/ar_dr"  # holds synthdemo/, the BOP test set of the committed evaluation
 COMMITTED_EVAL = ROOT / "runs/full_eval/synthdemo.bop19/gt+SO3_grid"
 WEIGHTS = ROOT / "build/weights"
+# The steps the committed runs/ar_dr and runs/ar_gnc reports name; the
+# refiner run's latest.txt names a later one (30000).
+WEIGHT_FILES = {"coarse_dr": "coarse_dr@5000.npz", "refiner_dr": "refiner_dr@24000.npz"}
+AR_GNC = ROOT / "runs/ar_gnc"
+# The JAX package's demo_ar_baseline rerun on a CPU at those steps, per
+# instance (tests/jax_demo_ar_rerun.py; never committed).
+JAX_AR_GNC = ROOT / "build/jax_ar_gnc"
 # The JAX package's own run_eval of the first frames on a CPU (written where
 # the JAX package is installed, as README.md says; never committed).
 JAX_CPU_EVAL = ROOT / "build/jax_cpu_eval/synthdemo.bop19/gt+SO3_grid"
@@ -140,9 +173,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def rot_deg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Angles in degrees between the rotations of poses `[..., 4, 4]`."""
-    cos = ((a[..., :3, :3].transpose(-1, -2) @ b[..., :3, :3]).diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
-    return torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))
+    """Angles in degrees between the rotations of poses `[..., 4, 4]`, from
+    |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2) (the trace form loses small
+    angles to f32 rounding)."""
+    d = (a[..., :3, :3].double() - b[..., :3, :3].double()).flatten(-2).norm(dim=-1)
+    return torch.rad2deg(2 * torch.arcsin((d / (2 * 2 ** 0.5)).clamp(0, 1)))
 
 
 def host_ms(fn, reps: int) -> float:
@@ -732,15 +767,14 @@ def phase_eval_run() -> int:
     settings: seeded weights on 8 frames, or the trained weights on all 56
     frames when their npz files exist."""
     ecfg = json.loads((COMMITTED_EVAL / "eval_config.json").read_text())
-    # SO3_prune_keep and depth_refiner are read only by modes not ported yet.
-    icfg = InferenceConfig(**{k: v for k, v in ecfg["inference"].items()
-                              if k not in ("SO3_prune_keep", "depth_refiner")})
-    trained = all((WEIGHTS / f"{run}.npz").exists() for run in ("coarse_dr", "refiner_dr"))
+    # SO3_prune_keep is read only by a mode not ported yet.
+    icfg = InferenceConfig(**{k: v for k, v in ecfg["inference"].items() if k != "SO3_prune_keep"})
+    trained = all((WEIGHTS / f).exists() for f in WEIGHT_FILES.values())
     print(f"  weights: {'trained, ' + str(WEIGHTS) if trained else 'seeded (no npz files in build/weights)'}; "
           f"frames: {'all' if trained else 8}; inference {icfg}", flush=True)
     save_root = BUILD_DIR / "eval_run"
     shutil.rmtree(save_root, ignore_errors=True)
-    weights = lambda run: str(WEIGHTS / f"{run}.npz") if trained else ""
+    weights = lambda run: str(WEIGHTS / WEIGHT_FILES[run]) if trained else ""
     cfg = EvalConfig(
         coarse_run=str(ROOT / ecfg["coarse_run"]), refiner_run=str(ROOT / ecfg["refiner_run"]),
         coarse_weights=weights("coarse_dr"), refiner_weights=weights("refiner_dr"),
@@ -765,7 +799,8 @@ def phase_eval_run() -> int:
           f"{', '.join(f'{x:.4f}' for x in secs)}", flush=True)
     print(f"  CSV rows: {csv_rows}; summary: {json.dumps(summary)}", flush=True)
     if trained:
-        print(f"  trained AR on the card: {summary['bop']['AR']:.6f} (committed JAX evaluation 0.2453)", flush=True)
+        print(f"  trained AR on the card (coarse@5000, refiner@24000): {summary['bop']['AR']:.6f} "
+              f"(committed JAX evaluation 0.2453)", flush=True)
     expected = sum(len(launch_phases(d, icfg)) for d in dets) + 2 * len(frames)
     print(f"  kernel launches: {launches} (expected {expected}: the pipeline's and 2 VSD renders per frame)",
           flush=True)
@@ -773,6 +808,293 @@ def phase_eval_run() -> int:
     check(launches == expected, "the eval run did not launch the kernel as expected")
     if trained:
         trained_vs_committed(cfg, out["results_path"])
+    return launches
+
+
+def perturbed_pose(T: np.ndarray, rng: np.random.RandomState, deg: float = 4.0, mm: float = 8.0) -> np.ndarray:
+    """`T` turned by `deg` about a random axis and shifted by N(0, mm)."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    a = np.radians(deg)
+    Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    out = np.asarray(T, np.float64).copy()
+    out[:3, :3] = (np.eye(3) + np.sin(a) * Kx + (1 - np.cos(a)) * Kx @ Kx) @ out[:3, :3]
+    out[:3, 3] += rng.normal(scale=mm * 1e-3, size=3)
+    return out.astype(np.float32)
+
+
+def profile_call(fn) -> tuple[float, float, list[str]]:
+    """(wall ms, device busy ms, the three kernels of most device time) of
+    one call of `fn` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    top = [f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+           for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:3]]
+    return wall, busy, top
+
+
+def ar_gnc_frames(seed: int = 0) -> list:
+    """The 10 frames of runs/ar_gnc/synthdemo with their measured depth, and
+    their ground-truth poses perturbed from `seed` (4 degrees, N(0, 8 mm))."""
+    ds = BOPDataset(AR_GNC / "synthdemo", load_depth=True)
+    rng = np.random.RandomState(seed)
+    frames = []
+    for i in range(len(ds)):
+        f = ds[i]
+        objs = f.gt_detections()
+        frames.append((f, [o.label for o in objs], np.stack([perturbed_pose(o.TWO, rng) for o in objs])))
+    return frames
+
+
+def refine_frame(refiner, frame, labels, poses, device):
+    out, extra = refiner.refine_poses(
+        TensorCollection(labels, poses=torch.as_tensor(poses, device=device)),
+        depth=torch.as_tensor(frame.depth, device=device),
+        K=torch.as_tensor(frame.camera_data.K.astype(np.float32), device=device))
+    return out.poses, extra
+
+
+SPHERE = "obj_000002"  # the textured UV sphere of runs/ar_gnc/synthdemo
+
+
+def phase_depth_refiners(errors: list[float]) -> tuple[int, dict]:
+    """Both depth refiners on the GPU and, with the plain phase B, on the
+    CPU, at perturbed ground truth of the 10 ar_gnc frames. Held: equal
+    `valid`; GNC poses within 0.05 degree and 0.05 mm; ICP poses of the
+    cubes within 0.05 degree and 0.05 mm. ICP on the sphere is not held:
+    point-to-plane ICP cannot observe a sphere's rotation about its centre
+    (its normal equations have a condition number ~1e5,
+    tests/test_torch_depth.py), so rounding steers the solve, and in the
+    JAX package too a start shifted by 1 um can end centimetres away. For
+    each sphere instance the gap is printed beside how far the CPU's own
+    result moves when its start shifts by 1 um. Every depth render (one
+    launch per frame and refiner) is held bit for bit against the plain
+    twin and timed."""
+    frames = ar_gnc_frames()
+    dbs = {d: demo_ar_baseline.world_mesh_db(AR_GNC / "synthdemo", d) for d in ("cuda", "cpu")}
+    kinds = {"icp": ICPRefiner, "gnc": GNCRegistrationRefiner}
+    refiners = {(k, d): cls(dbs[d]) for k, cls in kinds.items() for d in dbs}
+    for k in kinds:  # warm-up: the kernel's first launch and the solvers' handles
+        refine_frame(refiners[k, "cuda"], *frames[0], "cuda")
+    captured: list = []
+    gpu: dict = {k: [] for k in kinds}
+    secs: dict = {k: [] for k in kinds}
+    restore = record_visibility_inputs(captured)
+    rt.visibility_kernel.launches = 0  # the depth-refiner path starts here
+    try:
+        for k in kinds:
+            for frame, labels, poses in frames:
+                t0 = time.perf_counter()
+                P, extra = refine_frame(refiners[k, "cuda"], frame, labels, poses, "cuda")
+                torch.cuda.synchronize()
+                secs[k].append(time.perf_counter() - t0)
+                gpu[k].append((P.cpu(), extra["valid"].cpu()))
+    finally:
+        rt.visibility = restore
+    launches = rt.visibility_kernel.launches  # read right after the path
+    check(launches == len(captured) == 2 * len(frames), f"{launches} depth-render launches")
+    bad = []
+    for k in kinds:
+        held, n_valid, spheres = [], 0, []
+        for (frame, labels, poses), (Pg, vg) in zip(frames, gpu[k]):
+            Pc, extra = refine_frame(refiners[k, "cpu"], frame, labels, poses, "cpu")
+            check(torch.equal(vg, extra["valid"]), f"{k}: valid flags differ between GPU and CPU")
+            check(bool(torch.isfinite(Pg).all()), f"{k}: non-finite poses")
+            n_valid += int(vg.sum())
+            deg, mm = rot_deg(Pg, Pc), (Pg[:, :3, 3] - Pc[:, :3, 3]).abs().amax(-1) * 1e3
+            shifted = None
+            for i, (l, d, m) in enumerate(zip(labels, deg.tolist(), mm.tolist())):
+                if k == "icp" and l == SPHERE:
+                    if shifted is None:
+                        p2 = poses.copy()
+                        p2[:, 0, 3] += 1e-6
+                        shifted = refine_frame(refiners[k, "cpu"], frame, labels, p2, "cpu")[0]
+                    spheres.append((d, m, rot_deg(Pc[i], shifted[i]).item(),
+                                    (Pc[i, :3, 3] - shifted[i, :3, 3]).abs().max().item() * 1e3))
+                    continue
+                held.append((d, m))
+                if d > 0.05 or m > 0.05:
+                    bad.append((k, l, d, m))
+        print(f"  {k}: {sum(len(l) for _, l, _ in frames)} instances, {n_valid} valid; gpu vs cpu, held "
+              f"instances ({len(held)}): max {max(h[0] for h in held):.4g} deg {max(h[1] for h in held):.4g} mm; "
+              f"seconds per frame {', '.join(f'{x:.4f}' for x in secs[k])}", flush=True)
+        if spheres:
+            print(f"  {k} sphere instances, gpu vs cpu (deg, mm) beside the cpu's own move after a 1 um start "
+                  f"shift (deg, mm): " + "; ".join(f"({a:.3g}, {b:.3g}) vs ({c:.3g}, {e:.3g})"
+                                                   for a, b, c, e in spheres), flush=True)
+    # Where a refine spends its time: one frame with two objects.
+    f2 = next(fr for fr in frames if len(fr[1]) == 2)
+    for k in kinds:
+        wall, busy, top = profile_call(lambda: refine_frame(refiners[k, "cuda"], *f2, "cuda"))
+        print(f"  {k} traced refine (2 objects): wall_ms={wall:.3f} device_busy_ms={busy:.3f} "
+              f"idle_share={1 - busy / wall:.3f}; top: {'; '.join(top)}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = torch.rand((2, 1024, 3), device="cuda", generator=g)
+    q = torch.rand((2, 1024, 3), device="cuda", generator=g)
+    dist_ms = cuda_ms(lambda: ((p[:, :, None] - q[:, None]) ** 2).sum(-1).argmin(-1), reps=30)
+    A = torch.eye(6, device="cuda").repeat(2, 1, 1) + 0.1 * torch.rand((2, 6, 6), device="cuda", generator=g)
+    b = torch.rand((2, 6, 1), device="cuda", generator=g)
+    solve_ms = cuda_ms(lambda: torch.linalg.solve_ex(A, b), reps=30)
+    S = torch.rand((2, 3, 3), device="cuda", generator=g)
+    svd_ms = cuda_ms(lambda: torch.linalg.svd(S), reps=21)
+    print(f"  parts, 2 objects: ICP distance pass + argmin [2, 1024, 1024] {dist_ms:.4f} ms (x30 = "
+          f"{30 * dist_ms:.3f}); 6x6 solve {solve_ms:.4f} ms (x30 = {30 * solve_ms:.3f}); batched 3x3 SVD "
+          f"{svd_ms:.4f} ms (x21 = {21 * svd_ms:.3f})", flush=True)
+    check(not bad, f"depth refiners differ between GPU and CPU: {bad}")
+    sizes = Counter(vis[0].shape[0] for vis in captured)
+    shapes = {}
+    for b_ in sorted(sizes):
+        group, per_launch = shape_group([vis for vis in captured if vis[0].shape[0] == b_], errors)
+        hw = captured[0][3]
+        print(f"  depth_refiner_B{b_} ({hw[0]}x{hw[1]}): launches={group['launches']} kernel_ms={group['ms']:.4f} "
+              f"plain_ms={group['plain_ms']:.3f} bound_ms={group['bound_ms']:.4f} ({group['bound_by']}); "
+              f"every launch held bit for bit against the plain twin", flush=True)
+        print(tile_work_line(f"depth_refiner_B{b_}", [vis for vis in captured if vis[0].shape[0] == b_]),
+              flush=True)
+        shapes[f"depth_refiner_B{b_}"] = group
+    return launches, shapes
+
+
+def phase_rgbd() -> int:
+    """The two named RGB-D configurations at full width with seeded
+    weights, two requests each on an ar_gnc frame with its depth."""
+    from megapose6d_tpu_torch.data.bop_scene_dataset import load_bop_object_dataset
+
+    frame = BOPDataset(AR_GNC / "synthdemo", load_depth=True)[0]
+    objs = frame.gt_detections()
+    objects = load_bop_object_dataset(AR_GNC / "synthdemo/models")
+    total = 0
+    for name in ("megapose-1.0-RGBD", "megapose-1.0-RGB-multi-hypothesis-icp"):
+        est = load_named_model(name, objects, device="cuda")
+        c, r = est.coarse_model.cfg, est.refiner_model.cfg
+        check(c.backbone == r.backbone == "resnet34" and r.render_size == HW and c.compute_dtype == "bfloat16"
+              and est.cfg.SO3_grid_size == 576, f"{name}: not the named width")
+        obs = ObservationTensor.from_numpy(frame.rgb, frame.camera_data.K, depth=frame.depth)
+        dets = make_detections([o.label for o in objs], np.stack([o.bbox_modal for o in objs]), device="cuda")
+        depth_stage = est.depth_refiner is not None
+        rt.visibility_kernel.launches = 0  # this configuration's path starts here
+        for i in range(2):
+            poses, extra = est.run_inference_pipeline(obs, dets)
+            tm = extra["timing"]
+            check(bool(torch.isfinite(poses.poses).all()), f"{name}: non-finite poses")
+            print(f"  {name} request {i}{' (warm-up)' if i == 0 else ''}: stem {r.n_inputs} channels, "
+                  f"K={est.cfg.n_pose_hypotheses}, {est.cfg.n_refiner_iterations} iterations; "
+                  + " ".join(f"{k}_s={v:.4f}" for k, v in tm.items())
+                  + (f"; depth valid {extra['depth_refiner']['valid'].tolist()}" if depth_stage else ""), flush=True)
+        launches = rt.visibility_kernel.launches  # read right after the path
+        expected = 2 * (len(launch_phases(len(dets), est.cfg)) + depth_stage)
+        print(f"  {name}: kernel launches {launches} (expected {expected})", flush=True)
+        check(launches == expected and ("depth_refiner" in tm) == depth_stage, f"{name}: launches or timing")
+        total += launches
+    return total
+
+
+def jax_rerun(method: str) -> dict | None:
+    """The JAX package's CPU rerun of demo_ar_baseline (per pass: poses and
+    infos), or None where it is not in the copy."""
+    path = JAX_AR_GNC / f"predictions_{method}.npz"
+    if not path.exists():
+        return None
+    with np.load(path) as z:
+        out = {}
+        for stage in ("rgb", "depth"):
+            scene, view = z[f"{stage}/scene_id"], z[f"{stage}/view_id"]
+            frame = list(zip(scene.tolist(), view.tolist()))
+            inst = np.asarray([frame[:i].count(f) for i, f in enumerate(frame)], np.int64)
+            out[stage] = TensorCollection(
+                infos={"label": z[f"{stage}/label"].astype(object), "scene_id": scene, "view_id": view,
+                       "instance_id": inst, "score": np.ones(len(scene))},
+                poses=torch.as_tensor(z[f"{stage}/poses"]))
+    return out
+
+
+def compare_depth_eval(method: str, tag: str, preds: dict, jax: dict, scene_ds, mesh_db) -> None:
+    """The port's passes against the JAX rerun, per instance: instances
+    within 0.1 degree and 0.1 mm; for the depth pass, the instances that
+    start from the same RGB pose but end apart, with the depth stage's move
+    in the JAX run; and the JAX poses scored by the port's meters."""
+    rgb_same = None
+    for stage in ("rgb", "depth"):
+        a, b = preds[stage], jax[stage]
+        check(a.labels == b.labels and a.infos["view_id"].tolist() == b.infos["view_id"].tolist(),
+              f"{method}: instances differ from the JAX rerun")
+        Pa, Pb = a.poses.double(), b.poses.double()
+        deg = rot_deg(Pa, Pb)
+        mm = (Pa[:, :3, 3] - Pb[:, :3, 3]).norm(dim=-1) * 1e3
+        same = (deg <= 0.1) & (mm <= 0.1)
+        sa, sb = instance_scores(a, scene_ds, mesh_db), instance_scores(b, scene_ds, mesh_db)
+        n_scores = int((sa != sb).any(1).sum())
+        print(f"    {tag} {method} {stage}: {int(same.sum())} of {len(same)} instances within 0.1 deg and 0.1 mm "
+              f"of the JAX rerun; {n_scores} score otherwise; JAX poses scored here AR {sb.mean():.6f}",
+              flush=True)
+        if stage == "rgb":
+            rgb_same = same
+            continue
+        R = jax["rgb"].poses.double()
+        move_deg = rot_deg(R, Pb)
+        move_mm = (R[:, :3, 3] - Pb[:, :3, 3]).norm(dim=-1) * 1e3
+        for i in torch.nonzero(~same).flatten().tolist():
+            cause = "the RGB pose already differs" if not rgb_same[i] else "same RGB start, the depth stage diverged"
+            print(f"      instance {i} {a.labels[i]}: {deg[i]:.4f} deg {mm[i]:.4f} mm apart ({cause}); the JAX "
+                  f"run's depth stage moved it {move_deg[i]:.2f} deg {move_mm[i]:.2f} mm", flush=True)
+
+
+def phase_depth_eval() -> int:
+    """The ported demo_ar_baseline on runs/ar_gnc/synthdemo with ICP and
+    with GNC, as the committed reports were made."""
+    trained = all((WEIGHTS / f).exists() for f in WEIGHT_FILES.values())
+    weights = [f"coarse_weights={WEIGHTS / WEIGHT_FILES['coarse_dr']}",
+               f"refiner_weights={WEIGHTS / WEIGHT_FILES['refiner_dr']}"] if trained else []
+    dtypes = ("float32", "bfloat16") if trained else ("bfloat16",)
+    print(f"  weights: {'coarse@5000, refiner@24000' if trained else 'seeded (no npz files in build/weights)'}; "
+          f"dtypes {dtypes}", flush=True)
+    committed = {m: json.loads((AR_GNC / f"report_{m}.json").read_text()) for m in ("icp", "gnc")}
+    scene_ds = BOPDataset(AR_GNC / "synthdemo", load_depth=True)
+    mesh_db = demo_ar_baseline.world_mesh_db(AR_GNC / "synthdemo", "cuda")
+    launches = expected = 0
+    rt.visibility_kernel.launches = 0  # the depth-eval path starts here
+    runs = []
+    for dtype in dtypes:
+        for method in ("icp", "gnc"):
+            args = demo_ar_baseline.parse_args([
+                f"out_dir={AR_GNC}", "so3=64", "refine_iters=3", "n_hyp=4", f"depth_refine={method}",
+                f"dtype={dtype}", "device=cuda", *weights])
+            t0 = time.perf_counter()
+            report, preds = demo_ar_baseline.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s, sd, c = report["summary"], report["summary_depth_refined"], committed[method]
+            check(s["n"] == sd["n"] == 19, f"n={s['n']}, {sd['n']}, expected 19")
+            frames = Counter(zip(preds["rgb"].infos["scene_id"].tolist(), preds["rgb"].infos["view_id"].tolist()))
+            icfg = InferenceConfig(SO3_grid_size=64, n_refiner_iterations=3, n_pose_hypotheses=4, bsz_images=64,
+                                   bsz_objects=16, max_detections=2)
+            expected += sum(2 * len(launch_phases(d, icfg)) + 1 + 4 for d in frames.values())
+            print(f"  {dtype} {method}: {wall:.2f} s; RGB AR {s['AR']:.6f} (committed {c['summary']['AR']:.6f}); "
+                  f"{method.upper()} AR {sd['AR']:.6f} (committed {c['summary_depth_refined']['AR']:.6f}); "
+                  f"AR_VSD/MSSD/MSPD {sd['AR_VSD']:.6f}/{sd['AR_MSSD']:.6f}/{sd['AR_MSPD']:.6f} (committed "
+                  f"{c['summary_depth_refined']['AR_VSD']:.6f}/{c['summary_depth_refined']['AR_MSSD']:.6f}/"
+                  f"{c['summary_depth_refined']['AR_MSPD']:.6f})", flush=True)
+            runs.append((dtype, method, preds))
+    launches = rt.visibility_kernel.launches  # read right after the path
+    print(f"  kernel launches: {launches} (expected {expected}: two pipeline passes, one depth render and "
+          f"four VSD renders per frame and run)", flush=True)
+    check(launches == expected, "the depth eval did not launch the kernel as expected")
+    for dtype, method, preds in runs:
+        jax = jax_rerun(method) if trained else None
+        if jax is None:
+            print(f"  {dtype} {method}: no JAX rerun at these weights in {JAX_AR_GNC}: not compared", flush=True)
+            continue
+        compare_depth_eval(method, dtype, preds, jax, scene_ds, mesh_db)
     return launches
 
 
@@ -808,14 +1130,24 @@ def main() -> int:
         rescore_launches, vsd_shape = phase_eval_rescore(errors)
     with Phase("eval run"):
         run_launches = phase_eval_run()
+    with Phase("depth refiners"):
+        depth_launches, depth_shapes = phase_depth_refiners(errors)
+    with Phase("rgbd"):
+        rgbd_launches = phase_rgbd()
+    with Phase("depth eval"):
+        depth_eval_launches = phase_depth_eval()
     timing["by_shape"].update(vsd_shape)
+    timing["by_shape"].update(depth_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
         "source": "megapose6d_tpu_torch/csrc/visibility.cu",
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
-        "launches": launches + rescore_launches + run_launches,
-        "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches},
+        "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
+        + depth_eval_launches,
+        "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
+                             "depth_refiner": depth_launches, "rgbd": rgbd_launches,
+                             "depth_eval": depth_eval_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

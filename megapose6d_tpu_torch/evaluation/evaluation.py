@@ -130,6 +130,10 @@ def run_eval(cfg: EvalConfig, scene_ds=None, object_ds=None) -> Optional[dict]:
         return {"results_path": results_path, "pred_keys": list(preds), "save_dir": save_dir,
                 "summary": score_and_save(preds["final"], mesh_db)}
 
+    if cfg.inference.run_depth_refiner:
+        # The JAX package's run_eval accepts this and runs no depth stage.
+        raise ValueError("run_eval has no depth refiner; the depth-refined evaluation is "
+                         "scripts/demo_ar_baseline.py depth_refine=icp|gnc")
     coarse, refiner, mesh_db = load_or_init_models(
         object_ds, cfg.coarse_run or None, cfg.refiner_run or None,
         cfg.coarse_weights or None, cfg.refiner_weights or None,

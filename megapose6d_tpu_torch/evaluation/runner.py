@@ -41,7 +41,7 @@ class PredictionRunner:
         if not gt_objects:
             return None
         dev = self.estimator.device
-        observation = ObservationTensor.from_numpy(obs.rgb, obs.camera_data.K, device=dev)
+        observation = ObservationTensor.from_numpy(obs.rgb, obs.camera_data.K, device=dev, depth=obs.depth)
         detections = make_detections([o.label for o in gt_objects],
                                      np.stack([o.bbox_modal for o in gt_objects]), device=dev)
         return self.estimator.run_inference_pipeline(observation, detections)

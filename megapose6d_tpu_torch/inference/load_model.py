@@ -1,7 +1,9 @@
-"""Build the coarse and refiner models and the mesh database.
+"""Build the coarse and refiner models and the mesh database, and the
+named megapose-1.0 configurations.
 
 Counterpart of `load_or_init_models` in
-`megapose6d_tpu/scripts/run_inference_on_example.py`. A run directory
+`megapose6d_tpu/scripts/run_inference_on_example.py` and of `NAMED_MODELS`
+and `load_named_model` in `megapose6d_tpu/inference/load_model.py`. A run directory
 gives the model configuration (`config.json`). The JAX package's
 checkpoints are orbax (OCDBT, zstd-compressed), which the port does not
 read; the weights come instead from an npz of the params tree, flat keys
@@ -12,6 +14,8 @@ JAX package is installed. Without an npz the weights are drawn from a seed.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from pathlib import Path
 from typing import Any
 
@@ -21,6 +25,41 @@ import torch
 from ..interop.from_jax import config_from_run_json, state_dict_from_jax
 from ..meshes.mesh_db import BatchedMeshes, MeshDataBase, RigidObjectDataset
 from ..models.pose_predictor import PosePredictor, make_coarse_config, make_refiner_config
+from .depth_refiner import DepthRefiner, GNCRegistrationRefiner, ICPRefiner
+from .pose_estimator import PoseEstimator
+from .types import InferenceConfig
+
+NAMED_MODELS: dict[str, dict[str, Any]] = {
+    "megapose-1.0-RGB": {
+        "requires_depth": False,
+        "refiner_kwargs": {},
+        "inference_parameters": {"n_refiner_iterations": 5, "n_pose_hypotheses": 1},
+    },
+    "megapose-1.0-RGBD": {
+        "requires_depth": True,
+        "refiner_kwargs": {
+            "input_depth": True,
+            "render_depth": True,
+            "depth_normalization_type": "tCR_scale_clamp_center",
+        },
+        "inference_parameters": {"n_refiner_iterations": 5, "n_pose_hypotheses": 1},
+    },
+    "megapose-1.0-RGB-multi-hypothesis": {
+        "requires_depth": False,
+        "refiner_kwargs": {},
+        "inference_parameters": {"n_refiner_iterations": 5, "n_pose_hypotheses": 5},
+    },
+    "megapose-1.0-RGB-multi-hypothesis-icp": {
+        "requires_depth": True,
+        "refiner_kwargs": {},
+        "depth_refiner": "ICP",
+        "inference_parameters": {
+            "n_refiner_iterations": 5,
+            "n_pose_hypotheses": 5,
+            "run_depth_refiner": True,
+        },
+    },
+}
 
 
 def load_params_npz(path: str | Path) -> dict[str, Any]:
@@ -73,3 +112,46 @@ def load_or_init_models(
     coarse = build_model(coarse_run, coarse_weights, make_coarse_config, render_size, seed, device)
     refiner = build_model(refiner_run, refiner_weights, make_refiner_config, render_size, seed + 1, device)
     return coarse, refiner, mesh_db
+
+
+def load_named_model(
+    model_name: str,
+    object_dataset: RigidObjectDataset,
+    coarse_run: str | Path | None = None,
+    refiner_run: str | Path | None = None,
+    coarse_weights: str | Path | None = None,
+    refiner_weights: str | Path | None = None,
+    max_faces: int = 4096,
+    compute_dtype: str | None = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+    **inference_overrides,
+) -> PoseEstimator:
+    """A `PoseEstimator` for a `NAMED_MODELS` configuration.
+
+    A run directory gives a model's configuration (and an npz its
+    weights); without one the model is the named configuration's (resnet34,
+    240x320) with weights drawn from `seed` (coarse) and `seed + 1`
+    (refiner), computing in `compute_dtype`, by default bfloat16 on the
+    GPU and float32 on the CPU. `inference_overrides` update the named
+    inference parameters. The depth refiner is ICP for `depth_refiner`
+    "ICP" or `run_depth_refiner`, GNC-TLS for "teaserpp"."""
+    info = NAMED_MODELS[model_name]
+    device = torch.device(device)
+    dtype = compute_dtype or ("bfloat16" if device.type == "cuda" else "float32")
+    mesh_db = MeshDataBase.from_object_ds(object_dataset, max_faces=max_faces).batched(device=device)
+    coarse = build_model(coarse_run, coarse_weights,
+                         functools.partial(make_coarse_config, compute_dtype=dtype), seed=seed, device=device)
+    refiner = build_model(refiner_run, refiner_weights,
+                          functools.partial(make_refiner_config, compute_dtype=dtype, **info["refiner_kwargs"]),
+                          seed=seed + 1, device=device)
+    params = {**info["inference_parameters"], **inference_overrides}
+    names = {f.name for f in dataclasses.fields(InferenceConfig)}
+    cfg = InferenceConfig(**{k: v for k, v in params.items() if k in names})
+    kind = info.get("depth_refiner")
+    depth_refiner: DepthRefiner | None = None
+    if kind == "teaserpp" or cfg.depth_refiner == "teaserpp":
+        depth_refiner = GNCRegistrationRefiner(mesh_db)
+    elif kind == "ICP" or cfg.run_depth_refiner:
+        depth_refiner = ICPRefiner(mesh_db)
+    return PoseEstimator(coarse, refiner, mesh_db, cfg, device=device, depth_refiner=depth_refiner)

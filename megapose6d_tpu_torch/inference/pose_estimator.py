@@ -5,15 +5,17 @@ in `megapose6d_tpu/inference/pose_estimator.py`:
 
   detections -> coarse scores of every (detection, SO(3)-grid rotation)
   hypothesis -> top-K -> K x N refiner iterations -> coarse re-scoring
-  -> top-1 per detection.
+  -> top-1 per detection -> optionally, depth refinement of the top-1
+  poses (`inference/depth_refiner.py`).
 
 The JAX package pads detections and chunks to static shapes; here the
 batch dimensions are written out, loops are Python, and the last chunk is
 simply shorter. Every hypothesis is computed independently, so the
 results do not depend on the chunking. The fused and sharded modes, the
 hierarchical prune, the coarse LOD database, low-resolution coarse
-renders, f32 rescoring, external initial poses, detector boxes and depth
-refinement are not ported yet and raise.
+renders, f32 rescoring, external initial poses and detector boxes are not
+ported yet and raise. A depth stage asked for without a depth refiner
+raises too (the JAX package silently skips it).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..models.pose_predictor import PosePredictor
 from ..ops._precision import pin_f32
 from ..ops.pose_init import tco_init_from_boxes_autodepth_with_R
 from ..ops.so3_grid import make_so3_grid
+from .depth_refiner import DepthRefiner
 from .types import InferenceConfig
 
 Tensor = torch.Tensor
@@ -42,7 +45,6 @@ def _check_supported(cfg: InferenceConfig) -> None:
         "SO3_prune_grid_size": cfg.SO3_prune_grid_size,
         "coarse_render_size": cfg.coarse_render_size,
         "rescore_f32": cfg.rescore_f32,
-        "run_depth_refiner": cfg.run_depth_refiner,
         "coarse_estimation_type=external": cfg.coarse_estimation_type == "external",
         "detection_type=detector": cfg.detection_type == "detector",
     }
@@ -59,6 +61,8 @@ class PoseEstimator:
       mesh_db: padded `BatchedMeshes` covering all labels in play.
       cfg: `InferenceConfig`.
       device: where the models, meshes and work live.
+      depth_refiner: a `DepthRefiner` on the same mesh database, for
+        `run_depth_refiner`.
     """
 
     def __init__(
@@ -68,8 +72,11 @@ class PoseEstimator:
         mesh_db: BatchedMeshes,
         cfg: InferenceConfig = InferenceConfig(),
         device: str | torch.device = "cuda",
+        depth_refiner: DepthRefiner | None = None,
     ):
         _check_supported(cfg)
+        if cfg.run_depth_refiner and depth_refiner is None:
+            raise ValueError("run_depth_refiner needs a depth_refiner")
         pin_f32()
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -80,6 +87,7 @@ class PoseEstimator:
         if mesh_db.device != self.device:
             raise ValueError(f"mesh_db is on {mesh_db.device}, the estimator on {self.device}")
         self.cfg = cfg
+        self.depth_refiner = depth_refiner
         self.so3_grid = make_so3_grid(cfg.SO3_grid_size, device=self.device)
         self.timing_: dict[str, float] = {}
 
@@ -145,25 +153,31 @@ class PoseEstimator:
         detections: TensorCollection,
         n_refiner_iterations: int | None = None,
         n_pose_hypotheses: int | None = None,
+        run_depth_refiner: bool | None = None,
     ) -> tuple[TensorCollection, dict[str, Any]]:
         """Full pipeline on ONE observation.
 
         Args:
-          observation: batch size 1.
+          observation: batch size 1; with depth (4 channels) for the depth
+            stage.
           detections: infos (`label`, `score`, ...) + `bboxes [D, 4]`.
+          run_depth_refiner: None takes `cfg.run_depth_refiner`.
         Returns:
           (the detections' infos with `pose_score` and `pose_logit` columns
           added, and the tensors `poses [D, 4, 4]`, `pose_score [D]`,
           `pose_logit [D]`; extra data with per-phase timing and
           intermediate results, among them the refiner's trajectory
-          `[n_iter, D, K, 4, 4]` and the rescored logits `[D, K]` of all K
-          hypotheses).
+          `[n_iter, D, K, 4, 4]`, the rescored logits `[D, K]` of all K
+          hypotheses and, after a depth stage, the depth refiner's extra).
         """
         cfg = self.cfg
         n_iter = n_refiner_iterations or cfg.n_refiner_iterations
         top_k = n_pose_hypotheses or cfg.n_pose_hypotheses
+        do_depth = cfg.run_depth_refiner if run_depth_refiner is None else run_depth_refiner
         if observation.batch_size != 1:
             raise ValueError("run_inference_pipeline takes one observation")
+        if do_depth and (self.depth_refiner is None or observation.channels != 4):
+            raise ValueError("the depth stage needs a depth_refiner and an observation with depth")
         if len(detections) == 0:
             raise ValueError("no detections")
         timing: dict[str, float] = {}
@@ -210,6 +224,16 @@ class PoseEstimator:
         best = pose_logits_dk.argmax(dim=1)
         TCO_best = TCO_refined.reshape(D, top_k, 4, 4)[torch.arange(D, device=self.device), best]
         best_logit = pose_logits_dk[torch.arange(D, device=self.device), best]
+
+        depth_extra = None
+        if do_depth:
+            t0 = self._clock()
+            refined, depth_extra = self.depth_refiner.refine_poses(
+                TensorCollection(infos=detections.infos, poses=TCO_best),
+                depth=observation.depth, K=observation.K,
+            )
+            TCO_best = refined.poses
+            timing["depth_refiner"] = self._clock() - t0
         timing["total"] = self._clock() - t_start
         self.timing_ = timing
 
@@ -228,4 +252,6 @@ class PoseEstimator:
                 "pose_logits": pose_logits_dk,
             },
         }
+        if depth_extra is not None:
+            extra["depth_refiner"] = depth_extra
         return poses, extra

@@ -24,7 +24,8 @@ class InferenceConfig:
     coarse_render_size: tuple[int, int] | None = None  # not ported yet
     n_refiner_iterations: int = 5
     n_pose_hypotheses: int = 5
-    run_depth_refiner: bool = False  # not ported yet
+    run_depth_refiner: bool = False
+    depth_refiner: str | None = None  # "ICP" or "teaserpp" (named models)
     bsz_images: int = 576  # coarse scoring chunk
     bsz_objects: int = 16  # refiner and rescoring chunk
     max_detections: int = 8  # detections kept per image (highest scores)

@@ -88,6 +88,7 @@ def config_from_run_json(path: str | Path) -> tuple[PosePredictorConfig, dict[st
         predict_pose_update=d["predict_pose_update"],
         predict_rendered_views_logits=d["predict_rendered_views_logits"],
         input_depth=d["input_depth"],
+        depth_normalization_type=d.get("depth_normalization_type", "none"),
         compute_dtype=d["compute_dtype"],
     )
     db = {k: int(d[k]) for k in ("max_faces", "n_points_mesh", "n_sym")}

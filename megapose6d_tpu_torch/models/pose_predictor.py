@@ -47,6 +47,7 @@ class PosePredictorConfig:
     n_rendered_views: int = 1
     input_depth: bool = False
     render_depth: bool = False
+    depth_normalization_type: str = "none"
     n_features: int = 512
     compute_dtype: str = "float32"
     crop_lamb: float = 1.4
@@ -81,6 +82,9 @@ def make_coarse_config(**overrides) -> PosePredictorConfig:
     return PosePredictorConfig(**kw)
 
 
+_DEPTH_NORMALIZATIONS = ("tCR_scale", "tCR_scale_clamp_center", "tCR_center_clamp", "none")
+
+
 def _lecun_normal_(w: Tensor, fan_in: int, scale: float, generator: torch.Generator) -> None:
     """flax's variance-scaling truncated normal (lecun_normal at scale 1)."""
     std = math.sqrt(scale / fan_in) / 0.87962566103423978
@@ -90,8 +94,8 @@ def _lecun_normal_(w: Tensor, fan_in: int, scale: float, generator: torch.Genera
 class PosePredictor(nn.Module):
     def __init__(self, cfg: PosePredictorConfig):
         super().__init__()
-        if cfg.input_depth or cfg.render_depth:
-            raise NotImplementedError("depth inputs and depth renders are not ported yet")
+        if cfg.depth_normalization_type not in _DEPTH_NORMALIZATIONS:
+            raise ValueError(f"unknown depth_normalization_type: {cfg.depth_normalization_type}")
         self.cfg = cfg
         self.backbone = make_backbone(
             cfg.backbone, cfg.n_inputs, tuple(cfg.render_size), cfg.n_features,
@@ -148,6 +152,7 @@ class PosePredictor(nn.Module):
         boxes_crop, images_cropped = cropping.deepim_crops_robust(
             images=images, obs_boxes=boxes_rend, K=K, TCO_pred=TCO, tCR=tCR,
             O_vertices=points, output_size=self.cfg.render_size, lamb=self.cfg.crop_lamb,
+            depth_dim=3 if self.cfg.input_depth else None,
         )
         K_crop = get_K_crop_resize(K, boxes_crop, self.cfg.render_size)
         return images_cropped, K_crop, boxes_rend, boxes_crop
@@ -172,8 +177,9 @@ class PosePredictor(nn.Module):
         )
         return get_K_crop_resize(K_mv, boxes_crop, self.cfg.render_size).reshape(B, V, 3, 3)
 
-    def render_views(self, meshes: BatchedMeshes, TCV_O: Tensor, KV: Tensor) -> Tensor:
-        """Render V views per hypothesis and stack their channels:
+    def render_views(self, meshes: BatchedMeshes, TCV_O: Tensor, KV: Tensor, tCR: Tensor) -> Tensor:
+        """Render V views per hypothesis and stack their channels (rgb,
+        normals, depth normalised about the reference point `tCR [B, 3]`):
         `[B, H, W, V * C_render]`."""
         cfg = self.cfg
         B, V = TCV_O.shape[:2]
@@ -189,8 +195,30 @@ class PosePredictor(nn.Module):
             backface_cull=cfg.backface_cull, **mesh_mv.texture_kw,
         )
         chans = [out.rgb, out.normals] if cfg.render_normals else [out.rgb]
+        if cfg.render_depth:
+            chans.append(self.normalize_depth(out.depth[..., None], tCR.repeat_interleave(V, dim=0)))
         r = torch.cat(chans, dim=-1).reshape(B, V, H, W, -1)
         return r.permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
+
+    def normalize_depth(self, depth: Tensor, tCR: Tensor) -> Tensor:
+        """Depth `[B, ..., 1]` normalised by the reference point's distance
+        `tCR [B, 3]` (z)."""
+        t = self.cfg.depth_normalization_type
+        z = tCR[:, 2].reshape((-1,) + (1,) * (depth.ndim - 1))
+        if t == "tCR_scale":
+            return depth / z
+        if t == "tCR_scale_clamp_center":
+            return (depth / z).clamp(0.0, 2.0) - 1.0
+        if t == "tCR_center_clamp":
+            return (depth - z).clamp(-2.0, 2.0)
+        return depth
+
+    def normalize_obs(self, images_crop: Tensor, tCR: Tensor) -> Tensor:
+        """The observation crop with its depth channel normalised."""
+        if self.cfg.input_depth:
+            depth = self.normalize_depth(images_crop[..., 3:4], tCR)
+            images_crop = torch.cat([images_crop[..., :3], depth], dim=-1)
+        return images_crop
 
     def update_pose(self, TCO: Tensor, K_crop: Tensor, pose_outputs: Tensor, tCR: Tensor) -> Tensor:
         """Apply the 9D head output."""
@@ -204,10 +232,12 @@ class PosePredictor(nn.Module):
     def refine_step(
         self, images: Tensor, K: Tensor, TCO_input: Tensor, meshes: BatchedMeshes
     ) -> dict[str, Tensor]:
-        """One DeepIM iteration. `images [B or 1, H, W, 3]` in [0, 1],
-        `K [B, 3, 3]`, `TCO_input [B, 4, 4]`, meshes selected to B."""
+        """One DeepIM iteration. `images [B or 1, H, W, 3 or 4]`, rgb in
+        [0, 1] (+ depth in metres), `K [B, 3, 3]`, `TCO_input [B, 4, 4]`,
+        meshes selected to B."""
         cfg = self.cfg
-        images = images[..., :3]
+        if not cfg.input_depth:
+            images = images[..., :3]
         TCO_input = normalize_T(TCO_input.detach())
         tCR = TCO_input[..., :3, 3]  # reference point = object origin
         TCV_O = multiview.make_TCO_multiview(
@@ -221,7 +251,8 @@ class PosePredictor(nn.Module):
         )
         if not cfg.remove_TCO_rendering:
             KV_crop[:, 0] = K_crop
-        renders = self.render_views(meshes, TCV_O, KV_crop)
+        renders = self.render_views(meshes, TCV_O, KV_crop, tCR)
+        images_crop = self.normalize_obs(images_crop, tCR)
         outputs = self.net_forward(torch.cat([images_crop, renders], dim=-1))
         if cfg.predict_pose_update:
             TCO_output = self.update_pose(TCO_input, K_crop, outputs["pose"], tCR)
@@ -240,7 +271,8 @@ class PosePredictor(nn.Module):
         cfg = self.cfg
         if not cfg.predict_rendered_views_logits:
             raise ValueError("score_views needs a coarse (logits) configuration")
-        images = images[..., :3]
+        if not cfg.input_depth:
+            images = images[..., :3]
         TCO_input = normalize_T(TCO_input.detach())
         tCR = TCO_input[..., :3, 3]
         images_crop, K_crop, boxes_rend, boxes_crop = self.crop_inputs(images, K, TCO_input, tCR, meshes)
@@ -257,7 +289,8 @@ class PosePredictor(nn.Module):
             )
             if not cfg.remove_TCO_rendering:
                 KV_crop[:, 0] = K_crop
-        renders = self.render_views(meshes, TCV_O, KV_crop)
+        renders = self.render_views(meshes, TCV_O, KV_crop, tCR)
+        images_crop = self.normalize_obs(images_crop, tCR)
         logits = self.net_forward(torch.cat([images_crop, renders], dim=-1))["renderings_logits"]
         return {
             "logits": logits, "scores": torch.sigmoid(logits), "K_crop": K_crop, "tCR": tCR,

@@ -71,10 +71,14 @@ def _resample_weights(
     return torch.where(inside[:, None, :], weights, torch.zeros_like(weights))
 
 
-def crop_images(images: Tensor, boxes: Tensor, output_size: tuple[int, int]) -> Tensor:
+def crop_images(
+    images: Tensor, boxes: Tensor, output_size: tuple[int, int], depth_dim: int | None = None
+) -> Tensor:
     """Bilinear crop+resize of NHWC `images [B or 1, H, W, C]` to the boxes
     `[B, 4]` (x1, y1, x2, y2) -> `[B, out_h, out_w, C]`. One image is
-    shared by all boxes when its batch is 1."""
+    shared by all boxes when its batch is 1. With `depth_dim`, that
+    channel is zeroed wherever the same resampling of its validity
+    (`depth > 0`) is below 0.99, so no crop pixel mixes in missing depth."""
     _, H, W, C = images.shape
     out_h, out_w = output_size
     x1, y1, x2, y2 = boxes.unbind(-1)
@@ -84,10 +88,21 @@ def crop_images(images: Tensor, boxes: Tensor, output_size: tuple[int, int]) -> 
     ty = sy * (0.5 - y1) - 0.5
     wy = _resample_weights(H, out_h, sy, ty)  # [B, H, out_h]
     wx = _resample_weights(W, out_w, sx, tx)  # [B, W, out_w]
-    x = images.permute(0, 3, 1, 2).reshape(images.shape[0], C * H, W)
-    x = (x @ wx).reshape(-1, C, H, out_w)  # [B, C, H, out_w]
-    x = wy.transpose(1, 2)[:, None] @ x  # [B, C, out_h, out_w]
-    return x.permute(0, 2, 3, 1)
+
+    def resample(img: Tensor) -> Tensor:
+        c = img.shape[-1]
+        x = img.permute(0, 3, 1, 2).reshape(img.shape[0], c * H, W)
+        x = (x @ wx).reshape(-1, c, H, out_w)  # [B, c, H, out_w]
+        x = wy.transpose(1, 2)[:, None] @ x  # [B, c, out_h, out_w]
+        return x.permute(0, 2, 3, 1)
+
+    crops = resample(images)
+    if depth_dim is not None:
+        valid = (images[..., depth_dim : depth_dim + 1] > 0).to(images.dtype)
+        mask = (resample(valid) >= 0.99).to(images.dtype)
+        crops = torch.cat([crops[..., :depth_dim], crops[..., depth_dim : depth_dim + 1] * mask,
+                           crops[..., depth_dim + 1 :]], dim=-1)
+    return crops
 
 
 def deepim_crops_robust(
@@ -100,6 +115,7 @@ def deepim_crops_robust(
     output_size: tuple[int, int],
     lamb: float = 1.4,
     points_valid: Tensor | None = None,
+    depth_dim: int | None = None,
     return_crops: bool = True,
     im_size: tuple[int, int] | None = None,
 ) -> tuple[Tensor, Tensor | None]:
@@ -116,5 +132,5 @@ def deepim_crops_robust(
     TCR[..., :3, 3] = tCR
     center = project_points_robust(torch.zeros_like(TCO_pred[..., :1, :3]), K, TCR)[..., 0, :]
     boxes = deepim_boxes(center, obs_boxes, rend_boxes, lamb=lamb, im_size=hw)
-    crops = crop_images(images, boxes, output_size) if return_crops else None
+    crops = crop_images(images, boxes, output_size, depth_dim) if return_crops else None
     return boxes, crops

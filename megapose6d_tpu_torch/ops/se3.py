@@ -79,6 +79,31 @@ def rotmat_from_quat(q: Tensor) -> Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def quat_from_rotmat(R: Tensor) -> Tensor:
+    """Rotation matrix `[..., 3, 3]` -> unit quaternion (xyzw) `[..., 4]`
+    with w >= 0 (Shepperd: the candidate of the largest 4 q_k^2)."""
+    m = R
+    tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    q2 = torch.stack([
+        1.0 + tr,
+        1.0 + m[..., 0, 0] - m[..., 1, 1] - m[..., 2, 2],
+        1.0 - m[..., 0, 0] + m[..., 1, 1] - m[..., 2, 2],
+        1.0 - m[..., 0, 0] - m[..., 1, 1] + m[..., 2, 2],
+    ], -1).clamp_min(0.0)
+    a21, a02, a10 = m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0], m[..., 1, 0] - m[..., 0, 1]
+    s01, s02, s12 = m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0], m[..., 1, 2] + m[..., 2, 1]
+    cands = torch.stack([
+        torch.stack([a21, a02, a10, q2[..., 0]], -1),
+        torch.stack([q2[..., 1], s01, s02, a21], -1),
+        torch.stack([s01, q2[..., 2], s12, a02], -1),
+        torch.stack([s02, s12, q2[..., 3], a10], -1),
+    ], -2)  # [..., 4 candidates, 4]
+    best = q2.argmax(-1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return q * torch.where(q[..., 3:4] < 0, -1.0, 1.0)
+
+
 def rotmat_from_euler_sxyz(euler: Tensor) -> Tensor:
     """Static-frame XYZ euler angles -> `R = Rz @ Ry @ Rx`."""
     ax, ay, az = euler[..., 0], euler[..., 1], euler[..., 2]

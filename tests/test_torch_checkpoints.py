@@ -6,6 +6,10 @@ file `megapose6d_tpu_torch.inference.load_model` loads (the port cannot
 read orbax). Also runnable as
 
     python -m tests.test_torch_checkpoints export runs/coarse_dr build/weights/coarse_dr.npz
+    python -m tests.test_torch_checkpoints export runs/refiner_dr build/weights/refiner_dr@24000.npz 24000
+
+The optional last argument names the checkpoint step (`checkpoints/epoch_<step>`);
+without it the step is the one `checkpoints/latest.txt` names.
 
 The trained pipeline (`runs/coarse_dr` + `runs/refiner_dr`, f32, at the
 240x320 that their spatial heads fix, SO(3) grid 72) runs in both packages
@@ -40,9 +44,9 @@ RUNS = ROOT / "runs"
 SCENE = RUNS / "ar_dr/synthdemo"
 
 
-def jax_params(run_dir: str | Path, compute_dtype: str | None = None):
-    """(JAX model, its params as numpy) of a committed run, through the
-    JAX package's own `load_checkpoint`."""
+def jax_params(run_dir: str | Path, compute_dtype: str | None = None, step: int | None = None):
+    """(JAX model, its params as numpy) of a committed run at `step` (None:
+    the run's `latest.txt`), through the JAX package's own `load_checkpoint`."""
     from megapose6d_tpu.meshes import MeshDataBase, RigidObject, RigidObjectDataset, make_cube
     from megapose6d_tpu.models import pose_predictor as jpp
     from megapose6d_tpu.training.config import load_config
@@ -63,7 +67,7 @@ def jax_params(run_dir: str | Path, compute_dtype: str | None = None):
             jnp.eye(3)[None] * 100.0, jnp.eye(4)[None].at[0, 2, 3].set(0.5),
             tiny.select(jnp.zeros((1,), jnp.int32)))
     state = TrainState.create(apply_fn=jmodel.apply, params=target, tx=optax.identity())
-    state, _ = load_checkpoint(run_dir, state, params_only=True)
+    state, _ = load_checkpoint(run_dir, state, epoch=step, params_only=True)
     return jmodel, jax.tree.map(np.asarray, state.params)
 
 
@@ -75,9 +79,10 @@ def flatten(tree, prefix=""):
     return out
 
 
-def export_params(run_dir: str | Path, out: str | Path) -> Path:
-    """Write a run's params as an npz of `/`-joined keys."""
-    _, params = jax_params(run_dir)
+def export_params(run_dir: str | Path, out: str | Path, step: int | None = None) -> Path:
+    """Write a run's params at `step` (None: the latest) as an npz of
+    `/`-joined keys."""
+    _, params = jax_params(run_dir, step=step)
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez(out, **flatten(params))
@@ -123,6 +128,20 @@ def test_npz_round_trip_loads_the_checkpoint(exported):
             assert torch.equal(got[k], expected[k]), k
     assert refiner.cfg.n_rendered_views == 2 and coarse.cfg.compute_dtype == "bfloat16"
     assert db.has_tex.tolist() == [True, True] and db.labels == ("obj_000001", "obj_000002")
+
+
+def test_export_at_a_named_step(tmp_path, exported):
+    """`refiner_dr` holds steps 24000 (the final params-only save that the
+    committed reports name), 27000 and 30000 (`latest.txt`). The export at
+    24000 has the latest's keys and other values."""
+    from megapose6d_tpu_torch.inference.load_model import load_params_npz
+
+    assert (RUNS / "refiner_dr/checkpoints/latest.txt").read_text().strip() == "30000"
+    at = flatten(load_params_npz(export_params(RUNS / "refiner_dr", tmp_path / "r@24000.npz", step=24000)))
+    latest = flatten(exported["refiner_dr"][1])
+    assert at.keys() == latest.keys()
+    differ = [k for k in at if not np.array_equal(at[k], latest[k])]
+    assert len(differ) > len(at) // 2, len(differ)
 
 
 def test_seeded_models_without_npz():
@@ -231,6 +250,6 @@ def test_trained_pipeline_frames_match_jax(exported):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 4 or sys.argv[1] != "export":
-        sys.exit("usage: python -m tests.test_torch_checkpoints export <run_dir> <out.npz>")
-    print(export_params(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) not in (4, 5) or sys.argv[1] != "export":
+        sys.exit("usage: python -m tests.test_torch_checkpoints export <run_dir> <out.npz> [step]")
+    print(export_params(sys.argv[2], sys.argv[3], int(sys.argv[4]) if len(sys.argv) == 5 else None))

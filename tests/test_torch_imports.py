@@ -47,7 +47,11 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.data.bop_scene_dataset", "megapose6d_tpu_torch.data.datasets_cfg",
         "megapose6d_tpu_torch.evaluation.meters", "megapose6d_tpu_torch.evaluation.vsd",
         "megapose6d_tpu_torch.evaluation.bop", "megapose6d_tpu_torch.evaluation.evaluation",
-        "megapose6d_tpu_torch.scripts.run_eval",
+        "megapose6d_tpu_torch.scripts.run_eval", "megapose6d_tpu_torch.utils.threefry",
+        "megapose6d_tpu_torch.ops.icp", "megapose6d_tpu_torch.ops.registration",
+        "megapose6d_tpu_torch.inference.depth_refiner",
+        "megapose6d_tpu_torch.scripts.run_inference_on_example",
+        "megapose6d_tpu_torch.scripts.demo_ar_baseline",
     }
     assert expected <= set(out["modules"])
 
@@ -61,10 +65,13 @@ def test_entry_points_default_to_cuda():
     from megapose6d_tpu_torch.ops.so3_grid import make_so3_grid
 
     from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig
-    from megapose6d_tpu_torch.inference.load_model import build_model, load_or_init_models
+    from megapose6d_tpu_torch.inference.load_model import build_model, load_named_model, load_or_init_models
+    from megapose6d_tpu_torch.scripts import demo_ar_baseline, run_inference_on_example
 
     assert EvalConfig().device == "cuda"
     for fn in (PoseEstimator.__init__, make_detections, MeshDataBase.batched,
                build_pose_predictor, make_so3_grid, ObservationTensor.from_numpy,
-               build_model, load_or_init_models):
+               build_model, load_or_init_models, load_named_model,
+               run_inference_on_example.load_observation):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert demo_ar_baseline.DEFAULTS["device"] == "cuda"

@@ -148,7 +148,9 @@ def test_unported_modes_raise():
     coarse = tpp.PosePredictor(tpp.make_coarse_config(render_size=RENDER, backbone="resnet18"))
     refiner = tpp.PosePredictor(tpp.make_refiner_config(render_size=RENDER, backbone="resnet18"))
     for kw in (dict(fused_pipeline=True), dict(SO3_prune_grid_size=72), dict(rescore_f32=True),
-               dict(coarse_render_size=(120, 160)), dict(run_depth_refiner=True),
-               dict(coarse_estimation_type="external")):
+               dict(coarse_render_size=(120, 160)), dict(coarse_estimation_type="external")):
         with pytest.raises(NotImplementedError):
             PoseEstimator(coarse, refiner, db, InferenceConfig(**kw), device="cpu")
+    # The depth stage is ported; asked for without a depth refiner it raises.
+    with pytest.raises(ValueError):
+        PoseEstimator(coarse, refiner, db, InferenceConfig(run_depth_refiner=True), device="cpu")

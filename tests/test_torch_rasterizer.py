@@ -207,3 +207,26 @@ def test_kernel_wrapper_refuses_cpu_and_bad_layouts():
     before = trt.visibility_kernel.launches
     trt.visibility(coefs, ids, n_act, (H, W), 16)  # CPU: the plain twin
     assert trt.visibility_kernel.launches == before
+
+
+def test_single_pass_above_the_tpu_segment_cap(monkeypatch):
+    """A ~34k-face mesh at two poses. The JAX package renders it in face
+    segments of at most 8192 faces (`max_faces_per_program`, merged by z);
+    the port's phase B takes all faces in one pass. As in
+    `tests/test_rasterizer_tiled.py::test_face_segmentation_equivalence`:
+    masks exact, depth, rgb and normals within 1e-3."""
+    sphere = make_uv_sphere(0.05, n_lat=116, n_lon=148)
+    assert sphere.n_faces > 4 * jrt.MAX_FACES_PER_PROGRAM
+    args = mesh_args(sphere, [pose_z(0.4, 0.3), pose_z(0.5, 1.1)])
+    j = jrt.render_meshes_tiled(*map(jnp.asarray, args), (H, W), interpret=True, backface_cull=True,
+                                max_faces_per_program=jrt.MAX_FACES_PER_PROGRAM)
+    calls = []
+    plain = trt.visibility_plain
+    monkeypatch.setattr(trt, "visibility_plain", lambda *a: calls.append(a[0].shape) or plain(*a))
+    t = trt.render_meshes_tiled(*map(torch.as_tensor, args), (H, W), backface_cull=True)
+    assert len(calls) == 1 and calls[0][1] >= sphere.n_faces  # one pass over every face
+    np.testing.assert_array_equal(np.asarray(j.mask), t.mask.numpy())
+    assert t.mask.numpy().mean() > 0.1
+    for name in ("depth", "rgb", "normals"):
+        np.testing.assert_allclose(getattr(t, name).numpy(), np.asarray(getattr(j, name)), atol=1e-3,
+                                   err_msg=name)

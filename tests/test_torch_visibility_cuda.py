@@ -63,6 +63,21 @@ def test_kernel_equals_plain(cuda, hw, B):
     assert_identical(out, rt.visibility_plain(*vis))
 
 
+def test_kernel_equals_plain_above_the_segment_cap(cuda):
+    """A 34,040-face sphere (the TPU kernel takes at most 8192 faces a
+    program and renders larger meshes in segments) at 3 hypotheses: one
+    launch over all faces, bit-identical to the plain twin."""
+    mesh = mesh_io.make_uv_sphere(0.05, 116, 148)
+    assert mesh.n_faces > 4 * 8192
+    vis = tables(cuda, 3, (240, 320), mesh, seed=4) + ((240, 320), 16)
+    before = rt.visibility_kernel.launches
+    out = rt.visibility(*vis)
+    torch.cuda.synchronize()
+    assert rt.visibility_kernel.launches == before + 1
+    assert (out[1] >= 0).sum() > 3 * 1000
+    assert_identical(out, rt.visibility_plain(*vis))
+
+
 def test_kernel_empty_tiles_and_nan_planes(cuda):
     mesh = mesh_io.make_cube(0.05)
     coefs, ids, n_act = tables(cuda, 2, (64, 64), mesh)
