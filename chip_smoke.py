@@ -62,7 +62,21 @@ Phases, each printing one line with its wall time:
      instance against the JAX package's own rerun at those steps on a CPU
      when build/jax_ar_gnc/predictions_{icp,gnc}.npz are in the copy
      (written by `python -m tests.jax_demo_ar_rerun`); seeded in bf16
-     otherwise.
+     otherwise;
+ 13. training: `run_training synthetic=1` with runs/refiner_dr's settings
+     (resnet18-spatial, 240x320, batch 32, bf16, 2 views, 1 iteration,
+     weights from a seed) for 10 epochs of one step, a checkpoint, 2 more
+     resumed, and with runs/coarse_dr's (the grid objective, 4 hypotheses)
+     for 5, the kernel's launches counted; per configuration the step's
+     seconds by part (batch synthesis, forward, backward, optimizer; CUDA
+     events), the traced idle share of a step and the peak memory; the
+     kernel at the training launch shapes (observations B=32, refiner
+     hypotheses B=64, coarse hypotheses B=128) held bit for bit against
+     the plain twin and timed beside the bound; one f32 refiner step
+     through the kernel against one through the plain twin (deterministic
+     cuDNN; loss and gradient norm to 1e-6 relative); forward_loss and its
+     gradients on the card against the CPU at the CPU tests' size; 40
+     overfit steps on one batch, whose loss must fall.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -102,7 +116,10 @@ from megapose6d_tpu_torch.models.pose_predictor import PosePredictorConfig, buil
 from megapose6d_tpu_torch.ops import icp, rasterizer_tiled as rt
 from megapose6d_tpu_torch.ops._nvcc import BUILD_DIR
 from megapose6d_tpu_torch.ops._precision import pin_f32
-from megapose6d_tpu_torch.scripts import demo_ar_baseline
+from megapose6d_tpu_torch.scripts import demo_ar_baseline, run_training
+from megapose6d_tpu_torch.training import train as tt
+from megapose6d_tpu_torch.training.config import TrainingConfig, load_config, make_coarse_cfg, make_refiner_cfg
+from megapose6d_tpu_torch.training.forward_loss import draw_forward_loss, draws_to, forward_loss
 from megapose6d_tpu_torch.utils import threefry
 
 ROOT = Path(__file__).resolve().parent
@@ -1097,6 +1114,288 @@ def phase_depth_eval() -> int:
         compare_depth_eval(method, dtype, preds, jax, scene_ds, mesh_db)
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 13: training
+# ---------------------------------------------------------------------------
+
+TRAIN_RUNS = BUILD_DIR / "train_runs"
+# Fields of a run's config.json that name the run rather than its model,
+# data or optimizer; the training phase sets its own.
+RUN_FIELDS = {"run_id", "run_dir", "seed", "resume_run_id", "pretrain_run_id", "train_datasets",
+              "n_epochs", "save_epoch_interval", "val_epoch_interval", "n_max_objects"}
+
+
+def run_overrides(run: str) -> list[str]:
+    """`runs/<run>/config.json`'s model, data and optimizer settings as
+    `key=value` arguments of `run_training`."""
+    d = json.loads((ROOT / f"runs/{run}/config.json").read_text())
+    fmt = lambda v: ",".join(map(str, v)) if isinstance(v, list) else str(v)
+    return [f"{k}={fmt(v)}" for k, v in d.items() if k not in RUN_FIELDS]
+
+
+def train_setup(run: str, **overrides):
+    """(config, mesh DB, synthetic batches) of `run_training synthetic=1`
+    with `runs/<run>/config.json`'s settings, on the card."""
+    cfg = run_training.make_config(run.split("_")[0], False, run_overrides(run))
+    cfg = dataclasses.replace(cfg, **overrides)
+    mesh_db = run_training.synthetic_mesh_db(cfg, "cuda")
+    return cfg, mesh_db, tt.synthetic_batch_fn(mesh_db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
+
+
+def step_report(name: str, state, cfg, synth, mesh_db, n: int = 3) -> None:
+    """Seconds per step over `n` steps after warm-up, each `tt.train_step`
+    with its batch and draws made before it as `train` makes them, split
+    into batch, forward, backward and optimizer by CUDA events recorded
+    where the step enters and leaves `forward_loss` and enters
+    `apply_gradients`; the traced busy and idle share of one more step,
+    and the peak memory."""
+    marks: list = []
+
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    def step():
+        batch = synth(tt.step_generator(cfg.seed, tt.BATCH_STREAM, state.step))
+        draws = tt.step_draws(cfg, batch, mesh_db, tt.DRAW_STREAM, state.step)
+        tt.train_step(state, cfg, batch, mesh_db, draws, cfg.n_iterations)
+
+    def timed() -> dict:
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mark()
+        step()
+        mark()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parts = ("batch", "forward", "backward", "optimizer")
+        return {**{p: marks[i].elapsed_time(marks[i + 1]) / 1e3 for i, p in enumerate(parts)}, "wall": wall}
+
+    forward, apply = tt.forward_loss, state.apply_gradients
+
+    def marked_forward(*a, **k):
+        mark()
+        out = forward(*a, **k)
+        mark()
+        return out
+
+    def marked_apply(*a, **k):
+        mark()
+        return apply(*a, **k)
+
+    tt.forward_loss, state.apply_gradients = marked_forward, marked_apply
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        times = [timed() for _ in range(n)]
+    finally:
+        tt.forward_loss = forward
+        del state.apply_gradients
+    mean = {k: sum(t[k] for t in times) / n for k in times[0]}
+    wall, busy, top = profile_call(step)
+    print(f"  {name} step (mean of {n} after warm-up): " + " ".join(f"{k}_s={v:.4f}" for k, v in mean.items())
+          + f"; traced step wall_ms={wall:.2f} device_busy_ms={busy:.2f} idle_share={1 - busy / wall:.3f}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; top: {'; '.join(top)}", flush=True)
+
+
+def read_log(run_dir: Path) -> list[dict]:
+    return [json.loads(line) for line in (run_dir / "log.txt").read_text().splitlines()]
+
+
+def phase_training(errors: list[float]) -> tuple[int, dict]:
+    """The trainer at the committed runs' full width: refiner_dr (10
+    epochs of one step, a checkpoint, 2 more resumed) and coarse_dr (5
+    steps) through `run_training synthetic=1`, with the kernel's launches
+    counted; each one's step by part; K1 against its plain twin at the
+    training launch shapes; one step through K1 against one through the
+    plain twin; the card against the CPU at a small size; an overfit."""
+    shutil.rmtree(TRAIN_RUNS, ignore_errors=True)
+    common = ["synthetic=1", "device=cuda", f"run_dir={TRAIN_RUNS}", "save_epoch_interval=100",
+              "val_epoch_interval=10"]
+    refiner_args = ["config_id=refiner", *run_overrides("refiner_dr"), *common, "run_id=refiner"]
+    coarse_args = ["config_id=coarse", *run_overrides("coarse_dr"), *common, "run_id=coarse"]
+
+    rt.visibility_kernel.launches = 0  # the training path starts here
+    t0 = time.perf_counter()
+    state_r = run_training.main(refiner_args + ["n_epochs=10"])
+    t_r = time.perf_counter() - t0
+    state_r = run_training.main(refiner_args + ["n_epochs=12", "resume_run_id=refiner"])
+    t0 = time.perf_counter()
+    state_c = run_training.main(coarse_args + ["n_epochs=5"])
+    t_c = time.perf_counter() - t0
+    launches = rt.visibility_kernel.launches  # read right after the path
+    cfg_r, cfg_c = load_config(TRAIN_RUNS / "refiner/config.json"), load_config(TRAIN_RUNS / "coarse/config.json")
+    check(cfg_r.backbone_str == "resnet18-spatial" and cfg_r.batch_size == 32 and cfg_r.compute_dtype == "bfloat16"
+          and tuple(cfg_r.render_size) == HW and cfg_r.n_rendered_views == 2 and cfg_r.n_iterations == 1,
+          f"refiner not at the committed width: {cfg_r}")
+    check(cfg_c.hypotheses_init_method == "coarse_classif_grid" and cfg_c.n_hypotheses == 4
+          and cfg_c.batch_size == 32 and cfg_c.compute_dtype == "bfloat16", f"coarse not at the committed width: {cfg_c}")
+    # Per step one observation render and one hypothesis render per
+    # iteration; at epoch 10 two validation batches (forward only).
+    per_step = 1 + cfg_r.n_iterations
+    expected = 12 * per_step + tt.N_VAL_BATCHES * per_step + 5 * 2
+    print(f"  kernel launches on the training path: {launches} (expected {expected})", flush=True)
+    check(launches == expected, "the training path did not launch the kernel as expected")
+    log_r, log_c = read_log(TRAIN_RUNS / "refiner"), read_log(TRAIN_RUNS / "coarse")
+    check([l["epoch"] for l in log_r] == list(range(1, 13)) and state_r.step == 12, "refiner epochs or steps")
+    check([l["epoch"] for l in log_c] == list(range(1, 6)) and state_c.step == 5, "coarse epochs or steps")
+    check(all(np.isfinite(v) for l in log_r + log_c for v in l.values()), "non-finite training metrics")
+    check("val_loss" in log_r[9] and (TRAIN_RUNS / "refiner/checkpoints/epoch_10/state.pt").exists()
+          and (TRAIN_RUNS / "refiner/checkpoints/latest.txt").read_text() == "12", "validation or checkpoints")
+    for name, log, t in (("refiner", log_r, t_r), ("coarse", log_c, t_c)):
+        keys = [k for k in log[0] if k.startswith(("loss", "views", "grad"))]
+        print(f"  {name}: {len(log)} epochs in {t:.2f} s (first epoch {log[0]['time_per_epoch']:.2f} s, "
+              f"later {np.mean([l['time_per_epoch'] for l in log[2:]]):.4f} s); first / last "
+              + " ".join(f"{k}={log[0][k]:.4g}/{log[-1][k]:.4g}" for k in keys), flush=True)
+    print(f"  refiner resumed at epoch 11 from step 10: epochs {[l['epoch'] for l in log_r[10:]]}, "
+          f"val_loss {log_r[9]['val_loss']:.4g}", flush=True)
+
+    _, db, synth = train_setup("refiner_dr")
+    step_report("refiner", state_r, cfg_r, synth, db)
+    step_report("coarse", state_c, cfg_c, synth, db)
+    shapes = train_kernel_shapes(state_r, state_c, cfg_r, cfg_c, db, synth, errors)
+    del state_r, state_c
+    train_kernel_vs_plain_step()
+    train_card_vs_cpu()
+    train_overfit()
+    return launches, shapes
+
+
+def train_kernel_shapes(state_r, state_c, cfg_r, cfg_c, db, synth, errors: list[float]) -> dict:
+    """K1 at the training launch shapes, each held bit for bit against the
+    plain twin and timed: the observations of a batch, the refiner's
+    hypotheses and the coarse scorer's, from a fixed seed."""
+    captured: list = []
+    restore = record_visibility_inputs(captured)
+    try:
+        with torch.no_grad():
+            batch = synth(torch.Generator().manual_seed(1))
+            for cfg, state in ((cfg_r, state_r), (cfg_c, state_c)):
+                draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1],
+                                                   torch.Generator().manual_seed(2)), "cuda")
+                forward_loss(state.model, cfg, batch, db, draws, cfg.n_iterations)
+    finally:
+        rt.visibility = restore
+    check(len(captured) == 3, f"captured {len(captured)} launches")
+    shapes = {}
+    for key, vis, per_step in zip(("obs", "refiner", "coarse"), captured, (1, cfg_r.n_iterations, 1)):
+        g, per_launch = shape_group([vis], errors)
+        key = f"train_{key}_B{vis[0].shape[0]}"
+        shapes[key] = {**g, "launches": per_step}
+        print(f"  {key}: launches_per_step={per_step} kernel_ms={g['ms']:.4f} plain_ms={g['plain_ms']:.3f} "
+              f"bound_ms={g['bound_ms']:.4f} ({g['bound_by']}) max_abs_err={errors[-1]}", flush=True)
+        print(tile_work_line(key, [vis]), flush=True)
+    return shapes
+
+
+def train_kernel_vs_plain_step() -> None:
+    """One refiner step (f32, deterministic cuDNN, a fixed batch and
+    draws) from the same weights, once through K1 and once with phase B
+    on the plain twin: the loss and gradient norm to 1e-6 relative."""
+    cfg, db, synth = train_setup("refiner_dr", compute_dtype="float32")
+    batch = synth(torch.Generator().manual_seed(3))
+    draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1], torch.Generator().manual_seed(4)),
+                     "cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for route in ("kernel", "plain"):
+            state = tt.create_train_state(cfg, "cuda")
+            restore = rt.visibility
+            if route == "plain":
+                rt.visibility = lambda *a: rt.visibility_plain(*a)
+            try:
+                metrics = tt.train_step(state, cfg, batch, db, draws, cfg.n_iterations)
+            finally:
+                rt.visibility = restore
+            out[route] = (metrics, [p.detach().clone() for p in state.params])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (mk, pk), (mp, pp) = out["kernel"], out["plain"]
+    rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-30) for k in ("loss_total", "grad_norm")}
+    dp = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    print(f"  step through K1 vs plain twin (f32): loss {mk['loss_total']:.8g} / {mp['loss_total']:.8g}, "
+          f"grad_norm {mk['grad_norm']:.8g} / {mp['grad_norm']:.8g}, relative gaps {rel}; "
+          f"largest parameter difference after the step {dp:.3g}", flush=True)
+    check(all(v <= 1e-6 for v in rel.values()), f"kernel and plain steps differ: {rel}")
+
+
+def train_card_vs_cpu() -> None:
+    """forward_loss and its gradients on the card against the CPU at the
+    CPU tests' size (tests/test_torch_forward_loss.py: resnet18-spatial,
+    48x64 renders of 60x80 observations, batch 2, the 256-face cube and
+    sphere, f32, TF32 off), from the same weights, batch and draws. Render
+    pixels that differ between the devices (a silhouette pixel flipped by
+    last-bit differences of the geometry) are counted, at most 0.1% of
+    them. The loss is held to the CPU tests' rtol 1e-5 and each gradient
+    tensor to within 1e-4 of its largest entry. The coarse scorer's
+    gradients jump by a fixed amount where one ReLU or max-pool decision
+    flips, so there a tensor may also differ by up to twice its own move
+    on the CPU when the CPU's observation is scaled by 1 +- 2^-23; every
+    tensor beyond 1e-4 is printed with that move."""
+    objs = RigidObjectDataset([RigidObject(label="cube", mesh=mesh_io.make_cube(0.04)),
+                               RigidObject(label="sphere", mesh=mesh_io.make_uv_sphere(0.035, 8, 12))])
+    host_db = MeshDataBase.from_object_ds(objs, max_faces=256, n_points=128, n_sym=4)
+    dbs = {d: host_db.batched(align=32, device=d) for d in ("cpu", "cuda")}
+    base = TrainingConfig(backbone_str="resnet18-spatial", input_resize=(60, 80), render_size=(48, 64),
+                          batch_size=2, n_points_loss=32, compute_dtype="float32")
+    cases = {"refiner": (dataclasses.replace(make_refiner_cfg(base), n_rendered_views=2, multiview_type="front_1view",
+                                             n_iterations=2, random_ambient_light=True), False),
+             "coarse_grid": (dataclasses.replace(make_coarse_cfg(base), n_hypotheses=4), True)}
+    for name, (cfg, ulp_room) in cases.items():
+        batch = tt.synthetic_batch_fn(dbs["cpu"], 2, (60, 80), f=120.0, device="cpu")(torch.Generator().manual_seed(5))
+        draws = draw_forward_loss(cfg, 2, 128, torch.Generator().manual_seed(6))
+
+        def run(dev, scale=1.0):
+            state = tt.create_train_state(cfg, dev)
+            render, seen = state.model.render_views, []
+            state.model.render_views = lambda *a, **k: seen.append(render(*a, **k)) or seen[-1]
+            b = dataclasses.replace(batch, rgbs=batch.rgbs * scale).to(dev)
+            loss, _ = forward_loss(state.model, cfg, b, dbs[dev], draws_to(draws, dev), cfg.n_iterations)
+            grads = torch.autograd.grad(loss, state.params)
+            names = [n for n, _ in state.model.named_parameters()]
+            return loss.item(), dict(zip(names, (g.cpu() for g in grads))), [r.cpu() for r in seen]
+
+        def gaps(a, b) -> dict:
+            return {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in a}
+
+        lg, gg, rg = run("cuda")
+        lc, gc, rc = run("cpu")
+        gap = gaps(gg, gc)
+        move = {n: 0.0 for n in gap}
+        if ulp_room:
+            moves = [gaps(run("cpu", 1 + s * 2.0**-23)[1], gc) for s in (1, -1)]
+            move = {n: max(m[n] for m in moves) for n in gap}
+        limit = {n: max(1e-4, 2 * move[n]) for n in gap}
+        flips = sum(int(((a - b).abs() > 1e-4).any(-1).sum()) for a, b in zip(rg, rc))
+        pixels = sum(r[..., 0].numel() for r in rg)
+        worst = max(gap, key=gap.get)
+        beyond = ", ".join(f"{n} {gap[n]:.3g} (own 1-ulp move {move[n]:.3g})" for n in gap if gap[n] > 1e-4)
+        print(f"  card vs cpu, {name}: {flips} of {pixels} rendered pixels differ; loss {lg:.8g} / {lc:.8g} "
+              f"(relative {abs(lg - lc) / abs(lc):.3g}); worst relative gradient gap {gap[worst]:.3g} ({worst}) "
+              f"over {len(gap)} tensors; beyond 1e-4: {beyond or 'none'}", flush=True)
+        check(flips <= 0.001 * pixels and abs(lg - lc) <= 1e-5 * abs(lc) and all(gap[n] <= limit[n] for n in gap),
+              f"{name}: card and cpu differ")
+
+
+def train_overfit(n: int = 40) -> None:
+    """The refiner at full width on one fixed batch with fixed draws, large
+    initial noise and lr 1e-3 (tests/test_training.py's overfit check): the
+    mean of the last 5 losses below the mean of the first 3."""
+    cfg, db, synth = train_setup("refiner_dr", lr=1e-3, n_epochs_warmup=1,
+                                 init_euler_deg_std=(40.0, 40.0, 40.0), init_trans_std=(0.04, 0.04, 0.12))
+    batch = synth(torch.Generator().manual_seed(7))
+    draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1], torch.Generator().manual_seed(8)),
+                     "cuda")
+    state = tt.create_train_state(cfg, "cuda")
+    t0 = time.perf_counter()
+    losses = [tt.train_step(state, cfg, batch, db, draws, cfg.n_iterations)["loss_total"] for _ in range(n)]
+    print(f"  overfit, {n} steps in {time.perf_counter() - t0:.2f} s: first 3 mean {np.mean(losses[:3]):.5g}, "
+          f"last 5 mean {np.mean(losses[-5:]):.5g}; losses {' '.join(f'{l:.4g}' for l in losses)}", flush=True)
+    check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:3]), "the overfit loss did not fall")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1136,18 +1435,21 @@ def main() -> int:
         rgbd_launches = phase_rgbd()
     with Phase("depth eval"):
         depth_eval_launches = phase_depth_eval()
+    with Phase("training"):
+        train_launches, train_shapes = phase_training(errors)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
+    timing["by_shape"].update(train_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
         "source": "megapose6d_tpu_torch/csrc/visibility.cu",
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
-        + depth_eval_launches,
+        + depth_eval_launches + train_launches,
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
-                             "depth_eval": depth_eval_launches},
+                             "depth_eval": depth_eval_launches, "train": train_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

@@ -11,11 +11,11 @@ a fixed seed), `data_dir` (the root holding `<ds_name>/`; empty:
 from __future__ import annotations
 
 import dataclasses
-import json
 from pathlib import Path
 from typing import Any, Optional
 
 from ..inference.types import InferenceConfig
+from ..training.config import _coerce
 
 
 @dataclasses.dataclass
@@ -54,38 +54,6 @@ def get_save_dir(cfg: EvalConfig) -> Path:
         raise ValueError("EvalConfig.save_dir is not set")
     key = f"{cfg.inference.detection_type}+{cfg.inference.coarse_estimation_type}"
     return Path(cfg.save_dir) / cfg.ds_name / key
-
-
-def _coerce(value: str, current: Any, hint: str = "") -> Any:
-    """String -> field value, typed by the current value or (when the
-    default is None) by the field's annotation `hint`; the JAX package's
-    dotlist syntax (`training/config.py`)."""
-    if isinstance(current, bool):
-        return value.lower() in ("1", "true", "yes")
-    if isinstance(current, int):
-        return int(value)
-    if isinstance(current, float):
-        return float(value)
-    if isinstance(current, tuple):
-        parts = [p for p in value.strip("[]() ").split(",") if p]
-        elem = current[0] if current else value
-        return tuple(type(elem)(p.strip()) for p in parts)
-    if isinstance(current, list) or (current is None and "list" in hint):
-        try:
-            out = json.loads(value)
-            return out if isinstance(out, list) else [out]
-        except json.JSONDecodeError:
-            return [p.strip() for p in value.split(",") if p.strip()]
-    if current is None and "int" in hint:
-        return int(value)
-    if current is None and "float" in hint:
-        return float(value)
-    if current is None and not hint:
-        try:
-            return json.loads(value)
-        except json.JSONDecodeError:
-            return value
-    return value
 
 
 def apply_eval_overrides(cfg: EvalConfig, argv: list[str]) -> EvalConfig:

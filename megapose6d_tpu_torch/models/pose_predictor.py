@@ -177,16 +177,28 @@ class PosePredictor(nn.Module):
         )
         return get_K_crop_resize(K_mv, boxes_crop, self.cfg.render_size).reshape(B, V, 3, 3)
 
-    def render_views(self, meshes: BatchedMeshes, TCV_O: Tensor, KV: Tensor, tCR: Tensor) -> Tensor:
+    @torch.no_grad()
+    def render_views(
+        self, meshes: BatchedMeshes, TCV_O: Tensor, KV: Tensor, tCR: Tensor,
+        ambient: Tensor | None = None,
+    ) -> Tensor:
         """Render V views per hypothesis and stack their channels (rgb,
         normals, depth normalised about the reference point `tCR [B, 3]`):
-        `[B, H, W, V * C_render]`."""
+        `[B, H, W, V * C_render]`. A per-hypothesis `ambient [B]` lights
+        the views with that ambient alone (no point light). The render is
+        cut from the gradient, as the JAX package's `stop_gradient` cuts
+        it, so autograd keeps none of its intermediates."""
         cfg = self.cfg
         B, V = TCV_O.shape[:2]
         H, W = cfg.render_size
         mesh_mv = meshes.repeat_interleave(V)
-        # Normals configs render with pure ambient light.
-        light_ambient, light_point = (1.0, 0.0) if cfg.render_normals else (0.1, 0.4)
+        if ambient is not None:
+            light_ambient = ambient.repeat_interleave(V)
+            light_point = torch.zeros_like(light_ambient)
+        elif cfg.render_normals:  # normals configs render with pure ambient light
+            light_ambient, light_point = 1.0, 0.0
+        else:
+            light_ambient, light_point = 0.1, 0.4
         out = rasterizer_tiled.render_meshes_tiled(
             mesh_mv.vertices, mesh_mv.normals, mesh_mv.colors, mesh_mv.faces,
             mesh_mv.face_valid, TCV_O.reshape(B * V, 4, 4), KV.reshape(B * V, 3, 3),
@@ -230,11 +242,12 @@ class PosePredictor(nn.Module):
     # ------------------------------------------------------------------
 
     def refine_step(
-        self, images: Tensor, K: Tensor, TCO_input: Tensor, meshes: BatchedMeshes
+        self, images: Tensor, K: Tensor, TCO_input: Tensor, meshes: BatchedMeshes,
+        ambient: Tensor | None = None,
     ) -> dict[str, Tensor]:
         """One DeepIM iteration. `images [B or 1, H, W, 3 or 4]`, rgb in
         [0, 1] (+ depth in metres), `K [B, 3, 3]`, `TCO_input [B, 4, 4]`,
-        meshes selected to B."""
+        meshes selected to B, `ambient [B]` as `render_views`."""
         cfg = self.cfg
         if not cfg.input_depth:
             images = images[..., :3]
@@ -251,7 +264,7 @@ class PosePredictor(nn.Module):
         )
         if not cfg.remove_TCO_rendering:
             KV_crop[:, 0] = K_crop
-        renders = self.render_views(meshes, TCV_O, KV_crop, tCR)
+        renders = self.render_views(meshes, TCV_O, KV_crop, tCR, ambient)
         images_crop = self.normalize_obs(images_crop, tCR)
         outputs = self.net_forward(torch.cat([images_crop, renders], dim=-1))
         if cfg.predict_pose_update:
@@ -265,7 +278,8 @@ class PosePredictor(nn.Module):
         }
 
     def score_views(
-        self, images: Tensor, K: Tensor, TCO_input: Tensor, meshes: BatchedMeshes
+        self, images: Tensor, K: Tensor, TCO_input: Tensor, meshes: BatchedMeshes,
+        ambient: Tensor | None = None,
     ) -> dict[str, Tensor]:
         """Coarse classification forward: logits/scores `[B, V]`."""
         cfg = self.cfg
@@ -289,7 +303,7 @@ class PosePredictor(nn.Module):
             )
             if not cfg.remove_TCO_rendering:
                 KV_crop[:, 0] = K_crop
-        renders = self.render_views(meshes, TCV_O, KV_crop, tCR)
+        renders = self.render_views(meshes, TCV_O, KV_crop, tCR, ambient)
         images_crop = self.normalize_obs(images_crop, tCR)
         logits = self.net_forward(torch.cat([images_crop, renders], dim=-1))["renderings_logits"]
         return {

@@ -11,6 +11,9 @@ from .se3 import make_se3, transform_pts
 
 Tensor = torch.Tensor
 
+# The coarse model's canonical seed rotation: object z up in the image.
+_ZUP_R = ((0.0, 1.0, 0.0), (0.0, 0.0, -1.0), (-1.0, 0.0, 0.0))
+
 
 def tco_init_from_boxes_autodepth_with_R(
     boxes_2d: Tensor,
@@ -40,6 +43,16 @@ def tco_init_from_boxes_autodepth_with_R(
 
     xy = (centers - cxcy) * z[..., None] / fxfy
     return make_se3(R, torch.cat([xy, z[..., None]], dim=-1))
+
+
+def tco_init_from_boxes_zup_autodepth(
+    boxes_2d: Tensor, model_points_3d: Tensor, K: Tensor
+) -> Tensor:
+    """`tco_init_from_boxes_autodepth_with_R` at the z-up rotation."""
+    R = torch.tensor(_ZUP_R, dtype=boxes_2d.dtype, device=boxes_2d.device)
+    return tco_init_from_boxes_autodepth_with_R(
+        boxes_2d, model_points_3d, K, R.expand(boxes_2d.shape[:-1] + (3, 3))
+    )
 
 
 def pose_update_with_reference_point(

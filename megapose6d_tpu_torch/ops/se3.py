@@ -125,3 +125,61 @@ def geodesic_distance(R1: Tensor, R2: Tensor) -> Tensor:
     m = R1 @ R2.transpose(-2, -1)
     tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
     return torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0))
+
+
+# ----------------------------------------------------------------------
+# Random rotations and pose noise. Each is split into a draw (normals and
+# uniforms from a `torch.Generator`) and an apply (a deterministic function
+# of those draws), so the tests can feed the JAX package's own draws.
+# ----------------------------------------------------------------------
+
+
+def draw_random_rotations(shape: tuple[int, ...], generator: torch.Generator) -> Tensor:
+    """Standard normal 4-vectors `shape + (4,)` for `random_rotations`."""
+    return torch.randn(tuple(shape) + (4,), generator=generator)
+
+
+def random_rotations(normals: Tensor) -> Tensor:
+    """Haar-uniform rotations `[..., 3, 3]` from standard normal 4-vectors
+    `[..., 4]` (normalised, they are uniform on S^3)."""
+    return rotmat_from_quat(normals)
+
+
+def draw_small_random_rotations(
+    shape: tuple[int, ...], generator: torch.Generator
+) -> tuple[Tensor, Tensor]:
+    """(axis normals `shape + (3,)`, uniforms in [0, 1) `shape`) for
+    `small_random_rotations`."""
+    axis = torch.randn(tuple(shape) + (3,), generator=generator)
+    return axis, torch.rand(tuple(shape), generator=generator)
+
+
+def small_random_rotations(axis_normals: Tensor, uniforms: Tensor, max_angle_rad: float) -> Tensor:
+    """Rotations by `uniforms * max_angle_rad` about the Haar-uniform axes
+    `axis_normals / |axis_normals|`; `[..., 3, 3]`."""
+    axis = axis_normals / (torch.linalg.norm(axis_normals, dim=-1, keepdim=True) + 1e-12)
+    half = uniforms * (max_angle_rad / 2.0)
+    q = torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], -1)  # xyzw
+    return rotmat_from_quat(q)
+
+
+def draw_pose_noise(n: int, generator: torch.Generator) -> tuple[Tensor, Tensor]:
+    """(euler normals `[n, 3]`, translation normals `[n, 3]`) for
+    `add_pose_noise`."""
+    return torch.randn((n, 3), generator=generator), torch.randn((n, 3), generator=generator)
+
+
+def add_pose_noise(
+    TCO: Tensor,
+    euler_normals: Tensor,
+    trans_normals: Tensor,
+    euler_deg_std: tuple[float, float, float] = (15.0, 15.0, 15.0),
+    trans_std: tuple[float, float, float] = (0.01, 0.01, 0.05),
+) -> Tensor:
+    """`R_out = R @ R_noise(euler)`, `t_out = t + trans_normals * trans_std`,
+    with static-frame XYZ euler angles `euler_normals * euler_deg_std` in
+    degrees; `TCO [B, 4, 4]`, normals `[B, 3]`."""
+    euler_std = torch.tensor(euler_deg_std, dtype=TCO.dtype, device=TCO.device) * (torch.pi / 180.0)
+    R_noise = rotmat_from_euler_sxyz(euler_normals * euler_std)
+    t_noise = trans_normals * torch.tensor(trans_std, dtype=TCO.dtype, device=TCO.device)
+    return make_se3(TCO[..., :3, :3] @ R_noise, TCO[..., :3, 3] + t_noise)
