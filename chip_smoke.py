@@ -76,7 +76,30 @@ Phases, each printing one line with its wall time:
      through the kernel against one through the plain twin (deterministic
      cuDNN; loss and gradient norm to 1e-6 relative); forward_loss and its
      gradients on the card against the CPU at the CPU tests' size; 40
-     overfit steps on one batch, whose loss must fall.
+     overfit steps on one batch, whose loss must fall;
+ 14. production: the JAX bench's headline request (the host-made disc at
+     480x640, 8 boxes of obj1; the bench world's 3200-face database and
+     768-face LOD database) through the JAX package's production
+     configuration: runs/coarse120's scorer (120x160 native, bf16), the
+     576 grid pruned 144 -> 16, top-2, 5 iterations of runs/refiner_dr's
+     refiner, 192/16 chunks, fused and captured into a CUDA graph
+     (weights from build/weights when there, else seeded): the capture
+     request's and the replayed requests' seconds, K1 launches per request
+     (recorded in the graph, launched again by every replay), K1 at each
+     of the request's launch shapes bit for bit against the plain twin
+     and timed beside the bound, the replay bit for bit against an eager
+     run of the same function, the traced idle share of a replayed and of
+     a phased request, fused against phased poses, and one request each
+     of the unpruned sweep, `coarse_render_size=(120,160)` with
+     runs/coarse_dr's scorer, `rescore_f32`, `keep_all_coarse_outputs`
+     and external initial poses;
+ 15. demo finalize: the ported demo_finalize_pipeline (grid 576, 3
+     iterations, top-4, the lod, coarse_res, coarse120, prune 144/16 and
+     combo top-2 A/Bs) with build/weights/refiner_long@14000.npz,
+     coarse_grid@2500.npz and coarse120@3000.npz when all three are there
+     (32 scenes, as the committed reports; each number printed beside
+     runs/final_pipeline*/report.json), seeded on 16 scenes otherwise;
+     every report number finite.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -106,7 +129,7 @@ from megapose6d_tpu_torch.evaluation.runner import EvaluationRunner
 from megapose6d_tpu_torch.evaluation.vsd import BOP19_THRESHOLDS
 from megapose6d_tpu_torch.data.tensor_collection import TensorCollection
 from megapose6d_tpu_torch.inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
-from megapose6d_tpu_torch.inference.load_model import load_named_model
+from megapose6d_tpu_torch.inference.load_model import build_model, load_named_model
 from megapose6d_tpu_torch.inference.pose_estimator import PoseEstimator
 from megapose6d_tpu_torch.inference.types import InferenceConfig, make_detections
 from megapose6d_tpu_torch.interop.from_jax import config_from_run_json
@@ -840,9 +863,9 @@ def perturbed_pose(T: np.ndarray, rng: np.random.RandomState, deg: float = 4.0, 
     return out.astype(np.float32)
 
 
-def profile_call(fn) -> tuple[float, float, list[str]]:
-    """(wall ms, device busy ms, the three kernels of most device time) of
-    one call of `fn` under torch.profiler."""
+def profile_call(fn) -> tuple[float, float, list[str], int]:
+    """(wall ms, device busy ms, the three kernels of most device time, the
+    K1 launches the trace saw) of one call of `fn` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -857,7 +880,8 @@ def profile_call(fn) -> tuple[float, float, list[str]]:
     busy = sum(e.self_device_time_total for e in events) / 1e3
     top = [f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
            for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:3]]
-    return wall, busy, top
+    k1 = sum(e.count for e in events if "visibility_kernel" in e.key)
+    return wall, busy, top, k1
 
 
 def ar_gnc_frames(seed: int = 0) -> list:
@@ -952,7 +976,7 @@ def phase_depth_refiners(errors: list[float]) -> tuple[int, dict]:
     # Where a refine spends its time: one frame with two objects.
     f2 = next(fr for fr in frames if len(fr[1]) == 2)
     for k in kinds:
-        wall, busy, top = profile_call(lambda: refine_frame(refiners[k, "cuda"], *f2, "cuda"))
+        wall, busy, top, _ = profile_call(lambda: refine_frame(refiners[k, "cuda"], *f2, "cuda"))
         print(f"  {k} traced refine (2 objects): wall_ms={wall:.3f} device_busy_ms={busy:.3f} "
               f"idle_share={1 - busy / wall:.3f}; top: {'; '.join(top)}", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1192,7 +1216,7 @@ def step_report(name: str, state, cfg, synth, mesh_db, n: int = 3) -> None:
         tt.forward_loss = forward
         del state.apply_gradients
     mean = {k: sum(t[k] for t in times) / n for k in times[0]}
-    wall, busy, top = profile_call(step)
+    wall, busy, top, _ = profile_call(step)
     print(f"  {name} step (mean of {n} after warm-up): " + " ".join(f"{k}_s={v:.4f}" for k, v in mean.items())
           + f"; traced step wall_ms={wall:.2f} device_busy_ms={busy:.2f} idle_share={1 - busy / wall:.3f}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; top: {'; '.join(top)}", flush=True)
@@ -1397,6 +1421,313 @@ def train_overfit(n: int = 40) -> None:
 
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the production configuration (fused, as a CUDA graph)
+# ---------------------------------------------------------------------------
+
+BENCH_HW = (480, 640)
+BENCH_K = np.asarray([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]], np.float32)
+
+
+def bench_world():
+    """The JAX bench's world: a 40x40 UV sphere (obj1) and a cube (obj2) in
+    a 3200-face database and a 768-face LOD database, 1000 points, 8
+    symmetries."""
+    objects = RigidObjectDataset([
+        RigidObject(label="obj1", mesh=mesh_io.make_uv_sphere(0.05, 40, 40)),
+        RigidObject(label="obj2", mesh=mesh_io.make_cube(0.04)),
+    ])
+    db, lod = (MeshDataBase.from_object_ds(objects, max_faces=f, n_points=1000, n_sym=8).batched(
+        align=128, device="cuda") for f in (3200, 768))
+    return db, lod
+
+
+def bench_request(n_det: int = 8):
+    """The JAX bench's request: a textured disc at 480x640 built on the
+    host, and `n_det` boxes of obj1 around the image centre."""
+    yy, xx = np.mgrid[0:BENCH_HW[0], 0:BENCH_HW[1]].astype(np.float32)
+    disc = (((xx - 320.0) ** 2 + (yy - 240.0) ** 2) < 55.0**2).astype(np.float32)
+    tex = 0.5 + 0.25 * np.sin(xx * 0.37) * np.cos(yy * 0.29)
+    img = np.stack([disc * tex, disc * 0.5 * tex, disc * 0.25], -1)
+    obs = ObservationTensor(torch.as_tensor(img[None], device="cuda"),
+                            torch.as_tensor(BENCH_K[None], device="cuda"))
+    half = 600 * 0.05 / 0.55
+    rng = np.random.RandomState(0)
+    cx = 320 + rng.uniform(-40, 40, size=n_det)
+    cy = 240 + rng.uniform(-30, 30, size=n_det)
+    boxes = np.stack([cx - half, cy - half, cx + half, cy + half], axis=1).astype(np.float32)
+    return obs, make_detections(["obj1"] * n_det, boxes, device="cuda")
+
+
+def first_weights(*names: str) -> Path | None:
+    """The first of `build/weights/<name>` that exists."""
+    return next((WEIGHTS / n for n in names if (WEIGHTS / n).exists()), None)
+
+
+def production_model(run: str, *weights: str, seed: int):
+    """A model of `runs/<run>/config.json`, with the first of the npz
+    `weights` that exists or weights from `seed`."""
+    path = first_weights(*weights)
+    return build_model(ROOT / f"runs/{run}", path, None, seed=seed, device="cuda"), path
+
+
+PRODUCTION = InferenceConfig(
+    SO3_grid_size=576, SO3_prune_grid_size=144, SO3_prune_keep=16, n_refiner_iterations=5,
+    n_pose_hypotheses=2, bsz_images=192, bsz_objects=16, max_detections=8, fused_pipeline=True,
+)
+
+
+def production_launches(cfg: InferenceConfig, n_children: int) -> dict[str, int]:
+    """K1 launches of one fused request by phase: the probe sweep, the
+    children sweep, the refiner (one per chunk and iteration) and the
+    rescore."""
+    D = cfg.max_detections
+    chunk = min(cfg.bsz_images, D * cfg.SO3_grid_size)
+    probe = D * cfg.SO3_prune_grid_size
+    children = D * min(cfg.SO3_prune_keep, cfg.SO3_prune_grid_size) * n_children
+    n_r = -(-D * cfg.n_pose_hypotheses // cfg.bsz_objects)
+    return {"probe": -(-probe // min(chunk, probe)), "children": -(-children // min(chunk, children)),
+            "refiner": n_r * cfg.n_refiner_iterations, "rescore": n_r}
+
+
+def padded_inputs(est, obs, dets):
+    """The fused mode's arguments of a request (`PoseEstimator.fused_inputs`)."""
+    cfg = est.cfg
+    return est.fused_inputs(obs.images.float(), obs.K.float(), dets.bboxes.float(),
+                            est.mesh_db.label_to_index(dets.labels), cfg.n_refiner_iterations, cfg.n_pose_hypotheses)
+
+
+def poses_close(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(largest rotation difference in degrees, largest translation
+    difference in mm)."""
+    return rot_deg(a, b).max().item(), (a[..., :3, 3] - b[..., :3, 3]).abs().max().item() * 1000
+
+
+def phase_production(errors: list[float]) -> tuple[int, dict]:
+    """The JAX bench's headline request rebuilt in the port, fused through
+    a CUDA graph; its K1 launches (per request: the graph's recorded
+    launches, which every replay launches again), K1 at the new launch
+    shapes, replay against an eager run, fused against phased, and one
+    request of each of the other options."""
+    from megapose6d_tpu_torch.inference.pose_estimator import _GraphedPipeline
+
+    db, lod = bench_world()
+    check((db.faces.shape[1], lod.faces.shape[1]) == (3200, 768), f"faces {db.faces.shape} {lod.faces.shape}")
+    coarse, c_w = production_model("coarse120", "coarse120@3000.npz", seed=0)
+    refiner, r_w = production_model("refiner_dr", WEIGHT_FILES["refiner_dr"], "refiner_long@14000.npz", seed=1)
+    check(tuple(coarse.cfg.render_size) == (120, 160) and coarse.cfg.compute_dtype == "bfloat16", str(coarse.cfg))
+    print(f"  weights: coarse120 {c_w.name if c_w else 'seeded'}, refiner {r_w.name if r_w else 'seeded'}",
+          flush=True)
+    obs, dets = bench_request()
+    est = PoseEstimator(coarse, refiner, db, PRODUCTION, device="cuda", mesh_db_coarse=lod)
+    n_children = est.prune_children.shape[1]
+    expected = production_launches(PRODUCTION, n_children)
+    per_request = sum(expected.values())
+
+    rt.visibility_kernel.launches = 0  # the production path starts here
+    t0 = time.perf_counter()
+    poses, extra = est.run_inference_pipeline(obs, dets)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    check(len(est._graphs) == 1, "one graph")
+    graph: _GraphedPipeline = next(iter(est._graphs.values()))
+    walls = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        poses, extra = est.run_inference_pipeline(obs, dets)
+        walls.append(time.perf_counter() - t0)
+    counted = rt.visibility_kernel.launches  # read right after the production path
+    launches = counted - graph.kernel_launches + graph.replays * graph.kernel_launches
+    print(f"  first request (warm-up, capture, replay): {capture_s:.3f} s; then {len(walls)} requests: "
+          f"mean_s={np.mean(walls):.5f} median_s={np.median(walls):.5f} min_s={min(walls):.5f} "
+          f"timing_total_s={extra['timing']['total']:.5f}", flush=True)
+    print(f"  K1 per request: {graph.kernel_launches} recorded in the graph (expected {per_request}: "
+          f"{expected}); wrapper count {counted} (one warm-up run and the capture); executed: "
+          f"1 warm-up + {graph.replays} replays = {launches}", flush=True)
+    check(graph.kernel_launches == per_request and counted == 2 * per_request,
+          "the production path did not launch K1 as expected")
+    P = poses.poses
+    check(tuple(P.shape) == (8, 4, 4) and bool(torch.isfinite(P).all()), "bad poses")
+    check(set(extra["timing"]) == {"total"}, f"fused timing {extra['timing']}")
+    check(tuple(extra["coarse"]["logits"].shape) == (8, 16 * n_children), "pruned logits shape")
+    in_grid = (extra["coarse"]["TCO_init"][..., :3, :3].reshape(-1, 1, 9)
+               - est.so3_grid.reshape(1, -1, 9)).abs().amax(-1).amin(-1)
+    print(f"  pruned hypotheses: {extra['coarse']['logits'].shape[1]} per detection, "
+          f"-inf slots {int(torch.isinf(extra['coarse']['logits']).sum())}, all rotations in the 576 grid "
+          f"(max |R - grid| {in_grid.max().item():.3g})", flush=True)
+
+    with torch.inference_mode():
+        args, inputs = padded_inputs(est, obs, dets)
+        replay = {k: v.clone() for k, v in est.fused(*args, *inputs).items()}
+        eager = est.pipeline(*args, *inputs)
+        same = all(torch.equal(replay[k], eager[k]) for k in eager)
+        diff = max((replay[k].float() - eager[k].float()).abs().nan_to_num(0.0).max().item() for k in eager)
+        print(f"  graph replay vs eager run of the same function: bit-identical={same} (max diff {diff:.3g})",
+              flush=True)
+        check(same, "the graph replay differs from the eager run")
+        # K1 at every launch of one request, through the eager run's inputs.
+        captured: list = []
+        restore = record_visibility_inputs(captured)
+        try:
+            est.pipeline(*args, *inputs)
+        finally:
+            rt.visibility = restore
+    check(len(captured) == per_request, f"recorded {len(captured)} launches")
+    shapes, i = {}, 0
+    for phase, n in expected.items():
+        group = captured[i : i + n]
+        i += n
+        g, _ = shape_group(group, errors)
+        coefs, ids = group[0][0], group[0][1]
+        key = f"prod_{phase}_B{coefs.shape[0]}_{group[0][3][0]}x{group[0][3][1]}_F{coefs.shape[1]}"
+        shapes[key] = g
+        print(f"  {key}: launches_per_request={n} kernel_ms={g['ms']:.4f} plain_ms={g['plain_ms']:.3f} "
+              f"bound_ms={g['bound_ms']:.4f} ({g['bound_by']}) max_abs_err={max(errors[-n:])}", flush=True)
+        print(tile_work_line(key, group), flush=True)
+
+    # The request's device time inside a replay, and its idle share.
+    wall, busy, top, traced_k1 = profile_call(lambda: est.run_inference_pipeline(obs, dets))
+    print(f"  traced replay request: wall_ms={wall:.2f} device_busy_ms={busy:.2f} "
+          f"idle_share={(1 - busy / wall) if busy else float('nan'):.3f}; K1 launches in the trace {traced_k1}; "
+          f"top: {'; '.join(top)}", flush=True)
+    check(traced_k1 == graph.kernel_launches, f"the replay's trace shows {traced_k1} K1 launches, "
+          f"the graph recorded {graph.kernel_launches}")
+    launches += graph.kernel_launches  # the traced request replayed the graph once more
+
+    phased = PoseEstimator(coarse, refiner, db, dataclasses.replace(PRODUCTION, fused_pipeline=False),
+                           device="cuda", mesh_db_coarse=lod)
+    before = rt.visibility_kernel.launches
+    phased.run_inference_pipeline(obs, dets)  # warm-up
+    t0 = time.perf_counter()
+    p_poses, p_extra = phased.run_inference_pipeline(obs, dets)
+    p_wall = time.perf_counter() - t0
+    pw, pbusy, _, _ = profile_call(lambda: phased.run_inference_pipeline(obs, dets))
+    launches += rt.visibility_kernel.launches - before
+    deg, mm = poses_close(poses.poses, p_poses.poses)
+    dl = (poses.pose_logit - p_poses.pose_logit).abs().max().item()
+    print(f"  phased, same configuration: wall_s={p_wall:.5f} ({', '.join(f'{k}_s={v:.4f}' for k, v in p_extra['timing'].items())}); "
+          f"traced wall_ms={pw:.2f} device_busy_ms={pbusy:.2f} idle_share={(1 - pbusy / pw) if pbusy else float('nan'):.3f}; "
+          f"fused vs phased: rot {deg:.3g} deg, trans {mm:.3g} mm, logit {dl:.3g}", flush=True)
+    check(deg < 0.1 and mm < 0.1 and dl < 0.05, "fused and phased poses differ")
+
+    # One request of each of the other options.
+    coarse_dr, cd_w = production_model("coarse_dr", WEIGHT_FILES["coarse_dr"], "coarse_grid@2500.npz", seed=0)
+    with torch.inference_mode():
+        variants = {
+            "unpruned 576 sweep, LOD": (coarse, dict(SO3_prune_grid_size=0), {}),
+            "coarse_render_size=(120,160), coarse_dr scorer": (coarse_dr, dict(coarse_render_size=(120, 160)), {}),
+            "rescore_f32": (coarse, dict(rescore_f32=True), {}),
+            "keep_all_coarse_outputs": (coarse, {}, dict(keep_all_coarse_outputs=True)),
+        }
+        for name, (model, cfg_kw, call_kw) in variants.items():
+            v_est = PoseEstimator(model, refiner, db, dataclasses.replace(PRODUCTION, **cfg_kw), device="cuda",
+                                  mesh_db_coarse=lod)
+            before = rt.visibility_kernel.launches
+            t0 = time.perf_counter()
+            v_poses, v_extra = v_est.run_inference_pipeline(obs, dets, **call_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            g = next(iter(v_est._graphs.values()))
+            launches += rt.visibility_kernel.launches - before - g.kernel_launches + g.replays * g.kernel_launches
+            check(bool(torch.isfinite(v_poses.poses).all()), f"{name}: poses")
+            note = ""
+            if call_kw.get("keep_all_coarse_outputs"):
+                check(torch.equal(v_extra["coarse"]["all_TCO"], v_extra["coarse"]["TCO_init"]), "all_TCO")
+                note = f" all_TCO {tuple(v_extra['coarse']['all_TCO'].shape)}"
+            if cfg_kw.get("rescore_f32"):
+                check(v_est.coarse_model_rescore.cfg.compute_dtype == "float32"
+                      and v_est.coarse_model_rescore.backbone is coarse.backbone, "f32 twin")
+            if cfg_kw.get("coarse_render_size"):
+                check(v_est.coarse_model_sweep.cfg.render_at == (120, 160), "render_at twin")
+                rec: list = []
+                restore = record_visibility_inputs(rec)
+                v_args, v_inputs = padded_inputs(v_est, obs, dets)
+                try:
+                    v_est.pipeline(*v_args, *v_inputs)
+                finally:
+                    rt.visibility = restore
+                g2, _ = shape_group(rec[:1], errors)
+                key = f"prod_render_at_B{rec[0][0].shape[0]}_{rec[0][3][0]}x{rec[0][3][1]}_F{rec[0][0].shape[1]}"
+                at_shape = sum((r[0].shape, r[3]) == (rec[0][0].shape, rec[0][3]) for r in rec)
+                shapes[key] = {**g2, "launches": at_shape}  # per request, at this shape
+                note = (f" weights {cd_w.name if cd_w else 'seeded'}; first sweep launch {key} "
+                        f"({at_shape} launches a request at this shape): "
+                        f"kernel_ms={g2['ms']:.4f} bound_ms={g2['bound_ms']:.4f}")
+            print(f"  {name}: capture request {wall:.3f} s, K1 per request {g.kernel_launches}, "
+                  f"best logit mean {v_poses.pose_logit.mean().item():.4f}{note}", flush=True)
+
+        # External initial poses: the production request's poses, refined again.
+        ext = PoseEstimator(coarse, refiner, db, dataclasses.replace(
+            PRODUCTION, coarse_estimation_type="external", fused_pipeline=False), device="cuda", mesh_db_coarse=lod)
+        e_dets = TensorCollection(infos=dets.infos, bboxes=dets.bboxes, TCO_init=poses.poses)
+        before = rt.visibility_kernel.launches
+        e_poses, e_extra = ext.run_inference_pipeline(obs, e_dets)
+        launches += rt.visibility_kernel.launches - before
+        check(tuple(e_extra["refiner"]["trajectory"].shape) == (5, 8, 4, 4)
+              and bool(torch.isfinite(e_poses.poses).all()), "external init")
+        print(f"  external initial poses: timing {json.dumps({k: round(v, 4) for k, v in e_extra['timing'].items()})}",
+              flush=True)
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: demo_finalize_pipeline
+# ---------------------------------------------------------------------------
+
+FINAL_WEIGHTS = {"refiner_dir": "refiner_long@14000.npz", "coarse_dir": "coarse_grid@2500.npz",
+                 "coarse2_weights": "coarse120@3000.npz"}
+FINAL_REPORTS = sorted((ROOT / "runs").glob("final_pipeline*/report.json"))
+
+
+def flat_numbers(d: dict, prefix: str = "") -> dict[str, float]:
+    out = {}
+    for k, v in d.items():
+        key = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flat_numbers(v, key))
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[key] = float(v)
+    return out
+
+
+def phase_demo_finalize() -> int:
+    """The ported demo_finalize_pipeline on the card with the committed
+    runs' settings: every report number finite and, with the trained
+    weights, beside the committed reports' numbers."""
+    from megapose6d_tpu_torch.scripts import demo_finalize_pipeline as dfp
+
+    trained = all((WEIGHTS / w).exists() for w in FINAL_WEIGHTS.values())
+    args = dfp.parse_args([
+        "so3=576", f"n_eval={32 if trained else 16}", "refine_iters=3", "lod_ab=1", "coarse_res_ab=1",
+        "prune_ab=1", "prune_grid=144", "prune_keep=16", f"coarse2_dir={ROOT / 'runs/coarse120'}",
+        "combo_ab=1", "combo_top_k=2", f"out_dir={BUILD_DIR / 'demo_finalize'}",
+    ])
+    if trained:
+        args.update({k: str(WEIGHTS / w) for k, w in FINAL_WEIGHTS.items()})
+    else:
+        args.update(refiner_dir="", coarse_dir="", coarse_steps="0")  # seeded, no training
+    print(f"  weights: {'trained ' + json.dumps(FINAL_WEIGHTS) if trained else 'seeded'}; n_eval={args['n_eval']}",
+          flush=True)
+    rt.visibility_kernel.launches = 0  # the demo's path starts here
+    t0 = time.perf_counter()
+    report = dfp.run(args)
+    wall = time.perf_counter() - t0
+    launches = rt.visibility_kernel.launches  # read right after the demo
+    numbers = flat_numbers(report)
+    check(all(np.isfinite(v) for v in numbers.values()), "a report number is not finite")
+    want = ("init", "refined", "pipeline", "lod_ab", "prune_ab", "coarse_res_ab", "coarse_small_ab", "combo_ab")
+    check(all(report.get(k) for k in want), f"report incomplete: {[k for k in want if not report.get(k)]}")
+    print(f"  {wall:.2f} s, K1 launches {launches}; report: {json.dumps(report)}", flush=True)
+    committed = {p.parent.name: flat_numbers(json.loads(p.read_text())) for p in FINAL_REPORTS}
+    for key, v in numbers.items():
+        there = {name: c[key] for name, c in committed.items() if key in c}
+        if there:
+            print(f"  {key}: port {v:.6g}; committed (TPU, bf16) "
+                  + ", ".join(f"{n} {x:.6g}" for n, x in there.items()), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1437,19 +1768,25 @@ def main() -> int:
         depth_eval_launches = phase_depth_eval()
     with Phase("training"):
         train_launches, train_shapes = phase_training(errors)
+    with Phase("production"):
+        prod_launches, prod_shapes = phase_production(errors)
+    with Phase("demo finalize"):
+        final_launches = phase_demo_finalize()
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
+    timing["by_shape"].update(prod_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
         "source": "megapose6d_tpu_torch/csrc/visibility.cu",
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
-        + depth_eval_launches + train_launches,
+        + depth_eval_launches + train_launches + prod_launches + final_launches,
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
-                             "depth_eval": depth_eval_launches, "train": train_launches},
+                             "depth_eval": depth_eval_launches, "train": train_launches,
+                             "production": prod_launches, "demo_finalize": final_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

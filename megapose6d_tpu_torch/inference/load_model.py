@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 from pathlib import Path
 from typing import Any
 
@@ -64,6 +65,8 @@ NAMED_MODELS: dict[str, dict[str, Any]] = {
 
 def load_params_npz(path: str | Path) -> dict[str, Any]:
     """An npz of `/`-joined param paths -> the nested params dict."""
+    if Path(path).suffix != ".npz":
+        raise ValueError(f"{path}: weights come from an npz export of a JAX run's params, not a run directory")
     tree: dict[str, Any] = {}
     with np.load(path) as data:
         for key in data.files:
@@ -73,6 +76,12 @@ def load_params_npz(path: str | Path) -> dict[str, Any]:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return tree
+
+
+def npz_step(weights: str | Path | None) -> int:
+    """The training step an export names (`<run>@<step>.npz`), else 0."""
+    m = re.search(r"@(\d+)\.npz$", str(weights or ""))
+    return int(m.group(1)) if m else 0
 
 
 def build_model(

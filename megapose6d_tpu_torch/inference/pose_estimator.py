@@ -1,21 +1,35 @@
-"""PoseEstimator: the public inference pipeline (phased mode).
+"""PoseEstimator: the public inference pipeline.
 
-Counterpart of the phased path of `PoseEstimator.run_inference_pipeline`
-in `megapose6d_tpu/inference/pose_estimator.py`:
+Counterpart of `PoseEstimator.run_inference_pipeline` in
+`megapose6d_tpu/inference/pose_estimator.py`:
 
   detections -> coarse scores of every (detection, SO(3)-grid rotation)
   hypothesis -> top-K -> K x N refiner iterations -> coarse re-scoring
   -> top-1 per detection -> optionally, depth refinement of the top-1
   poses (`inference/depth_refiner.py`).
 
-The JAX package pads detections and chunks to static shapes; here the
-batch dimensions are written out, loops are Python, and the last chunk is
-simply shorter. Every hypothesis is computed independently, so the
-results do not depend on the chunking. The fused and sharded modes, the
-hierarchical prune, the coarse LOD database, low-resolution coarse
-renders, f32 rescoring, external initial poses and detector boxes are not
-ported yet and raise. A depth stage asked for without a depth refiner
-raises too (the JAX package silently skips it).
+With the JAX package's options:
+  - hierarchical coarse scoring (`SO3_prune_grid_size`, `SO3_prune_keep`):
+    a probe grid first, then only the Voronoi children of its best
+    rotations, which stay members of the full grid;
+  - a coarse LOD mesh database (`mesh_db_coarse`) for the sweep and the
+    rescore, while the refiner renders `mesh_db`;
+  - the sweep's renders rasterised at `coarse_render_size` and upsampled
+    (a twin of the coarse model with `render_at`), and the rescore in
+    float32 (`rescore_f32`, a float32 twin); twins share the coarse
+    model's parameter tensors;
+  - the fused mode (`fused_pipeline`): detections padded to
+    `max_detections` and the whole pipeline with no host synchronisation
+    between phases; on the GPU it is captured once per shape into a CUDA
+    graph and replayed per request, on the CPU it runs eagerly;
+  - external initial poses (`coarse_estimation_type="external"`): the
+    detections' `TCO_init` refined and rescored, the coarse stage skipped.
+
+The phased mode keeps the detections unpadded and the chunks as they
+fall (the last one shorter); every hypothesis is computed independently,
+so the results do not depend on the chunking. The sharded mode and
+detector boxes are not ported and raise. A depth stage asked for without
+a depth refiner raises too (the JAX package silently skips it).
 """
 
 from __future__ import annotations
@@ -32,7 +46,7 @@ from ..meshes.mesh_db import BatchedMeshes
 from ..models.pose_predictor import PosePredictor
 from ..ops._precision import pin_f32
 from ..ops.pose_init import tco_init_from_boxes_autodepth_with_R
-from ..ops.so3_grid import make_so3_grid
+from ..ops.so3_grid import build_prune_table, make_so3_grid
 from .depth_refiner import DepthRefiner
 from .types import InferenceConfig
 
@@ -40,17 +54,51 @@ Tensor = torch.Tensor
 
 
 def _check_supported(cfg: InferenceConfig) -> None:
-    unported = {
-        "fused_pipeline": cfg.fused_pipeline,
-        "SO3_prune_grid_size": cfg.SO3_prune_grid_size,
-        "coarse_render_size": cfg.coarse_render_size,
-        "rescore_f32": cfg.rescore_f32,
-        "coarse_estimation_type=external": cfg.coarse_estimation_type == "external",
-        "detection_type=detector": cfg.detection_type == "detector",
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    if cfg.detection_type == "detector":
+        raise NotImplementedError("not ported yet: detection_type=detector")
+
+
+def _top_k(x: Tensor, k: int) -> Tensor:
+    """Indices of the `k` largest entries of each row, ties to the lower
+    index (as `jax.lax.top_k`)."""
+    return torch.sort(x, dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def _pad_rows(x: Tensor, n: int) -> Tensor:
+    """`x` padded to `n` rows by repeating its last row (numpy's "edge")."""
+    return torch.cat([x, x[-1:].expand((n - x.shape[0],) + x.shape[1:])]) if n > x.shape[0] else x[:n]
+
+
+class _GraphedPipeline:
+    """One capture of the fused pipeline into a CUDA graph, replayed per
+    request. A request copies its inputs into the static ones; the outputs
+    are the static tensors the replay overwrites. `kernel_launches` is the
+    number of visibility kernel launches recorded in the graph, which every
+    replay launches again."""
+
+    def __init__(self, fn, inputs: tuple[Tensor, ...]):
+        from ..ops import rasterizer_tiled as rt
+
+        rt.visibility_kernel.library()  # built before the capture
+        self.inputs = tuple(x.clone() for x in inputs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up: library handles, workspaces
+            fn(*self.inputs)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = rt.visibility_kernel.launches
+        with torch.cuda.graph(self.graph):
+            self.outputs = fn(*self.inputs)
+        self.kernel_launches = rt.visibility_kernel.launches - before
+        self.replays = 0
+
+    def __call__(self, *inputs: Tensor) -> dict[str, Tensor]:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        self.graph.replay()
+        self.replays += 1
+        return self.outputs
 
 
 class PoseEstimator:
@@ -63,6 +111,8 @@ class PoseEstimator:
       device: where the models, meshes and work live.
       depth_refiner: a `DepthRefiner` on the same mesh database, for
         `run_depth_refiner`.
+      mesh_db_coarse: a database of the same labels with fewer faces, for
+        the coarse sweep and the rescore (default: `mesh_db`).
     """
 
     def __init__(
@@ -73,6 +123,7 @@ class PoseEstimator:
         cfg: InferenceConfig = InferenceConfig(),
         device: str | torch.device = "cuda",
         depth_refiner: DepthRefiner | None = None,
+        mesh_db_coarse: BatchedMeshes | None = None,
     ):
         _check_supported(cfg)
         if cfg.run_depth_refiner and depth_refiner is None:
@@ -83,13 +134,32 @@ class PoseEstimator:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.coarse_model = coarse_model.to(self.device).eval()
         self.refiner_model = refiner_model.to(self.device).eval()
+        ccfg = self.coarse_model.cfg
+        # Twins of the coarse model (same parameter tensors): the sweep's at
+        # a lower raster resolution, the rescore's in float32.
+        self.coarse_model_sweep = self.coarse_model
+        if cfg.coarse_render_size and tuple(cfg.coarse_render_size) != tuple(ccfg.render_size):
+            self.coarse_model_sweep = self.coarse_model.twin(render_at=tuple(cfg.coarse_render_size))
+        self.coarse_model_rescore = self.coarse_model
+        if cfg.rescore_f32 and ccfg.compute_dtype != "float32":
+            self.coarse_model_rescore = self.coarse_model.twin(compute_dtype="float32")
         self.mesh_db = mesh_db
-        if mesh_db.device != self.device:
-            raise ValueError(f"mesh_db is on {mesh_db.device}, the estimator on {self.device}")
+        self.mesh_db_coarse = mesh_db if mesh_db_coarse is None else mesh_db_coarse
+        for db in (self.mesh_db, self.mesh_db_coarse):
+            if db.device != self.device:
+                raise ValueError(f"a mesh database is on {db.device}, the estimator on {self.device}")
+        if self.mesh_db_coarse.labels != mesh_db.labels:
+            raise ValueError("mesh_db_coarse must hold the labels of mesh_db, in the same order")
         self.cfg = cfg
         self.depth_refiner = depth_refiner
         self.so3_grid = make_so3_grid(cfg.SO3_grid_size, device=self.device)
+        if cfg.SO3_prune_grid_size:
+            self.so3_prune_grid = make_so3_grid(cfg.SO3_prune_grid_size, device=self.device)
+            children, valid = build_prune_table(self.so3_grid, self.so3_prune_grid)
+            self.prune_children = torch.as_tensor(children, dtype=torch.long, device=self.device)
+            self.prune_child_valid = torch.as_tensor(valid, device=self.device)
         self.timing_: dict[str, float] = {}
+        self._graphs: dict[tuple, _GraphedPipeline] = {}
 
     def _clock(self) -> float:
         """Host time after the device has finished the work queued so far."""
@@ -97,34 +167,76 @@ class PoseEstimator:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def _score(self, chunk: int, images: Tensor, K: Tensor, TCO: Tensor, mesh_idx: Tensor) -> Tensor:
-        """Coarse logits `[N]` of poses `TCO [N, 4, 4]`, `chunk` at a time."""
+    # ------------------------------------------------------------------
+    # stages
+    # ------------------------------------------------------------------
+
+    def _score(
+        self, model: PosePredictor, mesh_db: BatchedMeshes, chunk: int, images: Tensor, K: Tensor,
+        TCO: Tensor, mesh_idx: Tensor,
+    ) -> Tensor:
+        """Logits `[N]` of `model` for poses `TCO [N, 4, 4]` of the meshes
+        `mesh_idx [N]` of `mesh_db`, `chunk` at a time."""
         logits = []
         for s in range(0, TCO.shape[0], chunk):
             T_c = TCO[s : s + chunk]
-            out = self.coarse_model.score_views(
-                images, K.expand(T_c.shape[0], 3, 3), T_c,
-                self.mesh_db.select(mesh_idx[s : s + chunk]),
+            out = model.score_views(
+                images, K.expand(T_c.shape[0], 3, 3), T_c, mesh_db.select(mesh_idx[s : s + chunk]),
             )
             logits.append(out["logits"][:, 0])
         return torch.cat(logits)
 
-    def coarse_logits(
-        self, chunk: int, images: Tensor, K: Tensor, boxes: Tensor, mesh_idx: Tensor
-    ) -> tuple[Tensor, Tensor]:
-        """Score every (detection, grid rotation) hypothesis.
-
-        Returns (logits `[D, M]`, TCO_init `[D, M, 4, 4]`)."""
-        D, M = boxes.shape[0], self.so3_grid.shape[0]
+    def init_hypotheses(self, K: Tensor, boxes: Tensor, mesh_idx: Tensor, grid: Tensor) -> Tensor:
+        """TCO_init `[D, M, 4, 4]` from the boxes `[D, 4]` and the rotations
+        `grid`, `[M, 3, 3]` shared or `[D, M, 3, 3]` per detection."""
+        D, M = boxes.shape[0], grid.shape[-3]
         points = self.mesh_db.points[mesh_idx]  # [D, P, 3]
-        TCO_init = tco_init_from_boxes_autodepth_with_R(
+        return tco_init_from_boxes_autodepth_with_R(
             boxes[:, None].expand(D, M, 4).reshape(D * M, 4),
             points[:, None].expand((D, M) + points.shape[1:]).reshape((D * M,) + points.shape[1:]),
             K.expand(D * M, 3, 3),
-            self.so3_grid[None].expand(D, M, 3, 3).reshape(D * M, 3, 3),
-        )
-        logits = self._score(chunk, images, K, TCO_init, mesh_idx.repeat_interleave(M))
-        return logits.reshape(D, M), TCO_init.reshape(D, M, 4, 4)
+            grid.expand(D, M, 3, 3).reshape(D * M, 3, 3),
+        ).reshape(D, M, 4, 4)
+
+    def coarse_logits(
+        self, chunk: int, images: Tensor, K: Tensor, boxes: Tensor, mesh_idx: Tensor,
+        grid: Tensor | None = None,
+    ) -> tuple[Tensor, Tensor]:
+        """Score every (detection, rotation) hypothesis of `grid` (default:
+        the SO(3) grid) with the sweep's model and mesh database.
+
+        Returns (logits `[D, M]`, TCO_init `[D, M, 4, 4]`)."""
+        grid = self.so3_grid if grid is None else grid
+        TCO_init = self.init_hypotheses(K, boxes, mesh_idx, grid)
+        D, M = TCO_init.shape[:2]
+        logits = self._score(self.coarse_model_sweep, self.mesh_db_coarse, chunk, images, K,
+                             TCO_init.reshape(D * M, 4, 4), mesh_idx.repeat_interleave(M))
+        return logits.reshape(D, M), TCO_init
+
+    def prune_candidates(self, probe_logits: Tensor) -> tuple[Tensor, Tensor]:
+        """Probe scores `[D, M1]` -> (grid ids `[D, P*C]`, valid `[D, P*C]`):
+        the Voronoi children of the `SO3_prune_keep` best parents."""
+        P = min(self.cfg.SO3_prune_keep, self.so3_prune_grid.shape[0])
+        parents = _top_k(probe_logits, P)
+        D = probe_logits.shape[0]
+        return self.prune_children[parents].reshape(D, -1), self.prune_child_valid[parents].reshape(D, -1)
+
+    def coarse_stage(
+        self, chunk: int, images: Tensor, K: Tensor, boxes: Tensor, mesh_idx: Tensor
+    ) -> tuple[Tensor, Tensor]:
+        """The SO(3) grid's sweep, or with `SO3_prune_grid_size` the probe
+        grid's followed by the children of its best rotations (padded
+        child slots score -inf). Returns (logits `[D, Mc]`, TCO_init
+        `[D, Mc, 4, 4]`)."""
+        if not self.cfg.SO3_prune_grid_size:
+            return self.coarse_logits(chunk, images, K, boxes, mesh_idx)
+        D = boxes.shape[0]
+        probe = self.so3_prune_grid
+        logits1, _ = self.coarse_logits(min(chunk, D * probe.shape[0]), images, K, boxes, mesh_idx, probe)
+        cand, valid = self.prune_candidates(logits1)
+        logits2, TCO_init = self.coarse_logits(
+            min(chunk, D * cand.shape[1]), images, K, boxes, mesh_idx, self.so3_grid[cand])
+        return torch.where(valid, logits2, float("-inf")), TCO_init
 
     def refine(
         self, chunk: int, n_iterations: int, images: Tensor, K: Tensor, TCO: Tensor,
@@ -146,6 +258,117 @@ class PoseEstimator:
             trajs.append(torch.stack(traj))
         return torch.cat(finals), torch.cat(trajs, dim=1)
 
+    def rescore(self, chunk: int, images: Tensor, K: Tensor, TCO: Tensor, mesh_idx: Tensor) -> Tensor:
+        """Coarse logits `[N]` of refined poses, with the rescore's model
+        and the coarse mesh database."""
+        return self._score(self.coarse_model_rescore, self.mesh_db_coarse, chunk, images, K, TCO, mesh_idx)
+
+    def pipeline(
+        self, chunk_images: int, chunk_objects: int, n_iterations: int, top_k: int,
+        images: Tensor, K: Tensor, boxes: Tensor, mesh_idx: Tensor,
+        timing: dict[str, float] | None = None,
+    ) -> dict[str, Tensor]:
+        """coarse -> top-K -> refiner -> rescore -> top-1 on `D` detections.
+        With `timing`, each phase is clocked into it (the phased mode);
+        without, nothing waits for the device (the fused mode, which a CUDA
+        graph can capture)."""
+        clock = self._clock if timing is not None else lambda: 0.0
+        D = boxes.shape[0]
+        t0 = clock()
+        logits, TCO_init = self.coarse_stage(chunk_images, images, K, boxes, mesh_idx)
+        t1 = clock()
+        top_ids = _top_k(logits, top_k)
+        TCO_topk = torch.gather(TCO_init, 1, top_ids[..., None, None].expand(-1, -1, 4, 4))
+        N = D * top_k
+        idx_flat = mesh_idx.repeat_interleave(top_k)
+        chunk_r = min(chunk_objects, N)
+        TCO_refined, traj = self.refine(chunk_r, n_iterations, images, K, TCO_topk.reshape(N, 4, 4), idx_flat)
+        t2 = clock()
+        pose_logits = self.rescore(chunk_r, images, K, TCO_refined, idx_flat).reshape(D, top_k)
+        if timing is not None:
+            timing.update(coarse=t1 - t0, refiner=t2 - t1, scoring=clock() - t2)
+        best = pose_logits.argmax(dim=1)
+        rows = torch.arange(D, device=boxes.device)
+        return {
+            "TCO_best": TCO_refined.reshape(D, top_k, 4, 4)[rows, best],
+            "best_logit": pose_logits[rows, best],
+            "logits": logits, "TCO_init": TCO_init, "top_ids": top_ids,
+            "traj": traj.reshape(n_iterations, D, top_k, 4, 4),
+            "TCO_refined": TCO_refined.reshape(D, top_k, 4, 4), "pose_logits_dk": pose_logits,
+        }
+
+    def fused_inputs(
+        self, images: Tensor, K: Tensor, boxes: Tensor, mesh_idx: Tensor, n_iterations: int, top_k: int
+    ) -> tuple[tuple[int, ...], tuple[Tensor, ...]]:
+        """The fused mode's arguments for `D <= max_detections` detections:
+        the chunk sizes, iterations and top-K, and the tensors with the
+        detections padded to `max_detections` by repeating the last."""
+        D = self.cfg.max_detections
+        args = (min(self.cfg.bsz_images, D * self.so3_grid.shape[0]), self.cfg.bsz_objects, n_iterations, top_k)
+        return args, (images, K, _pad_rows(boxes, D), _pad_rows(mesh_idx, D))
+
+    def fused(
+        self, chunk_images: int, chunk_objects: int, n_iterations: int, top_k: int,
+        images: Tensor, K: Tensor, boxes: Tensor, mesh_idx: Tensor,
+    ) -> dict[str, Tensor]:
+        """`pipeline` as one program: on the GPU a CUDA graph, captured at
+        the first request of its shapes and replayed after (the returned
+        tensors are the graph's and the next replay overwrites them); on
+        the CPU an eager run. A failed capture raises."""
+        args = (chunk_images, chunk_objects, n_iterations, top_k)
+        inputs = (images, K, boxes, mesh_idx)
+        if self.device.type != "cuda":
+            return self.pipeline(*args, *inputs)
+        key = args + tuple((tuple(x.shape), x.dtype) for x in inputs) + (
+            self.cfg, id(self.coarse_model_sweep), id(self.coarse_model_rescore), id(self.refiner_model),
+            id(self.mesh_db), id(self.mesh_db_coarse))
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = _GraphedPipeline(lambda *xs: self.pipeline(*args, *xs), inputs)
+        return graph(*inputs)
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def _run_external_init(
+        self, observation: ObservationTensor, detections: TensorCollection, n_iter: int, do_depth: bool
+    ) -> tuple[TensorCollection, dict[str, Any]]:
+        """Refine and rescore the detections' `TCO_init` (ModelNet
+        protocol); the depth stage where asked."""
+        timing: dict[str, float] = {}
+        t_start = self._clock()
+        D = len(detections)
+        mesh_idx = self.mesh_db.label_to_index(detections.labels)
+        images = observation.images.to(self.device, torch.float32)
+        K = observation.K.to(self.device, torch.float32)
+        TCO_init = detections.TCO_init.to(self.device, torch.float32)
+        chunk = min(self.cfg.bsz_objects, D)
+        t0 = self._clock()
+        TCO_refined, traj = self.refine(chunk, n_iter, images, K, TCO_init, mesh_idx)
+        timing["refiner"] = self._clock() - t0
+        t0 = self._clock()
+        logits = self.rescore(chunk, images, K, TCO_refined, mesh_idx)
+        timing["scoring"] = self._clock() - t0
+        extra: dict[str, Any] = {"refiner": {"trajectory": traj}}
+        if do_depth:
+            refined, extra["depth_refiner"] = self.depth_refiner.refine_poses(
+                TensorCollection(infos=detections.infos, poses=TCO_refined),
+                depth=observation.depth, K=observation.K,
+            )
+            TCO_refined = refined.poses
+        timing["total"] = self._clock() - t_start
+        self.timing_ = extra["timing"] = timing
+        return self._estimates(detections, TCO_refined, logits), extra
+
+    @staticmethod
+    def _estimates(detections: TensorCollection, poses: Tensor, logit: Tensor) -> TensorCollection:
+        score = torch.sigmoid(logit)
+        return TensorCollection(
+            infos={**detections.infos, "pose_score": score.cpu().numpy(), "pose_logit": logit.cpu().numpy()},
+            poses=poses, pose_score=score, pose_logit=logit,
+        )
+
     @torch.inference_mode()
     def run_inference_pipeline(
         self,
@@ -154,21 +377,26 @@ class PoseEstimator:
         n_refiner_iterations: int | None = None,
         n_pose_hypotheses: int | None = None,
         run_depth_refiner: bool | None = None,
+        keep_all_coarse_outputs: bool = False,
     ) -> tuple[TensorCollection, dict[str, Any]]:
         """Full pipeline on ONE observation.
 
         Args:
           observation: batch size 1; with depth (4 channels) for the depth
             stage.
-          detections: infos (`label`, `score`, ...) + `bboxes [D, 4]`.
+          detections: infos (`label`, `score`, ...) + `bboxes [D, 4]`, and
+            `TCO_init [D, 4, 4]` for `coarse_estimation_type="external"`.
           run_depth_refiner: None takes `cfg.run_depth_refiner`.
+          keep_all_coarse_outputs: also return every coarse hypothesis's
+            pose as `extra["coarse"]["all_TCO"]`.
         Returns:
           (the detections' infos with `pose_score` and `pose_logit` columns
           added, and the tensors `poses [D, 4, 4]`, `pose_score [D]`,
-          `pose_logit [D]`; extra data with per-phase timing and
-          intermediate results, among them the refiner's trajectory
-          `[n_iter, D, K, 4, 4]`, the rescored logits `[D, K]` of all K
-          hypotheses and, after a depth stage, the depth refiner's extra).
+          `pose_logit [D]`; extra data with timing (per phase, or `total`
+          alone in the fused mode) and intermediate results, among them the
+          refiner's trajectory `[n_iter, D, K, 4, 4]`, the rescored logits
+          `[D, K]` of all K hypotheses and, after a depth stage, the depth
+          refiner's extra).
         """
         cfg = self.cfg
         n_iter = n_refiner_iterations or cfg.n_refiner_iterations
@@ -180,6 +408,10 @@ class PoseEstimator:
             raise ValueError("the depth stage needs a depth_refiner and an observation with depth")
         if len(detections) == 0:
             raise ValueError("no detections")
+        if cfg.coarse_estimation_type == "external":
+            if "TCO_init" not in detections.tensors:
+                raise ValueError("external coarse estimation needs detections.TCO_init")
+            return self._run_external_init(observation, detections, n_iter, do_depth)
         timing: dict[str, float] = {}
         t_start = self._clock()
 
@@ -197,33 +429,16 @@ class PoseEstimator:
         boxes = detections.bboxes.to(self.device, torch.float32)
         images = observation.images.to(self.device, torch.float32)
         K = observation.K.to(self.device, torch.float32)
-        M = self.so3_grid.shape[0]
 
-        t0 = self._clock()
-        logits, TCO_init = self.coarse_logits(min(cfg.bsz_images, D * M), images, K, boxes, mesh_idx)
-        timing["coarse"] = self._clock() - t0
-
-        # Top-K, ties to the lower grid index (as jax.lax.top_k).
-        top_ids = torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :top_k]
-        TCO_topk = torch.gather(TCO_init, 1, top_ids[..., None, None].expand(-1, -1, 4, 4))
-
-        t0 = self._clock()
-        N = D * top_k
-        idx_flat = mesh_idx.repeat_interleave(top_k)
-        chunk_r = min(cfg.bsz_objects, N)
-        TCO_refined, traj = self.refine(
-            chunk_r, n_iter, images, K, TCO_topk.reshape(N, 4, 4), idx_flat
-        )
-        timing["refiner"] = self._clock() - t0
-
-        t0 = self._clock()
-        pose_logits = self._score(chunk_r, images, K, TCO_refined, idx_flat)
-        timing["scoring"] = self._clock() - t0
-
-        pose_logits_dk = pose_logits.reshape(D, top_k)
-        best = pose_logits_dk.argmax(dim=1)
-        TCO_best = TCO_refined.reshape(D, top_k, 4, 4)[torch.arange(D, device=self.device), best]
-        best_logit = pose_logits_dk[torch.arange(D, device=self.device), best]
+        if cfg.fused_pipeline and not do_depth:
+            # Static shapes: detections padded to max_detections.
+            args, inputs = self.fused_inputs(images, K, boxes, mesh_idx, n_iter, top_k)
+            out = self.fused(*args, *inputs)
+            out = {k: (v[:, :D] if k == "traj" else v[:D]).clone() for k, v in out.items()}
+        else:
+            out = self.pipeline(min(cfg.bsz_images, D * self.so3_grid.shape[0]), cfg.bsz_objects, n_iter,
+                                top_k, images, K, boxes, mesh_idx, timing=timing)
+        TCO_best = out["TCO_best"]
 
         depth_extra = None
         if do_depth:
@@ -237,21 +452,17 @@ class PoseEstimator:
         timing["total"] = self._clock() - t_start
         self.timing_ = timing
 
-        pose_score = torch.sigmoid(best_logit)
-        poses = TensorCollection(
-            infos={**detections.infos, "pose_score": pose_score.cpu().numpy(),
-                   "pose_logit": best_logit.cpu().numpy()},
-            poses=TCO_best, pose_score=pose_score, pose_logit=best_logit,
-        )
         extra = {
             "timing": timing,
-            "coarse": {"logits": logits, "TCO_init": TCO_init, "top_ids": top_ids},
+            "coarse": {"logits": out["logits"], "TCO_init": out["TCO_init"], "top_ids": out["top_ids"]},
             "refiner": {
-                "trajectory": traj.reshape(n_iter, D, top_k, 4, 4),
-                "TCO_refined": TCO_refined.reshape(D, top_k, 4, 4),
-                "pose_logits": pose_logits_dk,
+                "trajectory": out["traj"],
+                "TCO_refined": out["TCO_refined"],
+                "pose_logits": out["pose_logits_dk"],
             },
         }
+        if keep_all_coarse_outputs:
+            extra["coarse"]["all_TCO"] = out["TCO_init"]
         if depth_extra is not None:
             extra["depth_refiner"] = depth_extra
-        return poses, extra
+        return self._estimates(detections, TCO_best, out["best_logit"]), extra

@@ -18,19 +18,22 @@ from ..data.tensor_collection import TensorCollection
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
     detection_type: str = "gt"  # "detector": not ported yet
-    coarse_estimation_type: str = "SO3_grid"  # "external": not ported yet
+    coarse_estimation_type: str = "SO3_grid"  # or "external": refine detections.TCO_init
     SO3_grid_size: int = 576
-    SO3_prune_grid_size: int = 0  # hierarchical coarse mode: not ported yet
-    coarse_render_size: tuple[int, int] | None = None  # not ported yet
+    # Hierarchical coarse scoring (0: off): the probe grid's size, and how
+    # many of its best rotations have their Voronoi children scored.
+    SO3_prune_grid_size: int = 0
+    SO3_prune_keep: int = 8
+    coarse_render_size: tuple[int, int] | None = None  # the sweep's raster resolution
     n_refiner_iterations: int = 5
     n_pose_hypotheses: int = 5
     run_depth_refiner: bool = False
     depth_refiner: str | None = None  # "ICP" or "teaserpp" (named models)
     bsz_images: int = 576  # coarse scoring chunk
     bsz_objects: int = 16  # refiner and rescoring chunk
-    max_detections: int = 8  # detections kept per image (highest scores)
-    fused_pipeline: bool = False  # not ported yet
-    rescore_f32: bool = False  # not ported yet
+    max_detections: int = 8  # detections kept per image (highest scores); the fused mode pads to it
+    fused_pipeline: bool = False  # one program, no host synchronisation between phases
+    rescore_f32: bool = False  # rescore refined hypotheses in float32
 
 
 def make_detections(

@@ -1,11 +1,12 @@
 """Carry the JAX package's PosePredictor params and run configs across.
 
-`state_dict_from_jax` takes the flax params as a nested dict of numpy
+`state_dict_from_jax` takes the flax variables as a nested dict of numpy
 arrays (the caller reads the checkpoint; this module needs neither JAX nor
 orbax) and returns the port's `state_dict`:
   - conv kernels HWIO -> OIHW,
   - Dense kernels `[in, out]` -> `[out, in]`,
-  - GroupNorm scale/bias -> weight/bias.
+  - GroupNorm and BatchNorm scale/bias -> weight/bias,
+  - BatchNorm `batch_stats` mean/var -> running_mean/running_var.
 `config_from_run_json` reads `runs/*/config.json` into a
 `PosePredictorConfig`, as `TrainingConfig.model_config_kwargs` does in
 the JAX package, plus the mesh database settings of the run.
@@ -35,8 +36,57 @@ def _dense(prefix: str, p: Mapping[str, Any]) -> dict[str, np.ndarray]:
     return {f"{prefix}.weight": np.asarray(p["kernel"]).T, f"{prefix}.bias": np.asarray(p["bias"])}
 
 
-def _backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """flax `ResNet` params -> `backbones.ResNet` keys (prefix `backbone.`)."""
+def _batch_norm(prefix: str, p: Mapping[str, Any], stats: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    return {**_norm(prefix, p), f"{prefix}.running_mean": np.asarray(stats["mean"]),
+            f"{prefix}.running_var": np.asarray(stats["var"])}
+
+
+def _wide(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """flax `WideResNet` params -> `backbones.WideResNet` keys. In a block,
+    flax numbers the convs in creation order: the shortcut's first where
+    there is one."""
+    sd = {"stem.weight": _conv(p["Conv_0"])}
+    n_blocks = sum(1 for k in p if k.startswith("WideResNetBlock_"))
+    for i in range(n_blocks):
+        b, pre = p[f"WideResNetBlock_{i}"], f"blocks.{i}"
+        convs = [b[f"Conv_{j}"] for j in range(3) if f"Conv_{j}" in b]
+        if len(convs) == 3:
+            sd[f"{pre}.shortcut.weight"] = _conv(convs.pop(0))
+        sd[f"{pre}.conv1.weight"] = _conv(convs[0])
+        sd[f"{pre}.conv2.weight"] = _conv(convs[1])
+        sd.update(_norm(f"{pre}.norm1", b["GroupNorm_0"]))
+        sd.update(_norm(f"{pre}.norm2", b["GroupNorm_1"]))
+    sd.update(_norm("norm", p["GroupNorm_0"]))
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def _zoo(p: Mapping[str, Any], stats: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """flax `ZooWideResNet` params and batch_stats -> `backbones.ZooWideResNet`
+    keys."""
+    sd = {"stem.weight": _conv(p["conv1"]), **_batch_norm("stem_bn", p["bn1"], stats["bn1"])}
+    names = sorted((k for k in p if k.startswith("layer")),
+                   key=lambda k: tuple(int(x) for x in k[len("layer"):].split("_")))
+    for i, name in enumerate(names):
+        b, s, pre = p[name], stats[name], f"blocks.{i}"
+        sd[f"{pre}.conv1.weight"] = _conv(b["conv1"])
+        sd[f"{pre}.conv2.weight"] = _conv(b["conv2"])
+        sd.update(_batch_norm(f"{pre}.bn1", b["bn1"], s["bn1"]))
+        sd.update(_batch_norm(f"{pre}.bn2", b["bn2"], s["bn2"]))
+        if "downsample" in b:
+            sd[f"{pre}.downsample.weight"] = _conv(b["downsample"])
+    return sd
+
+
+def _backbone(p: Mapping[str, Any], stats: Mapping[str, Any] | None) -> dict[str, np.ndarray]:
+    """flax backbone params (and batch_stats) -> the port's backbone keys
+    (prefix `backbone.`)."""
+    if "WideResNetBlock_0" in p:
+        return {f"backbone.{k}": v for k, v in _wide(p).items()}
+    if "layer1_0" in p:
+        if stats is None:
+            raise ValueError("a zoo backbone needs its batch_stats")
+        return {f"backbone.{k}": v for k, v in _zoo(p, stats).items()}
     sd = {"stem.weight": _conv(p["Conv_0"]), **_norm("stem_norm", p["GroupNorm_0"])}
     n_blocks = sum(1 for k in p if k.startswith("BasicBlock_"))
     for i in range(n_blocks):
@@ -56,11 +106,12 @@ def _backbone(p: Mapping[str, Any]) -> dict[str, np.ndarray]:
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """flax `PosePredictor` params (with or without the top-level
-    `"params"` key) -> the port's `PosePredictor.state_dict()`."""
+    """flax `PosePredictor` variables (`{"params": ..., "batch_stats": ...}`,
+    or the params alone) -> the port's `PosePredictor.state_dict()`."""
+    stats = params.get("batch_stats", {}).get("backbone")
     if "params" in params:
         params = params["params"]
-    sd = _backbone(params["backbone"])
+    sd = _backbone(params["backbone"], stats)
     if "pose_fc" in params:
         sd.update(_dense("pose_fc", params["pose_fc"]))
     if "views_logits_fc" in params:
@@ -90,6 +141,7 @@ def config_from_run_json(path: str | Path) -> tuple[PosePredictorConfig, dict[st
         input_depth=d["input_depth"],
         depth_normalization_type=d.get("depth_normalization_type", "none"),
         compute_dtype=d["compute_dtype"],
+        tile_hyp_pack=d.get("tile_hyp_pack", 1),
     )
     db = {k: int(d[k]) for k in ("max_faces", "n_points_mesh", "n_sym")}
     return cfg, db

@@ -388,9 +388,23 @@ def _cluster_once(mesh: TriMesh, cell: float) -> TriMesh:
     return out.with_computed_normals()
 
 
-def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2)) -> TriMesh:
+TEXTURE_SIZE, TEXTURE_CELLS = 192, 24
+
+
+def make_random_texture(seed: int) -> np.ndarray:
+    """Random block texture `[192, 192, 3]` uint8: 24 x 24 blocks of
+    colours drawn uniformly in [0.1, 1] by `np.random.RandomState(seed)`."""
+    rng = np.random.RandomState(seed)
+    blocks = rng.uniform(0.1, 1.0, size=(TEXTURE_CELLS, TEXTURE_CELLS, 3))
+    up = TEXTURE_SIZE // TEXTURE_CELLS
+    return (np.kron(blocks, np.ones((up, up, 1))) * 255).astype(np.uint8)
+
+
+def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2), textured: bool = False) -> TriMesh:
     """Flat-shaded cube: 24 vertices (4 per side) so vertex normals are the
-    true face normals."""
+    true face normals. With `textured=True` side `f` maps to tile
+    `(f % 3, f // 3)` of a 3x2 atlas of the random block texture of seed 0
+    (inset by 1/128 so bilinear lookups stay in the tile)."""
     h = half_extent
     verts, normals, faces = [], [], []
     for axis in range(3):
@@ -407,20 +421,37 @@ def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2)) -> TriMesh:
             faces.append([base, base + 1, base + 2])
             faces.append([base, base + 2, base + 3])
     verts = np.asarray(verts, np.float32)
+    uvs = texture = None
+    if textured:
+        uvs = np.zeros((24, 2), np.float32)
+        pad = 1.0 / 128.0
+        for f in range(6):
+            fx, fy = f % 3, f // 3
+            u0, u1 = fx / 3 + pad, (fx + 1) / 3 - pad
+            v0, v1 = fy / 2 + pad, (fy + 1) / 2 - pad
+            uvs[4 * f : 4 * f + 4] = [[u0, v0], [u1, v0], [u1, v1], [u0, v1]]
+        texture = make_random_texture(seed=0)
     return TriMesh(
         verts,
         np.asarray(faces, np.int32),
         vertex_normals=np.asarray(normals, np.float32),
         vertex_colors=np.tile(np.asarray(color, np.float32), (len(verts), 1)),
+        vertex_uvs=uvs,
+        texture=texture,
     )
 
 
 def make_uv_sphere(
-    radius: float = 0.05, n_lat: int = 16, n_lon: int = 24, color=(0.2, 0.4, 0.8)
+    radius: float = 0.05, n_lat: int = 16, n_lon: int = 24, color=(0.2, 0.4, 0.8), textured: bool = False,
 ) -> TriMesh:
-    """UV sphere with pole rings collapsed to single triangles."""
+    """UV sphere with pole rings collapsed to single triangles. With
+    `textured=True` the longitude seam column is duplicated (uv = lon
+    column / n_lon, lat / pi) and the random block texture of seed 1 is
+    attached."""
+    n_col = n_lon + 1 if textured else n_lon
     lats = np.linspace(0, np.pi, n_lat + 1)
-    lons = np.linspace(0, 2 * np.pi, n_lon)  # endpoint included, as in the JAX package
+    # Untextured: endpoint included, as in the JAX package.
+    lons = np.linspace(0, 2 * np.pi, n_col, endpoint=not textured)
     verts = np.asarray(
         [
             [radius * np.sin(th) * np.cos(ph), radius * np.sin(th) * np.sin(ph), radius * np.cos(th)]
@@ -429,12 +460,15 @@ def make_uv_sphere(
         ],
         np.float32,
     )
+    uvs = None
+    if textured:
+        uvs = np.asarray([[k / n_lon, th / np.pi] for th in lats for k in range(n_col)], np.float32)
     faces = []
     for i in range(n_lat):
         for j in range(n_lon):
-            jn = (j + 1) % n_lon
-            a, b = i * n_lon + j, i * n_lon + jn
-            c, d = (i + 1) * n_lon + j, (i + 1) * n_lon + jn
+            jn = j + 1 if textured else (j + 1) % n_lon
+            a, b = i * n_col + j, i * n_col + jn
+            c, d = (i + 1) * n_col + j, (i + 1) * n_col + jn
             if i > 0:  # ring-0 vertices are all the pole
                 faces.append([a, c, b])
             if i < n_lat - 1:  # the last ring collapses to the south pole
@@ -443,4 +477,6 @@ def make_uv_sphere(
         verts,
         np.asarray(faces, np.int32),
         vertex_colors=np.tile(np.asarray(color, np.float32), (len(verts), 1)),
+        vertex_uvs=uvs,
+        texture=make_random_texture(seed=1) if textured else None,
     ).with_computed_normals()

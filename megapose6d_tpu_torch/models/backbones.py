@@ -1,11 +1,15 @@
-"""ResNet backbones with GroupNorm, NHWC at the interface.
+"""ResNet backbones, NHWC at the interface.
 
-Counterpart of `megapose6d_tpu/models/backbones.py` (`BasicBlock`,
-`ResNet`). Parameters are float32; the forward pass computes in
-`compute_dtype` (bfloat16 for the committed runs) and normalizes in
-float32, as flax's GroupNorm does. Two details follow flax and differ from
-torch's defaults: GroupNorm eps is 1e-6, and the spatial head flattens the
-feature map in NHWC order.
+Counterpart of `megapose6d_tpu/models/backbones.py`: the GroupNorm
+`ResNet` (`BasicBlock`), the pre-activation `WideResNet`
+(`WideResNetBlock`) and, in inference form, `ZooWideResNet`
+(`ZooBasicBlockV2`), whose BatchNorm uses the running statistics carried
+across from flax's `batch_stats`. Parameters are float32; the forward pass
+computes in `compute_dtype` (bfloat16 for the committed runs), which a
+caller may override per call, and normalizes in float32. Details that
+follow flax and differ from torch's defaults: GroupNorm eps is 1e-6,
+BatchNorm eps 1e-5, and the spatial head flattens the feature map in NHWC
+order.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from torch import nn
 
 Tensor = torch.Tensor
 GN_EPS = 1e-6
+BN_EPS = 1e-5
 
 
 class GroupNorm(nn.Module):
@@ -29,6 +34,23 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         y = F.group_norm(x.float(), self.groups, self.weight, self.bias, GN_EPS)
+        return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm from running statistics, computed in float32 and
+    returned in the input's dtype."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias,
+                         training=False, eps=BN_EPS)
         return y.to(x.dtype)
 
 
@@ -106,8 +128,8 @@ class ResNet(nn.Module):
             raise ValueError(f"unknown pool: {pool}")
         self.fc = nn.Linear(cin, n_features)
 
-    def forward(self, x: Tensor) -> Tensor:
-        dt = self.compute_dtype
+    def forward(self, x: Tensor, compute_dtype: torch.dtype | None = None) -> Tensor:
+        dt = compute_dtype or self.compute_dtype
         x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
         x = F.relu(self.stem_norm(self.stem(x)))
         x = F.max_pool2d(x, 3, 2, 1)
@@ -121,11 +143,121 @@ class ResNet(nn.Module):
         return x.float()
 
 
+class WideResNetBlock(nn.Module):
+    """Pre-activation wide block: GroupNorm, relu, 3x3 conv, GroupNorm,
+    relu, 3x3 conv, plus the input (through a 1x1 conv of the activated
+    input when the shape changes)."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1, groups: int = 16):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, cin)
+        self.shortcut = Conv(cin, features, 1, stride) if cin != features or stride != 1 else None
+        self.conv1 = Conv(cin, features, 3, stride, 1)
+        self.norm2 = GroupNorm(groups, features)
+        self.conv2 = Conv(features, features, 3, 1, 1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        y = F.relu(self.norm1(x))
+        shortcut = x if self.shortcut is None else self.shortcut(y)
+        y = F.relu(self.norm2(self.conv1(y)))
+        return self.conv2(y) + shortcut
+
+
+class WideResNet(nn.Module):
+    """Pre-activation WideResNet-18/34 (widen factor 2): a 3x3 stem, four
+    stages each starting at stride 2, GroupNorm, relu, global mean,
+    Dense to `n_features`."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        stage_sizes=(2, 2, 2, 2),
+        width: int = 64,
+        widen: int = 2,
+        n_features: int = 512,
+        norm_groups: int = 16,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.stem = Conv(in_channels, width, 3, 1, 1)
+        blocks, cin = [], width
+        for i, n_blocks in enumerate(stage_sizes):
+            features = width * widen * 2**i
+            for b in range(n_blocks):
+                blocks.append(WideResNetBlock(cin, features, 2 if b == 0 else 1, norm_groups))
+                cin = features
+        self.blocks = nn.Sequential(*blocks)
+        self.norm = GroupNorm(norm_groups, cin)
+        self.fc = nn.Linear(cin, n_features)
+
+    def forward(self, x: Tensor, compute_dtype: torch.dtype | None = None) -> Tensor:
+        dt = compute_dtype or self.compute_dtype
+        x = self.blocks(self.stem(x.to(dt).permute(0, 3, 1, 2)))
+        x = F.relu(self.norm(x)).mean(dim=(2, 3))
+        return F.linear(x, self.fc.weight.to(dt), self.fc.bias.to(dt)).float()
+
+
+class ZooBasicBlockV2(nn.Module):
+    """Pre-activation block of the reference's checkpoints: BatchNorm,
+    relu, 3x3 conv, BatchNorm, relu, 3x3 conv, plus the input (through a
+    norm-free 1x1 conv of the activated input when the shape changes)."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1):
+        super().__init__()
+        self.bn1 = BatchNorm(cin)
+        self.downsample = Conv(cin, features, 1, stride) if cin != features or stride != 1 else None
+        self.conv1 = Conv(cin, features, 3, stride, 1)
+        self.bn2 = BatchNorm(features)
+        self.conv2 = Conv(features, features, 3, 1, 1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        out = F.relu(self.bn1(x))
+        residual = x if self.downsample is None else self.downsample(out)
+        out = F.relu(self.bn2(self.conv1(out)))
+        return self.conv2(out) + residual
+
+
+class ZooWideResNet(nn.Module):
+    """The reference checkpoints' backbone in inference form: a 5x5/2
+    BatchNorm stem, max pool, four pre-activation stages, global mean;
+    `[B, H, W, C]` -> `[B, 8 * width]` float32 (no Dense)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        stage_sizes=(3, 4, 6, 3),
+        width: int = 64,
+        compute_dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.stem = Conv(in_channels, width, 5, 2, 2)
+        self.stem_bn = BatchNorm(width)
+        blocks, cin = [], width
+        for i, n_blocks in enumerate(stage_sizes):
+            features = width * 2**i
+            for b in range(n_blocks):
+                blocks.append(ZooBasicBlockV2(cin, features, 2 if (i > 0 and b == 0) else 1))
+                cin = features
+        self.blocks = nn.Sequential(*blocks)
+
+    def forward(self, x: Tensor, compute_dtype: torch.dtype | None = None) -> Tensor:
+        dt = compute_dtype or self.compute_dtype
+        x = F.relu(self.stem_bn(self.stem(x.to(dt).permute(0, 3, 1, 2))))
+        x = self.blocks(F.max_pool2d(x, 3, 2, 1))
+        return x.mean(dim=(2, 3)).float()
+
+
 _BACKBONES = {
     "resnet18": ((2, 2, 2, 2), "avg"),
     "resnet34": ((3, 4, 6, 3), "avg"),
     "resnet18-spatial": ((2, 2, 2, 2), "spatial"),
     "resnet34-spatial": ((3, 4, 6, 3), "spatial"),
+    "wide_resnet18": ((2, 2, 2, 2), "wide"),
+    "wide_resnet34": ((3, 4, 6, 3), "wide"),
+    "zoo_resnet18": ((2, 2, 2, 2), "zoo"),
+    "zoo_resnet34": ((3, 4, 6, 3), "zoo"),
 }
 
 
@@ -135,13 +267,17 @@ def make_backbone(
     input_hw: tuple[int, int],
     n_features: int = 512,
     compute_dtype: torch.dtype = torch.float32,
-) -> ResNet:
-    """Backbone registry (the GroupNorm ResNets of the JAX package; the
-    wide and zoo variants wait)."""
+) -> nn.Module:
+    """Backbone registry (the JAX package's names; the zoo variants with
+    mutable BatchNorm statistics, `zoo_resnet*-train`, are not ported)."""
     if name not in _BACKBONES:
         raise NotImplementedError(f"backbone {name!r} is not ported")
-    stages, pool = _BACKBONES[name]
+    stages, kind = _BACKBONES[name]
+    if kind == "wide":
+        return WideResNet(in_channels, stages, n_features=n_features, compute_dtype=compute_dtype)
+    if kind == "zoo":
+        return ZooWideResNet(in_channels, stages, compute_dtype=compute_dtype)
     return ResNet(
         in_channels, input_hw, stages, n_features=n_features,
-        compute_dtype=compute_dtype, pool=pool,
+        compute_dtype=compute_dtype, pool=kind,
     )

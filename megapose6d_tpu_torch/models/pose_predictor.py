@@ -13,6 +13,7 @@ the CUDA kernel on the GPU.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -21,10 +22,10 @@ from torch import nn
 
 from ..meshes.mesh_db import BatchedMeshes
 from ..ops import cropping, multiview, rasterizer_tiled
-from ..ops.camera import get_K_crop_resize, masked_boxes_from_uv, project_points_robust
+from ..ops.camera import get_K_crop_resize, get_K_resize, masked_boxes_from_uv, project_points_robust
 from ..ops.pose_init import pose_update_with_reference_point
 from ..ops.se3 import normalize_T, rotmat_from_ortho6d
-from .backbones import Conv, GroupNorm, make_backbone
+from .backbones import BatchNorm, Conv, GroupNorm, make_backbone
 
 Tensor = torch.Tensor
 
@@ -38,6 +39,10 @@ class PosePredictorConfig:
 
     backbone: str = "resnet34"
     render_size: tuple[int, int] = (240, 320)
+    # Rasterise the rendered views at this (lower) resolution and upsample
+    # them bilinearly to `render_size` before the CNN (None: rasterise at
+    # `render_size`). The CNN's input, and so its weights, do not change.
+    render_at: tuple[int, int] | None = None
     multiview_type: str = "TCO+front_3views"
     views_inplane_rotations: bool = False
     remove_TCO_rendering: bool = False
@@ -53,6 +58,11 @@ class PosePredictorConfig:
     crop_lamb: float = 1.4
     mv_crop_points: int = 200
     tile_face_chunk: int = 16
+    # How many hypotheses share one program of the JAX package's Pallas
+    # kernel. It changes no pixel there, and has no effect here: the CUDA
+    # kernel's blocks are tiles of one image. Read so that run configs
+    # that carry it load.
+    tile_hyp_pack: int = 1
     backface_cull: bool = True  # meshes from MeshDataBase are winding-normalized
     z_near: float = 0.01
 
@@ -110,7 +120,8 @@ class PosePredictor(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "PosePredictor":
         """flax's initializers: lecun-normal kernels, zero biases, unit
-        GroupNorm scales; the pose head starts near the identity update
+        GroupNorm and BatchNorm scales (running statistics 0 and 1); the
+        pose head starts near the identity update
         (bias = ortho6d identity + vz=1, kernel at variance scale 1e-3)."""
         for m in self.modules():
             if isinstance(m, Conv):
@@ -119,12 +130,23 @@ class PosePredictor(nn.Module):
                 scale = 1e-3 if m is self.pose_fc else 1.0
                 _lecun_normal_(m.weight, m.in_features, scale, generator)
                 nn.init.zeros_(m.bias)
-            elif isinstance(m, GroupNorm):
+            elif isinstance(m, (GroupNorm, BatchNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
         if self.pose_fc is not None:
             self.pose_fc.bias.copy_(torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1]))
         return self
+
+    def twin(self, **changes) -> "PosePredictor":
+        """This model under a configuration with `changes` (`compute_dtype`,
+        `render_at`), sharing its parameter tensors: no copy, one
+        `state_dict`. Changes that would alter the parameters raise."""
+        allowed = {"compute_dtype", "render_at"}
+        if not set(changes) <= allowed:
+            raise ValueError(f"a twin may change only {sorted(allowed)}, not {sorted(set(changes) - allowed)}")
+        twin = copy.copy(self)  # shares the _parameters, _buffers and _modules dicts
+        twin.cfg = dataclasses.replace(self.cfg, **changes)
+        return twin
 
     # ------------------------------------------------------------------
     # building blocks
@@ -132,7 +154,7 @@ class PosePredictor(nn.Module):
 
     def net_forward(self, x: Tensor) -> dict[str, Tensor]:
         """Backbone + heads; `x [B, H, W, C]` NHWC."""
-        feats = self.backbone(x)
+        feats = self.backbone(x, _DTYPES[self.cfg.compute_dtype])
         out = {}
         if self.pose_fc is not None:
             out["pose"] = self.pose_fc(feats)
@@ -184,13 +206,17 @@ class PosePredictor(nn.Module):
     ) -> Tensor:
         """Render V views per hypothesis and stack their channels (rgb,
         normals, depth normalised about the reference point `tCR [B, 3]`):
-        `[B, H, W, V * C_render]`. A per-hypothesis `ambient [B]` lights
+        `[B, H, W, V * C_render]`, rasterised at `render_at` when it is set
+        (intrinsics scaled to it) and upsampled to `render_size`. A per-hypothesis `ambient [B]` lights
         the views with that ambient alone (no point light). The render is
         cut from the gradient, as the JAX package's `stop_gradient` cuts
         it, so autograd keeps none of its intermediates."""
         cfg = self.cfg
         B, V = TCV_O.shape[:2]
         H, W = cfg.render_size
+        ras_hw = tuple(cfg.render_at) if cfg.render_at else (H, W)
+        if ras_hw != (H, W):
+            KV = get_K_resize(KV, (H, W), ras_hw)
         mesh_mv = meshes.repeat_interleave(V)
         if ambient is not None:
             light_ambient = ambient.repeat_interleave(V)
@@ -202,14 +228,17 @@ class PosePredictor(nn.Module):
         out = rasterizer_tiled.render_meshes_tiled(
             mesh_mv.vertices, mesh_mv.normals, mesh_mv.colors, mesh_mv.faces,
             mesh_mv.face_valid, TCV_O.reshape(B * V, 4, 4), KV.reshape(B * V, 3, 3),
-            (H, W), z_near=cfg.z_near, chunk=cfg.tile_face_chunk,
+            ras_hw, z_near=cfg.z_near, chunk=cfg.tile_face_chunk,
             light_ambient=light_ambient, light_point=light_point,
             backface_cull=cfg.backface_cull, **mesh_mv.texture_kw,
         )
         chans = [out.rgb, out.normals] if cfg.render_normals else [out.rgb]
         if cfg.render_depth:
             chans.append(self.normalize_depth(out.depth[..., None], tCR.repeat_interleave(V, dim=0)))
-        r = torch.cat(chans, dim=-1).reshape(B, V, H, W, -1)
+        r = torch.cat(chans, dim=-1)
+        if ras_hw != (H, W):
+            r = cropping.resize_bilinear(r, (H, W))
+        r = r.reshape(B, V, H, W, -1)
         return r.permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
 
     def normalize_depth(self, depth: Tensor, tCR: Tensor) -> Tensor:

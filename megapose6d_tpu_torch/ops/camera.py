@@ -97,7 +97,7 @@ def look_at_R(
     fwd = fwd / torch.linalg.norm(fwd, dim=-1, keepdim=True).clamp_min(eps)
     x = torch.linalg.cross(-up_hint.expand_as(fwd), fwd)
     x_norm = torch.linalg.norm(x, dim=-1, keepdim=True)
-    fallback = torch.tensor([1.0, 0.0, 0.0], dtype=fwd.dtype, device=fwd.device)
+    fallback = torch.eye(3, dtype=fwd.dtype, device=fwd.device)[0]  # no host data: CUDA-graph safe
     x = torch.where(x_norm < eps, fallback.expand_as(fwd), x / x_norm.clamp_min(eps))
     y = torch.linalg.cross(fwd, x)
     y = y / torch.linalg.norm(y, dim=-1, keepdim=True).clamp_min(eps)

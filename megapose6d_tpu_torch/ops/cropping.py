@@ -71,6 +71,20 @@ def _resample_weights(
     return torch.where(inside[:, None, :], weights, torch.zeros_like(weights))
 
 
+def resize_bilinear(images: Tensor, size: tuple[int, int]) -> Tensor:
+    """NHWC `images [B, h, w, C]` resized to `size` (H, W) as
+    `jax.image.resize(..., method="bilinear")` resizes them: the triangle
+    filter of `_resample_weights` at scale `H / h` and `W / w`, weights
+    renormalised where the filter leaves the image."""
+    _, h, w, _ = images.shape
+    H, W = size
+    one = torch.ones(1, dtype=images.dtype, device=images.device)
+    wy = _resample_weights(h, H, one * (H / h), one * 0)[0]  # [h, H]
+    wx = _resample_weights(w, W, one * (W / w), one * 0)[0]  # [w, W]
+    x = torch.einsum("ih,bijc->bhjc", wy, images)
+    return torch.einsum("jw,bhjc->bhwc", wx, x)
+
+
 def crop_images(
     images: Tensor, boxes: Tensor, output_size: tuple[int, int], depth_dim: int | None = None
 ) -> Tensor:

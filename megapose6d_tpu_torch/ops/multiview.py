@@ -8,6 +8,7 @@ camera looks at R with camera 0's up direction.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -44,12 +45,15 @@ _VIEW_SETS = {
 }
 
 
-def _offsets_cv(name: str, device) -> Tensor:
-    """Panda3D (x right, y forward, z up) -> CV axes (x, -z, y)."""
+@functools.lru_cache(maxsize=None)
+def _offsets_cv(name: str, device: torch.device) -> Tensor:
+    """Panda3D (x right, y forward, z up) -> CV axes (x, -z, y). Copied to
+    the device once, so a CUDA graph's capture finds it there."""
     o = _OFFSETS_PANDA[name]
-    return torch.as_tensor(
-        np.stack([o[:, 0], -o[:, 2], o[:, 1]], -1), dtype=torch.float32, device=device
-    )
+    with torch.inference_mode(False):  # an ordinary tensor, usable under autograd too
+        return torch.as_tensor(
+            np.stack([o[:, 0], -o[:, 2], o[:, 1]], -1), dtype=torch.float32, device=device
+        )
 
 
 def views_tco_pos_sphere(TCO: Tensor, tCR: Tensor, offsets_cv: Tensor) -> Tensor:

@@ -135,9 +135,9 @@ def prepare(
     packed, bbox, valid, zmin = _face_coefs(
         screen, normals, colors, faces, face_valid, z_near, backface_cull
     )
-    # Invalid faces can never pass the inside test.
-    neutral = torch.zeros(COEF_W, dtype=packed.dtype, device=dev)
-    neutral[2] = -1e30
+    # Invalid faces can never pass the inside test (c0 = -1e30; filled on the
+    # device, no host data, so CUDA graphs can capture it).
+    neutral = torch.where(torch.arange(COEF_W, device=dev) == 2, -1e30, 0.0).to(packed.dtype)
     packed = torch.where(valid[..., None], packed, neutral)
 
     ty0 = (torch.arange(n_th, device=dev) * TILE_H)[None, :, None]
@@ -415,10 +415,11 @@ def shade(
         albedo = torch.where(has_tex[:, None, None, None], tex_rgb, albedo)
     n_obj = attrs[..., 3:6]
     n_obj = n_obj / torch.linalg.norm(n_obj, dim=-1, keepdim=True).clamp_min(1e-9)
-    amb = torch.as_tensor(light_ambient, dtype=torch.float32, device=invz.device)
-    pnt = torch.as_tensor(light_point, dtype=torch.float32, device=invz.device)
-    amb = amb.expand(B)[:, None, None, None]
-    pnt = pnt.expand(B)[:, None, None, None]
+    # Python numbers are filled on the device (no host copy: CUDA-graph safe).
+    light = lambda x: (x.to(invz.device, torch.float32).expand(B) if torch.is_tensor(x)
+                       else torch.full((B,), float(x), device=invz.device))
+    amb = light(light_ambient)[:, None, None, None]
+    pnt = light(light_point)[:, None, None, None]
     intensity = amb + pnt * n_obj.abs().sum(-1, keepdim=True)
     rgb = torch.where(hit[..., None], (albedo * intensity).clamp(0, 1), 0.0)
     n_eye = torch.einsum("bij,bhwj->bhwi", TCO[:, :3, :3], n_obj)

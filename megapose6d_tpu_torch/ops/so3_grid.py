@@ -1,7 +1,7 @@
 """Deterministic near-uniform SO(3) grids (Super-Fibonacci, Alexa 2022).
 
-Counterpart of `megapose6d_tpu/ops/so3_grid.py` (the prune table waits
-for the hierarchical coarse mode).
+Counterpart of `megapose6d_tpu/ops/so3_grid.py`: the grid and the prune
+table of the hierarchical coarse mode.
 """
 
 from __future__ import annotations
@@ -40,3 +40,26 @@ def make_so3_grid(resolution: int, device: str | torch.device = "cuda") -> torch
         super_fibonacci_quats(resolution), dtype=torch.float32, device=device
     )
     return rotmat_from_quat(quats)
+
+
+def build_prune_table(grid, parent_grid) -> tuple[np.ndarray, np.ndarray]:
+    """Voronoi assignment of `grid [M, 3, 3]` to its nearest rotation of
+    `parent_grid [M1, 3, 3]` (largest trace of `R P^T`, in float64), as
+    padded per-parent child lists: children `[M1, C]` int32 (indices into
+    `grid`, padded with index 0) and valid `[M1, C]` bool.
+
+    The hierarchical coarse stage scores the parent grid first, then only
+    the children of the best parents; `grid` stays the hypothesis
+    vocabulary."""
+    R = np.asarray(torch.as_tensor(grid).cpu(), np.float64)
+    P = np.asarray(torch.as_tensor(parent_grid).cpu(), np.float64)
+    parent_of = np.einsum("mij,pij->mp", R, P).argmax(axis=1)  # [M]
+    M1 = P.shape[0]
+    C = int(np.bincount(parent_of, minlength=M1).max())
+    children = np.zeros((M1, C), np.int32)
+    valid = np.zeros((M1, C), bool)
+    for p in range(M1):
+        ids = np.nonzero(parent_of == p)[0]
+        children[p, : len(ids)] = ids
+        valid[p, : len(ids)] = True
+    return children, valid

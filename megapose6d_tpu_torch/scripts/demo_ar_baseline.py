@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
-import re
 import sys
 from pathlib import Path
 
@@ -40,7 +39,7 @@ from ..data.tensor_collection import TensorCollection
 from ..evaluation.meters import BOPScoreMeter
 from ..evaluation.runner import EvaluationRunner, PredictionRunner
 from ..inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
-from ..inference.load_model import build_model
+from ..inference.load_model import build_model, npz_step
 from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import InferenceConfig
 from ..meshes.mesh_db import BatchedMeshes, MeshDataBase
@@ -81,11 +80,6 @@ def world_mesh_db(ds_dir: Path, device) -> BatchedMeshes:
     return MeshDataBase.from_object_ds(objects, max_faces=2048, n_points=512, n_sym=4).batched(device=device)
 
 
-def _step(weights: str) -> int:
-    m = re.search(r"@(\d+)\.npz$", weights)
-    return int(m.group(1)) if m else 0
-
-
 def _summary(scene_ds, mesh_db, final: TensorCollection, width: int) -> dict:
     out = EvaluationRunner(scene_ds, {"bop": BOPScoreMeter(mesh_db, image_width=width)}).evaluate(final)
     return {k: (float(v) if isinstance(v, (int, float, np.floating)) else v) for k, v in out["bop"].items()}
@@ -116,7 +110,7 @@ def run(args: dict[str, str]) -> tuple[dict, dict[str, TensorCollection]]:
         multiview_type="TCO+front_1view", compute_dtype=dtype), render, seed + 1, device)
     coarse = build_model(None, args["coarse_weights"] or None, lambda render_size: make_coarse_config(
         backbone=args["backbone"], render_size=render_size, compute_dtype=dtype), render, seed, device)
-    r_step, c_step = _step(args["refiner_weights"]), _step(args["coarse_weights"])
+    r_step, c_step = npz_step(args["refiner_weights"]), npz_step(args["coarse_weights"])
     logger.info("weights: refiner@%d coarse@%d (0: seeded or unnamed)", r_step, c_step)
 
     cfg = InferenceConfig(

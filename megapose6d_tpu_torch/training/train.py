@@ -196,16 +196,7 @@ def random_background(coarse: Tensor, fine: Tensor, gain: Tensor, resolution: tu
     [-0.15, 0.15], each resized linearly to `resolution` (the JAX
     package's `jax.image.resize(..., "linear")`, through the crop's
     scale-and-translate weights), times `gain [B]`, clipped to [0, 1]."""
-    H, W = resolution
-
-    def resize(x: Tensor) -> Tensor:
-        one = torch.ones(1, dtype=x.dtype, device=x.device)
-        wy = cropping._resample_weights(x.shape[1], H, one * (H / x.shape[1]), one * 0)[0]
-        wx = cropping._resample_weights(x.shape[2], W, one * (W / x.shape[2]), one * 0)[0]
-        x = torch.einsum("ih,bijc->bhjc", wy, x)
-        return torch.einsum("jw,bhjc->bhwc", wx, x)
-
-    bg = resize(coarse) + resize(fine)
+    bg = cropping.resize_bilinear(coarse, resolution) + cropping.resize_bilinear(fine, resolution)
     return (bg * gain[:, None, None, None]).clamp(0.0, 1.0)
 
 

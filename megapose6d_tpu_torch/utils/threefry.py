@@ -3,8 +3,10 @@
 The depth refiners choose their points from a uniform field drawn with
 `jax.random.uniform(key, (H, W))`, from keys split off `PRNGKey(0)`. With
 the same field the port samples the same pixels, so its poses can be held
-to the JAX package's per instance. This module computes `PRNGKey`,
-`split` and `uniform` (float32) bit for bit as JAX 0.9 does with
+to the JAX package's per instance; the demos draw their evaluation scenes
+and pose noise as the JAX scripts do. This module computes `PRNGKey`,
+`split`, `uniform` (float32) and `randint` bit for bit, and `normal` to
+the last bits, as JAX 0.9 does with
 `jax_threefry_partitionable=True` (its default): the Threefry-2x32 hash
 (20 rounds, key schedule `k0, k1, k0 ^ k1 ^ 0x1BD11BDA`) of a 64-bit
 counter held as two 32-bit words, `(hi, lo)` = the flat index of each
@@ -71,8 +73,56 @@ def random_bits(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
     return b0 ^ b1
 
 
-def uniform(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
-    """`jax.random.uniform(key, shape)` in float32, in [0, 1): the top 23
-    bits as the mantissa of a float in [1, 2), minus 1."""
+def uniform(key: np.ndarray, shape: tuple[int, ...], minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """`jax.random.uniform(key, shape, minval=, maxval=)` in float32: the top
+    23 bits as the mantissa of a float in [1, 2), minus 1, scaled to
+    [minval, maxval) and held at or above minval."""
     bits = (random_bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
-    return bits.view(np.float32) - np.float32(1.0)
+    u = bits.view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, _fma(u, hi - lo, lo))
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """`a * b + c` of float32 values rounded once, as XLA's fused
+    multiply-add (the float64 product of two float32 values is exact)."""
+    f64 = lambda x: np.asarray(x, np.float64)
+    return (f64(a) * f64(b) + f64(c)).astype(np.float32)
+
+
+def randint(key: np.ndarray, shape: tuple[int, ...], minval: int, maxval: int) -> np.ndarray:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32, maxval
+    below 2**31): two words of bits from the two halves of a split, each
+    reduced modulo the span, combined as `hi * (2**16 mod span)**2 + lo`
+    modulo the span, in uint32 arithmetic."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(max(maxval - minval, 1))
+    mult = np.uint32(2**16) % span
+    with np.errstate(over="ignore"):
+        mult = (mult * mult) % span
+        offset = ((hi % span) * mult + lo % span) % span
+    return (np.int64(minval) + offset.astype(np.int64)).astype(np.int32)
+
+
+# The inverse error function of XLA in float32 (Giles' approximation).
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+               -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+               -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def normal(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """`jax.random.normal(key, shape)` in float32: `sqrt(2) * erfinv(u)` for
+    `u` uniform in (-1, 1). The inverse error function is XLA's polynomial
+    evaluated in numpy float32; where XLA fuses its multiply-adds, values
+    may differ from JAX's in the last bits."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    x = uniform(key, shape, lo, 1.0)
+    w = -np.log1p(-x * x)
+    small = w < np.float32(5.0)
+    w = np.where(small, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0)).astype(np.float32)
+    p = np.where(small, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, np.where(small, np.float32(c_lt), np.float32(c_ge)))
+    return (np.float32(np.sqrt(2.0)) * (p * x)).astype(np.float32)

@@ -55,6 +55,7 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.ops.losses", "megapose6d_tpu_torch.training.config",
         "megapose6d_tpu_torch.training.forward_loss", "megapose6d_tpu_torch.training.train",
         "megapose6d_tpu_torch.scripts.run_training",
+        "megapose6d_tpu_torch.scripts.demo_synthetic_e2e", "megapose6d_tpu_torch.scripts.demo_finalize_pipeline",
     }
     assert expected <= set(out["modules"])
 
@@ -69,14 +70,18 @@ def test_entry_points_default_to_cuda():
 
     from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig
     from megapose6d_tpu_torch.inference.load_model import build_model, load_named_model, load_or_init_models
-    from megapose6d_tpu_torch.scripts import demo_ar_baseline, run_inference_on_example, run_training
+    from megapose6d_tpu_torch.scripts import (
+        demo_ar_baseline, demo_finalize_pipeline, demo_synthetic_e2e, run_inference_on_example, run_training,
+    )
     from megapose6d_tpu_torch.training.train import create_train_state, synthetic_batch_fn
 
     assert EvalConfig().device == "cuda"
     for fn in (PoseEstimator.__init__, make_detections, MeshDataBase.batched,
                build_pose_predictor, make_so3_grid, ObservationTensor.from_numpy,
                build_model, load_or_init_models, load_named_model,
-               run_inference_on_example.load_observation, create_train_state, synthetic_batch_fn):
+               run_inference_on_example.load_observation, create_train_state, synthetic_batch_fn,
+               demo_synthetic_e2e.build_world):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert demo_ar_baseline.DEFAULTS["device"] == "cuda"
+    assert demo_finalize_pipeline.DEFAULTS["device"] == "cuda"
     assert run_training.META["device"] == "cuda"
