@@ -79,6 +79,14 @@ class CameraData:
     K: np.ndarray | None = None  # [3, 3]
     resolution: tuple[int, int] | None = None  # (h, w)
 
+    def to_json(self) -> str:
+        d: dict = {}
+        if self.K is not None:
+            d["K"] = np.asarray(self.K).tolist()
+        if self.resolution is not None:
+            d["resolution"] = list(self.resolution)
+        return json.dumps(d)
+
     @staticmethod
     def from_json(data_str: str) -> "CameraData":
         d = json.loads(data_str)

@@ -1,16 +1,19 @@
 """Evaluation configuration, its save directory and `key=value` overrides.
 
-Counterpart of `EvalConfig`, `get_save_dir` and `apply_eval_overrides` in
+Counterpart of `EvalConfig`, `FullEvalConfig`, `get_save_dir`,
+`apply_eval_overrides` and `save_eval_config` in
 `megapose6d_tpu/evaluation/eval_config.py`, with the fields the port
-reads. The port adds `coarse_weights` / `refiner_weights` (npz files of
-the runs' params, see `inference/load_model.py`; empty: weights drawn from
-a fixed seed), `data_dir` (the root holding `<ds_name>/`; empty:
+reads. The port adds `coarse_weights` / `refiner_weights` /
+`detector_weights` (npz files of the runs' params, see
+`inference/load_model.py`; empty: weights drawn from a fixed seed),
+`data_dir` (the root holding `<ds_name>/`; empty:
 `MEGAPOSE_DATA_DIR/bop_datasets`) and `device`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 from typing import Any, Optional
 
@@ -22,9 +25,12 @@ from ..training.config import _coerce
 class EvalConfig:
     """One (dataset, detection type, coarse type) evaluation."""
 
-    # Networks: run directories (their config.json) and weight files.
+    # Networks: run directories (their config.json; the detector's also
+    # labels.json) and weight files.
+    detector_run: str = ""
     coarse_run: str = ""
     refiner_run: str = ""
+    detector_weights: str = ""
     coarse_weights: str = ""
     refiner_weights: str = ""
 
@@ -46,6 +52,15 @@ class EvalConfig:
     load_depth: bool = False
 
     device: str = "cuda"
+
+
+@dataclasses.dataclass
+class FullEvalConfig(EvalConfig):
+    """A sweep: every dataset of `ds_names` under every (detection type,
+    coarse estimation type) pair of `detection_coarse_types`."""
+
+    detection_coarse_types: list = dataclasses.field(default_factory=lambda: [("gt", "SO3_grid")])
+    ds_names: Optional[list] = None
 
 
 def get_save_dir(cfg: EvalConfig) -> Path:
@@ -71,6 +86,10 @@ def apply_eval_overrides(cfg: EvalConfig, argv: list[str]) -> EvalConfig:
             if not hasattr(cfg.inference, f):
                 raise ValueError(f"unknown key {key!r}")
             inf_updates[f] = _coerce(value, getattr(cfg.inference, f))
+        elif key == "detection_coarse_types":  # "gt:SO3_grid,detector:SO3_grid"
+            updates[key] = [tuple(p.split(":")) for p in value.split(",") if p]
+        elif key == "ds_names":
+            updates[key] = [n for n in value.split(",") if n]
         else:
             if not hasattr(cfg, key) or key == "inference":
                 raise ValueError(f"unknown config key {key!r}")
@@ -78,3 +97,7 @@ def apply_eval_overrides(cfg: EvalConfig, argv: list[str]) -> EvalConfig:
     if inf_updates:
         updates["inference"] = dataclasses.replace(cfg.inference, **inf_updates)
     return dataclasses.replace(cfg, **updates)
+
+
+def save_eval_config(cfg: EvalConfig, path: str | Path) -> None:
+    Path(path).write_text(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))

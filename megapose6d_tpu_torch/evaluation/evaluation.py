@@ -6,7 +6,8 @@ saved in the JAX package's format, so either package reads the other's:
 `results.npz` holds each stage's tensors under `<stage>::<tensor>` (with
 `/` in stage names written `__`), `results.json` each stage's infos as a
 pandas `to_json(orient="split")` string (here written and parsed without
-pandas).
+pandas). `load_detector` rebuilds a detector run (`detection_type=
+"detector"`).
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ import torch
 
 from ..data.datasets_cfg import make_object_dataset, make_scene_dataset
 from ..data.tensor_collection import TensorCollection
-from ..inference.load_model import load_or_init_models
+from ..inference.load_model import load_or_init_models, load_params_npz
+from ..interop.from_jax import detector_state_dict_from_jax
 from ..inference.pose_estimator import PoseEstimator
 from ..meshes.mesh_db import MeshDataBase
+from ..models.detector import CenterNetDetector, Detector, DetectorConfig
 from ..ops._precision import pin_f32
 from .bop import convert_results_to_bop
 from .eval_config import EvalConfig, get_save_dir
@@ -31,6 +34,29 @@ from .meters import BOPScoreMeter, ModelNetErrorMeter
 from .runner import EvaluationRunner, PredictionRunner
 
 logger = logging.getLogger(__name__)
+
+
+def load_detector(run_dir: str | Path, weights: str | Path | None = None, detection_th: float = 0.7,
+                  device: str | torch.device = "cuda", seed: int = 0) -> Detector:
+    """A detector from its run directory: `labels.json` and `config.json`
+    (without it, the default configuration for the labels), with the
+    weights of an npz export of the JAX run's params (`weights`), else of
+    the port run's `checkpoints/final/state.pt`, else drawn from `seed`."""
+    run_dir = Path(run_dir)
+    labels = json.loads((run_dir / "labels.json").read_text())
+    cfg_path = run_dir / "config.json"
+    cfg = (DetectorConfig(**json.loads(cfg_path.read_text())) if cfg_path.exists()
+           else DetectorConfig(n_classes=len(labels)))
+    model = CenterNetDetector(cfg)
+    final = run_dir / "checkpoints" / "final" / "state.pt"
+    if weights:
+        model.load_state_dict(detector_state_dict_from_jax(load_params_npz(weights)))
+    elif final.exists():
+        model.load_state_dict(torch.load(final, map_location="cpu", weights_only=True)["params"])
+    else:
+        logger.warning("detector weights drawn from a seed")
+        model.init_weights(torch.Generator().manual_seed(seed))
+    return Detector(model.to(device), labels, detection_th=detection_th)
 
 
 def _json_value(x):
@@ -142,7 +168,12 @@ def run_eval(cfg: EvalConfig, scene_ds=None, object_ds=None) -> Optional[dict]:
     if not (cfg.coarse_weights and cfg.refiner_weights):
         logger.warning("weights drawn from a seed for the model(s) without a weight file")
     estimator = PoseEstimator(coarse, refiner, mesh_db, cfg.inference, device=cfg.device)
-    runner = PredictionRunner(scene_ds, estimator, n_frames=cfg.n_frames,
+    detector = None
+    if cfg.inference.detection_type == "detector":
+        if not cfg.detector_run:
+            raise ValueError("detection_type='detector' needs detector_run")
+        detector = load_detector(cfg.detector_run, cfg.detector_weights or None, device=cfg.device)
+    runner = PredictionRunner(scene_ds, estimator, n_frames=cfg.n_frames, detector=detector,
                               detection_type=cfg.inference.detection_type)
     logger.info("[%s] predicting %d frames", cfg.ds_name, len(runner.frame_ids))
     preds = runner.get_predictions()

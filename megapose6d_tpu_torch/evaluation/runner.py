@@ -2,7 +2,7 @@
 
 Counterpart of `PredictionRunner` and `EvaluationRunner` in
 `megapose6d_tpu/evaluation/runner.py`, in one process, on ground-truth
-boxes.
+boxes (`detection_type="gt"`) or on a detector's (`"detector"`).
 """
 
 from __future__ import annotations
@@ -20,30 +20,45 @@ from ..inference.types import make_detections
 
 
 class PredictionRunner:
-    """The pipeline over a scene dataset's frames, on ground-truth boxes."""
+    """The pipeline over a scene dataset's frames, on ground-truth boxes or
+    on `detector`'s. A frame without a detection has no prediction."""
 
     def __init__(
         self,
         scene_ds: SceneDataset,
         estimator: PoseEstimator,
         n_frames: int | None = None,
+        detector=None,
         detection_type: str = "gt",
     ):
-        if detection_type != "gt":
-            raise NotImplementedError(f"not ported yet: detection_type={detection_type!r}")
+        if detection_type not in ("gt", "detector"):
+            raise ValueError(f"detection_type must be gt or detector, not {detection_type!r}")
+        if detection_type == "detector" and detector is None:
+            raise ValueError("detection_type='detector' needs a detector")
         self.scene_ds = scene_ds
         self.estimator = estimator
+        self.detector = detector
+        self.detection_type = detection_type
         self.frame_ids = np.arange(len(scene_ds) if n_frames is None else min(n_frames, len(scene_ds)))
 
+    def get_detections(self, obs: SceneObservation, observation: ObservationTensor) -> TensorCollection | None:
+        """The frame's ground-truth boxes, or the detector's; None without any."""
+        if self.detection_type == "gt":
+            gt_objects = obs.gt_detections()
+            if not gt_objects:
+                return None
+            return make_detections([o.label for o in gt_objects], np.stack([o.bbox_modal for o in gt_objects]),
+                                   device=self.estimator.device)
+        detections = self.detector.get_detections(observation)
+        return detections if len(detections) else None
+
     def run_inference_on_observation(self, obs: SceneObservation):
-        """(pose estimates, extra) of one frame, or None without objects."""
-        gt_objects = obs.gt_detections()
-        if not gt_objects:
+        """(pose estimates, extra) of one frame, or None without detections."""
+        observation = ObservationTensor.from_numpy(obs.rgb, obs.camera_data.K, device=self.estimator.device,
+                                                   depth=obs.depth)
+        detections = self.get_detections(obs, observation)
+        if detections is None:
             return None
-        dev = self.estimator.device
-        observation = ObservationTensor.from_numpy(obs.rgb, obs.camera_data.K, device=dev, depth=obs.depth)
-        detections = make_detections([o.label for o in gt_objects],
-                                     np.stack([o.bbox_modal for o in gt_objects]), device=dev)
         return self.estimator.run_inference_pipeline(observation, detections)
 
     def get_predictions(self) -> dict[str, TensorCollection]:

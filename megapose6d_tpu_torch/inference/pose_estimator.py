@@ -25,11 +25,13 @@ With the JAX package's options:
   - external initial poses (`coarse_estimation_type="external"`): the
     detections' `TCO_init` refined and rescored, the coarse stage skipped.
 
-The phased mode keeps the detections unpadded and the chunks as they
-fall (the last one shorter); every hypothesis is computed independently,
-so the results do not depend on the chunking. The sharded mode and
-detector boxes are not ported and raise. A depth stage asked for without
-a depth refiner raises too (the JAX package silently skips it).
+Detections are given, or come from the estimator's `detector`
+(`run_inference_pipeline(run_detector=True)`); in the fused mode the
+detector runs before the graph. The phased mode keeps the detections
+unpadded and the chunks as they fall (the last one shorter); every
+hypothesis is computed independently, so the results do not depend on the
+chunking. The sharded mode is not ported. A depth stage asked for without
+a depth refiner raises (the JAX package silently skips it).
 """
 
 from __future__ import annotations
@@ -51,11 +53,6 @@ from .depth_refiner import DepthRefiner
 from .types import InferenceConfig
 
 Tensor = torch.Tensor
-
-
-def _check_supported(cfg: InferenceConfig) -> None:
-    if cfg.detection_type == "detector":
-        raise NotImplementedError("not ported yet: detection_type=detector")
 
 
 def _top_k(x: Tensor, k: int) -> Tensor:
@@ -113,6 +110,7 @@ class PoseEstimator:
         `run_depth_refiner`.
       mesh_db_coarse: a database of the same labels with fewer faces, for
         the coarse sweep and the rescore (default: `mesh_db`).
+      detector: a `models.detector.Detector` for `run_detector=True`.
     """
 
     def __init__(
@@ -124,8 +122,8 @@ class PoseEstimator:
         device: str | torch.device = "cuda",
         depth_refiner: DepthRefiner | None = None,
         mesh_db_coarse: BatchedMeshes | None = None,
+        detector=None,
     ):
-        _check_supported(cfg)
         if cfg.run_depth_refiner and depth_refiner is None:
             raise ValueError("run_depth_refiner needs a depth_refiner")
         pin_f32()
@@ -134,6 +132,7 @@ class PoseEstimator:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.coarse_model = coarse_model.to(self.device).eval()
         self.refiner_model = refiner_model.to(self.device).eval()
+        self.detector = detector
         ccfg = self.coarse_model.cfg
         # Twins of the coarse model (same parameter tensors): the sweep's at
         # a lower raster resolution, the rescore's in float32.
@@ -373,7 +372,8 @@ class PoseEstimator:
     def run_inference_pipeline(
         self,
         observation: ObservationTensor,
-        detections: TensorCollection,
+        detections: TensorCollection | None = None,
+        run_detector: bool | None = None,
         n_refiner_iterations: int | None = None,
         n_pose_hypotheses: int | None = None,
         run_depth_refiner: bool | None = None,
@@ -385,7 +385,8 @@ class PoseEstimator:
           observation: batch size 1; with depth (4 channels) for the depth
             stage.
           detections: infos (`label`, `score`, ...) + `bboxes [D, 4]`, and
-            `TCO_init [D, 4, 4]` for `coarse_estimation_type="external"`.
+            `TCO_init [D, 4, 4]` for `coarse_estimation_type="external"`;
+            None with `run_detector` takes the detector's.
           run_depth_refiner: None takes `cfg.run_depth_refiner`.
           keep_all_coarse_outputs: also return every coarse hypothesis's
             pose as `extra["coarse"]["all_TCO"]`.
@@ -406,13 +407,21 @@ class PoseEstimator:
             raise ValueError("run_inference_pipeline takes one observation")
         if do_depth and (self.depth_refiner is None or observation.channels != 4):
             raise ValueError("the depth stage needs a depth_refiner and an observation with depth")
+        if detections is None:
+            if not run_detector or self.detector is None:
+                raise ValueError("no detections: pass them, or run_detector=True with a detector")
+            t0 = self._clock()
+            detections = self.detector.get_detections(observation)
+            t_detector = self._clock() - t0
+        else:
+            t_detector = None
         if len(detections) == 0:
             raise ValueError("no detections")
         if cfg.coarse_estimation_type == "external":
             if "TCO_init" not in detections.tensors:
                 raise ValueError("external coarse estimation needs detections.TCO_init")
             return self._run_external_init(observation, detections, n_iter, do_depth)
-        timing: dict[str, float] = {}
+        timing: dict[str, float] = {} if t_detector is None else {"detector": t_detector}
         t_start = self._clock()
 
         if len(detections) > cfg.max_detections:

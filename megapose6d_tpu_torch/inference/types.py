@@ -17,7 +17,7 @@ from ..data.tensor_collection import TensorCollection
 
 @dataclasses.dataclass(frozen=True)
 class InferenceConfig:
-    detection_type: str = "gt"  # "detector": not ported yet
+    detection_type: str = "gt"  # or "detector": boxes from a detector
     coarse_estimation_type: str = "SO3_grid"  # or "external": refine detections.TCO_init
     SO3_grid_size: int = 576
     # Hierarchical coarse scoring (0: off): the probe grid's size, and how

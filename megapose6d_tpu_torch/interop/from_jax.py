@@ -1,4 +1,4 @@
-"""Carry the JAX package's PosePredictor params and run configs across.
+"""Carry the JAX package's PosePredictor and detector params and run configs across.
 
 `state_dict_from_jax` takes the flax variables as a nested dict of numpy
 arrays (the caller reads the checkpoint; this module needs neither JAX nor
@@ -6,7 +6,12 @@ orbax) and returns the port's `state_dict`:
   - conv kernels HWIO -> OIHW,
   - Dense kernels `[in, out]` -> `[out, in]`,
   - GroupNorm and BatchNorm scale/bias -> weight/bias,
-  - BatchNorm `batch_stats` mean/var -> running_mean/running_var.
+  - BatchNorm `batch_stats` mean/var -> running_mean/running_var,
+  - conv biases as they are,
+  - ConvTranspose kernels HWIO -> `[in, out, kh, kw]`, flipped in both
+    spatial axes (flax correlates the dilated input with the kernel, torch
+    with the flipped one).
+`detector_state_dict_from_jax` does the same for `CenterNetDetector`.
 `config_from_run_json` reads `runs/*/config.json` into a
 `PosePredictorConfig`, as `TrainingConfig.model_config_kwargs` does in
 the JAX package, plus the mesh database settings of the run.
@@ -87,17 +92,7 @@ def _backbone(p: Mapping[str, Any], stats: Mapping[str, Any] | None) -> dict[str
         if stats is None:
             raise ValueError("a zoo backbone needs its batch_stats")
         return {f"backbone.{k}": v for k, v in _zoo(p, stats).items()}
-    sd = {"stem.weight": _conv(p["Conv_0"]), **_norm("stem_norm", p["GroupNorm_0"])}
-    n_blocks = sum(1 for k in p if k.startswith("BasicBlock_"))
-    for i in range(n_blocks):
-        b, pre = p[f"BasicBlock_{i}"], f"blocks.{i}"
-        sd[f"{pre}.conv1.weight"] = _conv(b["Conv_0"])
-        sd.update(_norm(f"{pre}.norm1", b["GroupNorm_0"]))
-        sd[f"{pre}.conv2.weight"] = _conv(b["Conv_1"])
-        sd.update(_norm(f"{pre}.norm2", b["GroupNorm_1"]))
-        if "Conv_2" in b:
-            sd[f"{pre}.downsample.0.weight"] = _conv(b["Conv_2"])
-            sd.update(_norm(f"{pre}.downsample.1", b["GroupNorm_2"]))
+    sd = {"stem.weight": _conv(p["Conv_0"]), **_norm("stem_norm", p["GroupNorm_0"]), **_basic_blocks(p)}
     if "Conv_1" in p:  # spatial head
         sd["head_conv.weight"] = _conv(p["Conv_1"])
         sd.update(_norm("head_norm", p["GroupNorm_1"]))
@@ -116,6 +111,41 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         sd.update(_dense("pose_fc", params["pose_fc"]))
     if "views_logits_fc" in params:
         sd.update(_dense("views_logits_fc", params["views_logits_fc"]))
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def _basic_blocks(p: Mapping[str, Any], prefix: str = "blocks") -> dict[str, np.ndarray]:
+    sd = {}
+    n_blocks = sum(1 for k in p if k.startswith("BasicBlock_"))
+    for i in range(n_blocks):
+        b, pre = p[f"BasicBlock_{i}"], f"{prefix}.{i}"
+        sd[f"{pre}.conv1.weight"] = _conv(b["Conv_0"])
+        sd.update(_norm(f"{pre}.norm1", b["GroupNorm_0"]))
+        sd[f"{pre}.conv2.weight"] = _conv(b["Conv_1"])
+        sd.update(_norm(f"{pre}.norm2", b["GroupNorm_1"]))
+        if "Conv_2" in b:
+            sd[f"{pre}.downsample.0.weight"] = _conv(b["Conv_2"])
+            sd.update(_norm(f"{pre}.downsample.1", b["GroupNorm_2"]))
+    return sd
+
+
+def detector_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """flax `CenterNetDetector` variables (`{"params": ...}` or the params
+    alone) -> the port's `CenterNetDetector.state_dict()`. flax numbers the
+    module's own convs in creation order: the stem, then the heat, wh,
+    offset and seg heads."""
+    p = params.get("params", params)
+    sd = {"stem.weight": _conv(p["Conv_0"]), **_norm("stem_norm", p["GroupNorm_0"]), **_basic_blocks(p)}
+    n_up = sum(1 for k in p if k.startswith("ConvTranspose_"))
+    for i in range(n_up):
+        t = p[f"ConvTranspose_{i}"]
+        sd[f"up.{2 * i}.weight"] = np.transpose(np.asarray(t["kernel"]), (2, 3, 0, 1))[:, :, ::-1, ::-1]
+        sd[f"up.{2 * i}.bias"] = np.asarray(t["bias"])
+        sd.update(_norm(f"up.{2 * i + 1}", p[f"GroupNorm_{i + 1}"]))
+    for j, head in enumerate(("heat", "wh", "offset", "seg"), start=1):
+        if f"Conv_{j}" in p:
+            sd[f"{head}.weight"] = _conv(p[f"Conv_{j}"])
+            sd[f"{head}.bias"] = np.asarray(p[f"Conv_{j}"]["bias"])
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 
 

@@ -12,7 +12,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils.png import read_png
+from ..utils.png import read_png, write_png
 
 
 @dataclasses.dataclass
@@ -400,10 +400,11 @@ def make_random_texture(seed: int) -> np.ndarray:
     return (np.kron(blocks, np.ones((up, up, 1))) * 255).astype(np.uint8)
 
 
-def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2), textured: bool = False) -> TriMesh:
+def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2), textured: bool = False,
+              seed: int = 0) -> TriMesh:
     """Flat-shaded cube: 24 vertices (4 per side) so vertex normals are the
     true face normals. With `textured=True` side `f` maps to tile
-    `(f % 3, f // 3)` of a 3x2 atlas of the random block texture of seed 0
+    `(f % 3, f // 3)` of a 3x2 atlas of the random block texture of `seed`
     (inset by 1/128 so bilinear lookups stay in the tile)."""
     h = half_extent
     verts, normals, faces = [], [], []
@@ -430,7 +431,7 @@ def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2), textured: bool =
             u0, u1 = fx / 3 + pad, (fx + 1) / 3 - pad
             v0, v1 = fy / 2 + pad, (fy + 1) / 2 - pad
             uvs[4 * f : 4 * f + 4] = [[u0, v0], [u1, v0], [u1, v1], [u0, v1]]
-        texture = make_random_texture(seed=0)
+        texture = make_random_texture(seed)
     return TriMesh(
         verts,
         np.asarray(faces, np.int32),
@@ -443,10 +444,11 @@ def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2), textured: bool =
 
 def make_uv_sphere(
     radius: float = 0.05, n_lat: int = 16, n_lon: int = 24, color=(0.2, 0.4, 0.8), textured: bool = False,
+    seed: int = 1,
 ) -> TriMesh:
     """UV sphere with pole rings collapsed to single triangles. With
     `textured=True` the longitude seam column is duplicated (uv = lon
-    column / n_lon, lat / pi) and the random block texture of seed 1 is
+    column / n_lon, lat / pi) and the random block texture of `seed` is
     attached."""
     n_col = n_lon + 1 if textured else n_lon
     lats = np.linspace(0, np.pi, n_lat + 1)
@@ -478,5 +480,143 @@ def make_uv_sphere(
         np.asarray(faces, np.int32),
         vertex_colors=np.tile(np.asarray(color, np.float32), (len(verts), 1)),
         vertex_uvs=uvs,
-        texture=make_random_texture(seed=1) if textured else None,
+        texture=make_random_texture(seed) if textured else None,
     ).with_computed_normals()
+
+
+def make_cylinder(radius: float = 0.02, length: float = 0.1, n_seg: int = 24, color=(0.4, 0.7, 0.3),
+                  textured: bool = False, seed: int = 2) -> TriMesh:
+    """Closed cylinder along +z. With `textured=True` the side wraps u =
+    angle over the atlas' lower band (seam column duplicated) and each cap
+    is a disc of its own in the upper band, with the random block texture
+    of `seed`."""
+    if textured:
+        return _textured_cylinder(radius, length, n_seg, seed)
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    ring = np.stack([np.cos(ang) * radius, np.sin(ang) * radius], -1)
+    bot = np.concatenate([ring, np.full((n_seg, 1), -length / 2)], -1)
+    top = np.concatenate([ring, np.full((n_seg, 1), length / 2)], -1)
+    verts = np.concatenate([bot, top, [[0, 0, -length / 2], [0, 0, length / 2]]]).astype(np.float32)
+    faces = []
+    cb, ct = 2 * n_seg, 2 * n_seg + 1
+    for i in range(n_seg):
+        j = (i + 1) % n_seg
+        faces += [[i, j, n_seg + i], [j, n_seg + j, n_seg + i]]  # side
+        faces += [[cb, j, i], [ct, n_seg + i, n_seg + j]]  # caps
+    return TriMesh(verts, np.asarray(faces, np.int32),
+                   vertex_colors=np.tile(np.asarray(color, np.float32), (len(verts), 1))).with_computed_normals()
+
+
+def _textured_cylinder(radius: float, length: float, n_seg: int, seed: int) -> TriMesh:
+    ang = np.linspace(0, 2 * np.pi, n_seg + 1)  # duplicated seam column
+    cx, sy = np.cos(ang) * radius, np.sin(ang) * radius
+    pad = 1.0 / 128.0
+    verts, uvs, faces = [], [], []
+    for row, z in enumerate((-length / 2, length / 2)):  # side: v-band [pad, 0.66]
+        for j in range(n_seg + 1):
+            verts.append([cx[j], sy[j], z])
+            uvs.append([pad + (1 - 2 * pad) * j / n_seg, pad + (0.66 - 2 * pad) * row])
+    for j in range(n_seg):
+        a, b, c, d = j, j + 1, (n_seg + 1) + j, (n_seg + 1) + j + 1
+        faces += [[a, b, c], [b, d, c]]
+    for s, (z, cu) in enumerate(((-length / 2, 0.25), (length / 2, 0.75))):  # caps: own rims
+        base = len(verts)
+        for j in range(n_seg):
+            verts.append([cx[j], sy[j], z])
+            uvs.append([cu + 0.11 * np.cos(ang[j]), 0.84 + 0.11 * np.sin(ang[j])])
+        verts.append([0.0, 0.0, z])
+        uvs.append([cu, 0.84])
+        center = base + n_seg
+        for j in range(n_seg):
+            jn = (j + 1) % n_seg
+            # The bottom cap faces -z, the top +z.
+            faces.append([center, base + jn, base + j] if s == 0 else [center, base + j, base + jn])
+    return TriMesh(np.asarray(verts, np.float32), np.asarray(faces, np.int32),
+                   vertex_colors=np.full((len(verts), 3), 0.7, np.float32),
+                   vertex_uvs=np.asarray(uvs, np.float32), texture=make_random_texture(seed)).with_computed_normals()
+
+
+def make_cone(radius: float = 0.02, height: float = 0.06, n_seg: int = 24, color=(0.8, 0.6, 0.2),
+              textured: bool = False, seed: int = 3) -> TriMesh:
+    """Closed cone, apex at +z. With `textured=True` the slanted side maps u
+    = angle, v = height over the atlas' lower band (seam column and apex
+    duplicated per column) and the base is a disc in the upper band, with
+    the random block texture of `seed`."""
+    if textured:
+        return _textured_cone(radius, height, n_seg, seed)
+    ang = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    base = np.stack([np.cos(ang) * radius, np.sin(ang) * radius, np.zeros(n_seg)], -1)
+    verts = np.concatenate([base, [[0, 0, height], [0, 0, 0]]]).astype(np.float32)
+    apex, center = n_seg, n_seg + 1
+    faces = []
+    for i in range(n_seg):
+        j = (i + 1) % n_seg
+        faces += [[i, j, apex], [center, j, i]]
+    return TriMesh(verts, np.asarray(faces, np.int32),
+                   vertex_colors=np.tile(np.asarray(color, np.float32), (len(verts), 1))).with_computed_normals()
+
+
+def _textured_cone(radius: float, height: float, n_seg: int, seed: int) -> TriMesh:
+    ang = np.linspace(0, 2 * np.pi, n_seg + 1)  # duplicated seam column
+    cx, sy = np.cos(ang) * radius, np.sin(ang) * radius
+    pad = 1.0 / 128.0
+    verts, uvs, faces = [], [], []
+    for j in range(n_seg + 1):  # base ring row
+        verts.append([cx[j], sy[j], 0.0])
+        uvs.append([pad + (1 - 2 * pad) * j / n_seg, 0.66 - pad])
+    for j in range(n_seg + 1):  # an apex per column
+        verts.append([0.0, 0.0, height])
+        uvs.append([pad + (1 - 2 * pad) * j / n_seg, pad])
+    for j in range(n_seg):
+        faces.append([j, j + 1, (n_seg + 1) + j])
+    cap = len(verts)  # the base cap's own rim
+    for j in range(n_seg):
+        verts.append([cx[j], sy[j], 0.0])
+        uvs.append([0.5 + 0.11 * np.cos(ang[j]), 0.84 + 0.11 * np.sin(ang[j])])
+    verts.append([0.0, 0.0, 0.0])
+    uvs.append([0.5, 0.84])
+    center = cap + n_seg
+    for j in range(n_seg):
+        faces.append([center, cap + (j + 1) % n_seg, cap + j])  # faces -z
+    return TriMesh(np.asarray(verts, np.float32), np.asarray(faces, np.int32),
+                   vertex_colors=np.full((len(verts), 3), 0.7, np.float32),
+                   vertex_uvs=np.asarray(uvs, np.float32), texture=make_random_texture(seed)).with_computed_normals()
+
+
+def save_ply(mesh: TriMesh, path: str | Path) -> Path:
+    """ASCII PLY: positions, normals (computed if absent), uint8 vertex
+    colours when present and, for a textured mesh, `texture_u` /
+    `texture_v` (GL convention, v up) with a `comment TextureFile
+    <stem>.png` line and the texture written beside it (the convention of
+    BOP's textured models, which `load_ply` reads back). The same file as
+    the JAX package's `save_ply`; the texture PNG holds the same pixels."""
+    mesh = mesh.with_computed_normals()
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    has_color = mesh.vertex_colors is not None
+    has_tex = mesh.vertex_uvs is not None and mesh.texture is not None
+    lines = ["ply", "format ascii 1.0"]
+    if has_tex:
+        tex_name = path.stem + ".png"
+        write_png(path.parent / tex_name, mesh.texture)
+        lines.append(f"comment TextureFile {tex_name}")
+    lines += [f"element vertex {mesh.n_vertices}"] + [f"property float {c}" for c in ("x", "y", "z", "nx", "ny", "nz")]
+    if has_color:
+        lines += [f"property uchar {c}" for c in ("red", "green", "blue")]
+    if has_tex:
+        lines += ["property float texture_u", "property float texture_v"]
+    lines += [f"element face {mesh.n_faces}", "property list uchar int vertex_indices", "end_header"]
+    n = mesh.vertex_normals
+    c8 = np.clip(mesh.vertex_colors * 255.0, 0, 255).astype(np.uint8) if has_color else None
+    uv_gl = np.stack([mesh.vertex_uvs[:, 0], 1.0 - mesh.vertex_uvs[:, 1]], axis=-1) if has_tex else None
+    rows = []
+    for i, v in enumerate(mesh.vertices):
+        row = f"{v[0]} {v[1]} {v[2]} {n[i][0]} {n[i][1]} {n[i][2]}"
+        if has_color:
+            row += f" {c8[i][0]} {c8[i][1]} {c8[i][2]}"
+        if has_tex:
+            row += f" {uv_gl[i][0]} {uv_gl[i][1]}"
+        rows.append(row)
+    rows += [f"3 {f[0]} {f[1]} {f[2]}" for f in mesh.faces]
+    path.write_text("\n".join(lines + rows) + "\n")
+    return path

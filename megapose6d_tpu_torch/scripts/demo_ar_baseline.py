@@ -1,22 +1,24 @@
-"""BOP19 AR of the demo models on an existing synthetic BOP dataset, with
-RGB-only poses and, with `depth_refine=icp|gnc`, depth-refined ones.
+"""BOP19 AR of the demo models on a synthetic BOP dataset, generated when it
+is missing, with RGB-only poses and, with `depth_refine=icp|gnc`,
+depth-refined ones, and with `detector_dir=` from a detector's boxes.
 
-Counterpart of the evaluation half of
-`megapose6d_tpu/scripts/demo_ar_baseline.py`: the same models (coarse:
-1 view; refiner: 2 views, `front_1view`), the same pipeline settings
-(ground-truth boxes, SO(3) grid, top-K, refiner iterations, rescoring; 64
-coarse images and 16 refiner hypotheses a chunk, 2 detections) and the
-same report. Generating the dataset is not ported: `<out_dir>/synthdemo`
-(`synthdemo_unlit` for `domain=unlit`) must exist. The objects' meshes
-come from the dataset's `models/` (the JAX script builds the same
-textured cube and sphere procedurally), in a mesh database of 2048
-faces, 512 points and 4 symmetries as the JAX script's. Weights come from
-npz exports (`refiner_weights=`, `coarse_weights=`; a file name ending in
-`@<step>.npz` names the step in the report), or from a seed.
+Counterpart of `megapose6d_tpu/scripts/demo_ar_baseline.py`: the same
+dataset (`generate_bop` with the demo world, or `world=novel`'s textured
+cylinder and cone, at f=400, 2 objects and 4 frames a scene, seed 123,
+the realism or `domain=unlit` observations), the same models (coarse: 1
+view; refiner: 2 views, `front_1view`), the same pipeline settings
+(ground-truth or detector boxes, SO(3) grid, top-K, refiner iterations,
+rescoring; 64 coarse images and 16 refiner hypotheses a chunk, 2
+detections) and the same report. The evaluation reads the objects'
+meshes from the dataset's `models/`, in a mesh database of 2048 faces,
+512 points and 4 symmetries as the JAX script's. Weights come from npz
+exports (`refiner_weights=`, `coarse_weights=`, `detector_weights=`; a
+file name ending in `@<step>.npz` names the step in the report), or from a
+seed.
 
-    python -m megapose6d_tpu_torch.scripts.demo_ar_baseline out_dir=runs/ar_gnc \\
-        coarse_weights=build/weights/coarse_dr@5000.npz \\
-        refiner_weights=build/weights/refiner_dr@24000.npz \\
+    python -m megapose6d_tpu_torch.scripts.demo_ar_baseline out_dir=runs/ar_gnc \
+        coarse_weights=build/weights/coarse_dr@5000.npz \
+        refiner_weights=build/weights/refiner_dr@24000.npz \
         so3=64 refine_iters=3 n_hyp=4 depth_refine=icp report_dir=/tmp/ar [device=cpu]
 
 writes `<report_dir>/report[_<domain>][_<world>][_<tag>].json`
@@ -36,22 +38,27 @@ import torch
 
 from ..data.bop_scene_dataset import BOPDataset, load_bop_object_dataset
 from ..data.tensor_collection import TensorCollection
+from ..evaluation.evaluation import load_detector
 from ..evaluation.meters import BOPScoreMeter
 from ..evaluation.runner import EvaluationRunner, PredictionRunner
 from ..inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
 from ..inference.load_model import build_model, npz_step
 from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import InferenceConfig
-from ..meshes.mesh_db import BatchedMeshes, MeshDataBase
+from ..meshes.io import make_cone, make_cylinder
+from ..meshes.mesh_db import BatchedMeshes, MeshDataBase, RigidObject, RigidObjectDataset
 from ..models.pose_predictor import make_coarse_config, make_refiner_config
 from ..ops._precision import pin_f32
+from .demo_synthetic_e2e import build_world, world_objects
+from .generate_synthetic_dataset import generate_bop
 
 logger = logging.getLogger(__name__)
 
 DEFAULTS = dict(
     out_dir="ar_baseline", report_dir="", coarse_weights="", refiner_weights="", so3="576",
     refine_iters="3", backbone="resnet18-spatial", render="240,320", n_hyp="4", detector_dir="",
-    depth_refine="0", dtype="auto", tag="", domain="realism", world="demo", device="cuda", seed="0",
+    detector_weights="", n_frames="24", depth_refine="0", dtype="auto", tag="",
+    domain="realism", world="demo", device="cuda", seed="0",
 )
 DEPTH_REFINERS = {"1": ICPRefiner, "icp": ICPRefiner, "gnc": GNCRegistrationRefiner}
 
@@ -74,6 +81,36 @@ def dataset_dir(args: dict[str, str]) -> Path:
     return Path(args["out_dir"]) / name
 
 
+def bop_world_objects(world: str = "demo") -> RigidObjectDataset:
+    """The evaluation world under BOP labels: `demo`, the textured cube and
+    sphere the demo models were trained on; `novel`, a textured cylinder
+    and cone they never saw."""
+    if world == "demo":
+        return world_objects(("obj_000001", "obj_000002"))
+    if world != "novel":
+        raise ValueError(f"world must be demo or novel, not {world}")
+    return RigidObjectDataset([
+        RigidObject(label="obj_000001", mesh=make_cylinder(0.022, 0.09, n_seg=32, textured=True, seed=7)),
+        RigidObject(label="obj_000002", mesh=make_cone(0.035, 0.08, n_seg=32, textured=True, seed=8)),
+    ])
+
+
+def build_bop_world(world: str = "demo", device="cuda") -> tuple[BatchedMeshes, RigidObjectDataset]:
+    """(mesh database of 2048 faces, 512 points, 4 symmetries; objects)."""
+    objects = bop_world_objects(world)
+    return build_world(device=device, objects=objects), objects
+
+
+def generate_dataset(args: dict[str, str], ds_dir: Path, device) -> Path:
+    """The JAX script's dataset: `generate_bop` of the world at f=400, 2
+    objects and 4 frames a scene, seed 123, at `render`."""
+    mesh_db, objects = build_bop_world(args["world"], device)
+    unlit = args["domain"] == "unlit"
+    return generate_bop(mesh_db, objects, ds_dir, n_frames=int(args["n_frames"]),
+                        resolution=tuple(int(x) for x in args["render"].split(",")), n_obj_per_scene=2, f=400.0,
+                        frames_per_scene=4, seed=123, background=not unlit, unlit=unlit)
+
+
 def world_mesh_db(ds_dir: Path, device) -> BatchedMeshes:
     """The dataset's objects as the demo world's mesh database."""
     objects = load_bop_object_dataset(ds_dir / "models")
@@ -86,17 +123,16 @@ def _summary(scene_ds, mesh_db, final: TensorCollection, width: int) -> dict:
 
 
 def run(args: dict[str, str]) -> tuple[dict, dict[str, TensorCollection]]:
-    """(the report, final predictions of the RGB pass `rgb` and, with a
-    depth refiner, of the depth-refined pass `depth`)."""
-    if args["detector_dir"]:
-        raise NotImplementedError("not ported yet: detector_dir (the detector)")
+    """(the report, final predictions of the RGB pass `rgb`, with a depth
+    refiner of the depth-refined pass `depth`, and with a detector of the
+    pass on its boxes `detector`)."""
     if args["depth_refine"] not in ("0", *DEPTH_REFINERS):
         raise ValueError(f"depth_refine must be 0, 1, icp or gnc, not {args['depth_refine']}")
     pin_f32()
     device = torch.device(args["device"])
     ds_dir = dataset_dir(args)
     if not (ds_dir / "test").exists():
-        raise FileNotFoundError(f"no dataset at {ds_dir} (generating it is not ported)")
+        generate_dataset(args, ds_dir, device)
     render = tuple(int(x) for x in args["render"].split(","))
     dtype = args["dtype"] if args["dtype"] != "auto" else (
         "bfloat16" if device.type == "cuda" else "float32")
@@ -131,11 +167,20 @@ def run(args: dict[str, str]) -> tuple[dict, dict[str, TensorCollection]]:
         preds["depth"] = PredictionRunner(scene_ds, est).get_predictions()["final"]
         depth_summary = _summary(scene_ds, mesh_db, preds["depth"], width)
         logger.info("depth-refined summary: %s", depth_summary)
+    det_summary = None
+    if args["detector_dir"]:
+        detector = load_detector(args["detector_dir"], args["detector_weights"] or None, device=device)
+        preds["detector"] = PredictionRunner(
+            scene_ds, PoseEstimator(coarse, refiner, mesh_db, cfg, device=device), detector=detector,
+            detection_type="detector").get_predictions()["final"]
+        logger.info("%d detector-driven predictions", len(preds["detector"]))
+        if len(preds["detector"]):
+            det_summary = _summary(scene_ds, mesh_db, preds["detector"], width)
     report = {
         "dataset": str(ds_dir), "domain": args["domain"], "world": args["world"],
         "n_frames": len(scene_ds), "refiner_step": r_step, "coarse_step": c_step,
         "so3_grid": int(args["so3"]), "refine_iters": int(args["refine_iters"]),
-        "summary": summary, "detector_dir": None, "summary_from_detector": None,
+        "summary": summary, "detector_dir": args["detector_dir"] or None, "summary_from_detector": det_summary,
         "depth_refine_method": method, "summary_depth_refined": depth_summary,
     }
     return report, preds

@@ -27,14 +27,21 @@ logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
 
 
-def build_world(max_faces: int = 2048, device: str | torch.device = "cuda") -> BatchedMeshes:
-    """The two textured primitives, "cube" and "sphere", in a
+def world_objects(labels: tuple[str, str] = ("cube", "sphere")) -> RigidObjectDataset:
+    """The two textured primitives under `labels` (`demo_ar_baseline`
+    names them `obj_000001` and `obj_000002`)."""
+    return RigidObjectDataset([
+        RigidObject(label=labels[0], mesh=make_cube(0.045, textured=True)),
+        RigidObject(label=labels[1], mesh=make_uv_sphere(0.04, 24, 32, textured=True)),
+    ])
+
+
+def build_world(max_faces: int = 2048, device: str | torch.device = "cuda",
+                objects: RigidObjectDataset | None = None) -> BatchedMeshes:
+    """The world's objects (default `world_objects()`) in a
     `BatchedMeshes` on `device`. At 2048 faces the sphere is not
     decimated; below, decimation bakes its texture into vertex colours."""
-    objects = RigidObjectDataset([
-        RigidObject(label="cube", mesh=make_cube(0.045, textured=True)),
-        RigidObject(label="sphere", mesh=make_uv_sphere(0.04, 24, 32, textured=True)),
-    ])
+    objects = objects or world_objects()
     return MeshDataBase.from_object_ds(objects, max_faces=max_faces, n_points=512, n_sym=4).batched(device=device)
 
 

@@ -1,9 +1,11 @@
-"""PNG decoding with numpy and the standard library's zlib.
+"""PNG decoding and encoding with numpy and the standard library's zlib.
 
 The JAX package decodes images through libpng (`native/decode.cc`) or
-PIL; the port's machines may have neither, so it reads the PNGs of the BOP
-datasets itself: non-interlaced grey, RGB and RGBA at 8 bits and grey at
-16 bits, with all five row filters. Anything else is refused.
+PIL and writes them through PIL; the port's machines may have neither, so
+it reads the PNGs of the BOP datasets itself: non-interlaced grey, RGB and
+RGBA at 8 bits and grey at 16 bits, with all five row filters. Anything
+else is refused. `encode_png` writes 8-bit grey and RGB and 16-bit grey
+(BOP depth in millimetres), every row with the Up filter.
 
 Unfiltering is vectorised. A pixel's byte depends only on its left, upper
 and upper-left neighbours, so the image is reconstructed one anti-diagonal
@@ -27,6 +29,37 @@ _FORMATS = {(0, 8): 1, (0, 16): 1, (2, 8): 3, (6, 8): 4}
 def read_png(path: str | Path) -> np.ndarray:
     """Decode the PNG file at `path`; see `decode_png`."""
     return decode_png(Path(path).read_bytes())
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """`[H, W]` uint8 or uint16 (grey) or `[H, W, 3]` uint8 (RGB) -> PNG
+    bytes that `decode_png` (and PIL) read back as the same array."""
+    img = np.asarray(img)
+    if img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
+        colour, depth = 0, img.dtype.itemsize * 8
+    elif img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8:
+        colour, depth = 2, 8
+    else:
+        raise ValueError(f"encode_png takes [H, W] uint8/uint16 or [H, W, 3] uint8, not {img.shape} {img.dtype}")
+    H, W = img.shape[:2]
+    rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img).view(np.uint8).reshape(H, -1)
+    up = rows.copy()
+    up[1:] -= rows[:-1]  # the Up filter, modulo 256
+    raw = np.concatenate([np.full((H, 1), 2, np.uint8), up], axis=1)
+    header = struct.pack(">IIBBBBB", W, H, depth, colour, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str | Path, img: np.ndarray) -> Path:
+    """Encode `img` (see `encode_png`) to the file `path`."""
+    path = Path(path)
+    path.write_bytes(encode_png(img))
+    return path
 
 
 def decode_png(data: bytes) -> np.ndarray:

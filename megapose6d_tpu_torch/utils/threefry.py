@@ -5,12 +5,12 @@ The depth refiners choose their points from a uniform field drawn with
 the same field the port samples the same pixels, so its poses can be held
 to the JAX package's per instance; the demos draw their evaluation scenes
 and pose noise as the JAX scripts do. This module computes `PRNGKey`,
-`split`, `uniform` (float32) and `randint` bit for bit, and `normal` to
+`split`, `fold_in`, `uniform` (float32) and `randint` bit for bit, and `normal` to
 the last bits, as JAX 0.9 does with
 `jax_threefry_partitionable=True` (its default): the Threefry-2x32 hash
 (20 rounds, key schedule `k0, k1, k0 ^ k1 ^ 0x1BD11BDA`) of a 64-bit
 counter held as two 32-bit words, `(hi, lo)` = the flat index of each
-output element. The draw is small (120x160 floats per object), so it runs
+output element; `fold_in` hashes the pair `(0, data)`. The draw is small (120x160 floats per object), so it runs
 on the host; callers copy the field to their device.
 
 Keys are `uint32 [2]` arrays, as JAX's raw keys.
@@ -64,6 +64,15 @@ def split(key: np.ndarray, num: int = 2) -> np.ndarray:
     with np.errstate(over="ignore"):
         b0, b1 = threefry2x32(key, *_counters((num,)))
     return np.stack([b0, b1], axis=-1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """`jax.random.fold_in(key, data)` for `data` in [0, 2**32): `uint32 [2]`."""
+    if not 0 <= data < 2**32:
+        raise ValueError("data must be in [0, 2**32)")
+    with np.errstate(over="ignore"):
+        b0, b1 = threefry2x32(key, np.zeros(1, np.uint32), np.full(1, data, np.uint32))
+    return np.concatenate([b0, b1])
 
 
 def random_bits(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:

@@ -9,7 +9,11 @@ read orbax). Also runnable as
     python -m tests.test_torch_checkpoints export runs/refiner_dr build/weights/refiner_dr@24000.npz 24000
 
 The optional last argument names the checkpoint step (`checkpoints/epoch_<step>`);
-without it the step is the one `checkpoints/latest.txt` names.
+without it the step is the one `checkpoints/latest.txt` names. A detector
+run (a run directory with `labels.json`) exports its `checkpoints/final`
+(params only; the step is the file name's):
+
+    python -m tests.test_torch_checkpoints export runs/detector_long build/weights/detector_long@12000.npz
 
 The trained pipeline (`runs/coarse_dr` + `runs/refiner_dr`, f32, at the
 240x320 that their spatial heads fix, SO(3) grid 72) runs in both packages
@@ -79,10 +83,22 @@ def flatten(tree, prefix=""):
     return out
 
 
+def jax_detector_params(run_dir: str | Path):
+    """(JAX `CenterNetDetector`, its params as numpy) of a detector run's
+    `checkpoints/final`, restored as the JAX package's `load_detector` does."""
+    from megapose6d_tpu.evaluation.evaluation import load_detector
+
+    det = load_detector(run_dir)
+    return det.model, jax.tree.map(np.asarray, det.params)
+
+
 def export_params(run_dir: str | Path, out: str | Path, step: int | None = None) -> Path:
-    """Write a run's params at `step` (None: the latest) as an npz of
-    `/`-joined keys."""
-    _, params = jax_params(run_dir, step=step)
+    """Write a run's params at `step` (None: the latest; a detector run:
+    its final checkpoint) as an npz of `/`-joined keys."""
+    if (Path(run_dir) / "labels.json").exists():
+        _, params = jax_detector_params(run_dir)
+    else:
+        _, params = jax_params(run_dir, step=step)
     out = Path(out)
     out.parent.mkdir(parents=True, exist_ok=True)
     np.savez(out, **flatten(params))

@@ -147,12 +147,15 @@ def test_unported_modes_raise():
         max_faces=64, n_points=16, n_sym=2).batched(align=16, device="cpu")
     coarse = tpp.PosePredictor(tpp.make_coarse_config(render_size=RENDER, backbone="resnet18"))
     refiner = tpp.PosePredictor(tpp.make_refiner_config(render_size=RENDER, backbone="resnet18"))
-    # Detector boxes are the one mode still to port.
-    with pytest.raises(NotImplementedError):
-        PoseEstimator(coarse, refiner, db, InferenceConfig(detection_type="detector"), device="cpu")
+    # Every mode is ported; detector boxes need a detector to come from.
     for kw in (dict(fused_pipeline=True), dict(SO3_prune_grid_size=8), dict(rescore_f32=True),
-               dict(coarse_render_size=(24, 32)), dict(coarse_estimation_type="external")):
+               dict(coarse_render_size=(24, 32)), dict(coarse_estimation_type="external"),
+               dict(detection_type="detector")):
         PoseEstimator(coarse, refiner, db, InferenceConfig(SO3_grid_size=16, **kw), device="cpu")
+    est = PoseEstimator(coarse, refiner, db, InferenceConfig(SO3_grid_size=16), device="cpu")
+    obs = ObservationTensor(torch.zeros((1,) + IMG + (3,)), torch.eye(3)[None])
+    with pytest.raises(ValueError):
+        est.run_inference_pipeline(obs, run_detector=True)
     # The depth stage is ported; asked for without a depth refiner it raises.
     with pytest.raises(ValueError):
         PoseEstimator(coarse, refiner, db, InferenceConfig(run_depth_refiner=True), device="cpu")

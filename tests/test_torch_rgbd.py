@@ -353,12 +353,16 @@ def test_demo_world_mesh_db_matches_jax():
 
 
 def test_demo_ar_baseline_refuses_what_is_not_ported(tmp_path):
+    """Everything of the JAX script is ported (a missing dataset is
+    generated, `detector_dir` runs: `tests/test_torch_scene_gen.py`,
+    `tests/test_torch_detector_eval.py`); what it refuses is what the JAX
+    script refuses."""
     from megapose6d_tpu_torch.scripts import demo_ar_baseline as demo
 
-    with pytest.raises(FileNotFoundError):
-        demo.run(demo.parse_args([f"out_dir={tmp_path}", "device=cpu"]))
-    with pytest.raises(NotImplementedError):
-        demo.run(demo.parse_args(["out_dir=runs/ar_gnc", "detector_dir=runs/detector_long", "device=cpu"]))
+    for bad in ("domain=shiny", "depth_refine=2", "world=other"):
+        with pytest.raises(ValueError):
+            demo.run(demo.parse_args([f"out_dir={tmp_path}", bad, "device=cpu"]))
+    assert not any(tmp_path.iterdir())
     with pytest.raises(ValueError):
         demo.parse_args(["unknown=1"])
 
