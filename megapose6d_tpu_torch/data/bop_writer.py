@@ -28,16 +28,14 @@ def bop_label(obj_id: int) -> str:
     return f"obj_{obj_id:06d}"
 
 
-def write_bop_models(meshes: Iterable[tuple[int, TriMesh]], models_dir: str | Path,
-                     mesh_units: str = "m") -> Path:
+def write_bop_models(meshes: Iterable[tuple[int, TriMesh]], models_dir: str | Path) -> Path:
     """`models/obj_XXXXXX.ply` in millimetres and `models_info.json`
-    (diameter and bounding box in mm) from `(obj_id, mesh in mesh_units)`."""
+    (diameter and bounding box in mm) from `(obj_id, mesh in metres)`."""
     models_dir = Path(models_dir)
     models_dir.mkdir(parents=True, exist_ok=True)
-    scale = 1000.0 if mesh_units == "m" else 1.0
     infos = {}
     for obj_id, mesh in meshes:
-        mm = mesh.scaled(scale)
+        mm = mesh.scaled(1000.0)
         save_ply(mm, models_dir / f"obj_{obj_id:06d}.ply")
         v = mm.vertices
         infos[str(obj_id)] = {
@@ -49,8 +47,7 @@ def write_bop_models(meshes: Iterable[tuple[int, TriMesh]], models_dir: str | Pa
     return models_dir
 
 
-def write_scene_ds_as_bop(observations: Iterator[SceneObservation], ds_dir: str | Path, split: str = "test",
-                          label_to_id=label_to_obj_id) -> Path:
+def write_scene_ds_as_bop(observations: Iterator[SceneObservation], ds_dir: str | Path, split: str = "test") -> Path:
     """Observations as `<ds_dir>/<split>/<scene>/...` BOP scenes: poses
     camera <- model (`TWO` with the world at the camera), depth as uint16
     millimetres (depth_scale 1), visible masks from the segmentation."""
@@ -72,7 +69,7 @@ def write_scene_ds_as_bop(observations: Iterator[SceneObservation], ds_dir: str 
         gt_rows, info_rows = [], []
         for n, obj in enumerate(obs.object_datas):
             TCO = np.asarray(obj.TWO, np.float64)
-            gt_rows.append({"obj_id": int(label_to_id(obj.label)), "cam_R_m2c": TCO[:3, :3].reshape(-1).tolist(),
+            gt_rows.append({"obj_id": label_to_obj_id(obj.label), "cam_R_m2c": TCO[:3, :3].reshape(-1).tolist(),
                             "cam_t_m2c": (TCO[:3, 3] * 1000.0).tolist()})
             if obs.segmentation is not None:
                 mask = (obs.segmentation == obj.unique_id).astype(np.uint8)

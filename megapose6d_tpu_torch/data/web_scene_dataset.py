@@ -30,7 +30,6 @@ def write_scene_ds_as_wds(
     observations: Iterator[SceneObservation],
     out_dir: str | Path,
     frames_per_shard: int = 1000,
-    shard_format: str = "shard-{:06d}.tar",
     shard_offset: int = 0,
     frame_id_offset: int = 0,
 ) -> list[Path]:
@@ -53,7 +52,7 @@ def write_scene_ds_as_wds(
         if tar is None or n_in_shard >= frames_per_shard:
             if tar is not None:
                 tar.close()
-            path = out_dir / shard_format.format(len(shards) + shard_offset)
+            path = out_dir / f"shard-{len(shards) + shard_offset:06d}.tar"
             shards.append(path)
             tar = tarfile.open(path, "w")
             n_in_shard = 0

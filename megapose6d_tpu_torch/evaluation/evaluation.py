@@ -36,27 +36,20 @@ from .runner import EvaluationRunner, PredictionRunner
 logger = logging.getLogger(__name__)
 
 
-def load_detector(run_dir: str | Path, weights: str | Path | None = None, detection_th: float = 0.7,
-                  device: str | torch.device = "cuda", seed: int = 0) -> Detector:
-    """A detector from its run directory: `labels.json` and `config.json`
-    (without it, the default configuration for the labels), with the
-    weights of an npz export of the JAX run's params (`weights`), else of
-    the port run's `checkpoints/final/state.pt`, else drawn from `seed`."""
+def load_detector(run_dir: str | Path, weights: str | Path | None = None,
+                  device: str | torch.device = "cuda") -> Detector:
+    """A detector from its run directory's `labels.json` and `config.json`,
+    with the weights of an npz export of the JAX run's params (`weights`),
+    else drawn from seed 0; threshold 0.7."""
     run_dir = Path(run_dir)
     labels = json.loads((run_dir / "labels.json").read_text())
-    cfg_path = run_dir / "config.json"
-    cfg = (DetectorConfig(**json.loads(cfg_path.read_text())) if cfg_path.exists()
-           else DetectorConfig(n_classes=len(labels)))
-    model = CenterNetDetector(cfg)
-    final = run_dir / "checkpoints" / "final" / "state.pt"
+    model = CenterNetDetector(DetectorConfig(**json.loads((run_dir / "config.json").read_text())))
     if weights:
         model.load_state_dict(detector_state_dict_from_jax(load_params_npz(weights)))
-    elif final.exists():
-        model.load_state_dict(torch.load(final, map_location="cpu", weights_only=True)["params"])
     else:
         logger.warning("detector weights drawn from a seed")
-        model.init_weights(torch.Generator().manual_seed(seed))
-    return Detector(model.to(device), labels, detection_th=detection_th)
+        model.init_weights(torch.Generator().manual_seed(0))
+    return Detector(model.to(device), labels)
 
 
 def _json_value(x):

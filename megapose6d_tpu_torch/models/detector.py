@@ -204,17 +204,15 @@ def segmentation_loss(outputs: dict[str, Tensor], gt_seg: Tensor, stride: int) -
 
 class Detector:
     """Detections of one observation: the model's top `max_detections`
-    peaks at or above `detection_th`, optionally one per class (the
-    highest), with per-instance masks (the class's segmentation, upsampled
+    peaks at or above `detection_th`, optionally (per call) one per class
+    (the highest), with per-instance masks (the class's segmentation, upsampled
     to the image, above 0.5 and inside the box) when the model predicts
     masks. Runs on the model's device."""
 
-    def __init__(self, model: CenterNetDetector, labels, detection_th: float = 0.7,
-                 one_instance_per_class: bool = False):
+    def __init__(self, model: CenterNetDetector, labels, detection_th: float = 0.7):
         self.model = model.eval()
         self.labels = list(labels)
         self.detection_th = detection_th
-        self.one_instance_per_class = one_instance_per_class
 
     @property
     def device(self) -> torch.device:
@@ -232,14 +230,13 @@ class Detector:
         return out
 
     def get_detections(self, observation, detection_th: float | None = None,
-                       one_instance_per_class: bool | None = None) -> TensorCollection:
+                       one_instance_per_class: bool = False) -> TensorCollection:
         th = self.detection_th if detection_th is None else detection_th
-        oipc = self.one_instance_per_class if one_instance_per_class is None else one_instance_per_class
         out = self.infer(observation.images[..., :3].to(self.device, torch.float32))
         scores = out["scores"][0].cpu().numpy()
         classes = out["classes"][0].cpu().numpy()
         sel = np.nonzero(scores >= th)[0]
-        if oipc and len(sel):
+        if one_instance_per_class and len(sel):
             seen: set[int] = set()
             best = []
             for i in np.argsort(-scores[sel]):

@@ -45,11 +45,10 @@ from ..inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
 from ..inference.load_model import build_model, npz_step
 from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import InferenceConfig
-from ..meshes.io import make_cone, make_cylinder
-from ..meshes.mesh_db import BatchedMeshes, MeshDataBase, RigidObject, RigidObjectDataset
+from ..meshes.mesh_db import BatchedMeshes, MeshDataBase
+from ..meshes.worlds import build_bop_world
 from ..models.pose_predictor import make_coarse_config, make_refiner_config
 from ..ops._precision import pin_f32
-from .demo_synthetic_e2e import build_world, world_objects
 from .generate_synthetic_dataset import generate_bop
 
 logger = logging.getLogger(__name__)
@@ -79,26 +78,6 @@ def dataset_dir(args: dict[str, str]) -> Path:
     name = ("synthdemo" if args["domain"] == "realism" else "synthdemo_unlit") + (
         "" if args["world"] == "demo" else f"_{args['world']}")
     return Path(args["out_dir"]) / name
-
-
-def bop_world_objects(world: str = "demo") -> RigidObjectDataset:
-    """The evaluation world under BOP labels: `demo`, the textured cube and
-    sphere the demo models were trained on; `novel`, a textured cylinder
-    and cone they never saw."""
-    if world == "demo":
-        return world_objects(("obj_000001", "obj_000002"))
-    if world != "novel":
-        raise ValueError(f"world must be demo or novel, not {world}")
-    return RigidObjectDataset([
-        RigidObject(label="obj_000001", mesh=make_cylinder(0.022, 0.09, n_seg=32, textured=True, seed=7)),
-        RigidObject(label="obj_000002", mesh=make_cone(0.035, 0.08, n_seg=32, textured=True, seed=8)),
-    ])
-
-
-def build_bop_world(world: str = "demo", device="cuda") -> tuple[BatchedMeshes, RigidObjectDataset]:
-    """(mesh database of 2048 faces, 512 points, 4 symmetries; objects)."""
-    objects = bop_world_objects(world)
-    return build_world(device=device, objects=objects), objects
 
 
 def generate_dataset(args: dict[str, str], ds_dir: Path, device) -> Path:

@@ -59,7 +59,8 @@ from ..training import train as tt
 from ..training.config import TrainingConfig, load_config, make_coarse_cfg, make_refiner_cfg
 from ..training.forward_loss import BatchPoseData
 from ..utils import threefry
-from .demo_synthetic_e2e import build_world, pose_errors, train_model
+from ..meshes.worlds import build_world
+from .demo_synthetic_e2e import pose_errors, train_model
 
 logger = logging.getLogger(__name__)
 Tensor = torch.Tensor

@@ -1,11 +1,9 @@
-"""The synthetic demo's world, its pose errors and its short training.
+"""The synthetic demo's pose errors and its short training.
 
-Counterpart of `build_world`, `pose_errors` and `train_model` of
-`megapose6d_tpu/scripts/demo_synthetic_e2e.py`; the rest of that script
-(its own end-to-end run and report) is not ported. The world is the JAX
-script's: a cube (half extent 4.5 cm) and a UV sphere (radius 4 cm, 24 x
-32) with random block textures from seeds 0 and 1, in a mesh database of
-512 points and 4 symmetries. `train_model` trains on the port's trainer
+Counterpart of `pose_errors` and `train_model` of
+`megapose6d_tpu/scripts/demo_synthetic_e2e.py`; its `build_world` is
+`meshes/worlds.py`'s, and the rest of that script (its own end-to-end run
+and report) is not ported. `train_model` trains on the port's trainer
 (`training/train.py`), whose draws come from torch generators, so its
 weights are not the JAX script's.
 """
@@ -17,32 +15,13 @@ import time
 
 import torch
 
-from ..meshes.io import make_cube, make_uv_sphere
-from ..meshes.mesh_db import BatchedMeshes, MeshDataBase, RigidObject, RigidObjectDataset
+from ..meshes.mesh_db import BatchedMeshes
 from ..ops.se3 import geodesic_distance, transform_pts
 from ..training import train as tt
 from ..training.config import TrainingConfig
 
 logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
-
-
-def world_objects(labels: tuple[str, str] = ("cube", "sphere")) -> RigidObjectDataset:
-    """The two textured primitives under `labels` (`demo_ar_baseline`
-    names them `obj_000001` and `obj_000002`)."""
-    return RigidObjectDataset([
-        RigidObject(label=labels[0], mesh=make_cube(0.045, textured=True)),
-        RigidObject(label=labels[1], mesh=make_uv_sphere(0.04, 24, 32, textured=True)),
-    ])
-
-
-def build_world(max_faces: int = 2048, device: str | torch.device = "cuda",
-                objects: RigidObjectDataset | None = None) -> BatchedMeshes:
-    """The world's objects (default `world_objects()`) in a
-    `BatchedMeshes` on `device`. At 2048 faces the sphere is not
-    decimated; below, decimation bakes its texture into vertex colours."""
-    objects = objects or world_objects()
-    return MeshDataBase.from_object_ds(objects, max_faces=max_faces, n_points=512, n_sym=4).batched(device=device)
 
 
 def pose_errors(TCO_pred: Tensor, TCO_gt: Tensor, points: Tensor) -> tuple[Tensor, Tensor, Tensor]:

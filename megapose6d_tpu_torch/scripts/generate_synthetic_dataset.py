@@ -220,9 +220,6 @@ class SceneRenderer:
         return 0.5 * lit + 0.5 * torch.where(tested, below, 1.0)
 
 
-make_scene_renderer = SceneRenderer  # the JAX package's name
-
-
 def to_observation(out: dict[str, Tensor], labels, i: int, infos: ObservationInfos,
                    with_boxes: bool) -> SceneObservation:
     """Scene `i` of a render as a `SceneObservation` (rgb truncated to 8
@@ -254,7 +251,7 @@ def generate(mesh_db: BatchedMeshes, out_dir: str | Path, n_frames: int, resolut
     rank `r` renders shards r, r + world_size, ... and skips shards whose
     tar exists (a resumed run)."""
     out_dir = Path(out_dir)
-    render = make_scene_renderer(mesh_db, n_obj_per_scene, resolution, f)
+    render = SceneRenderer(mesh_db, n_obj_per_scene, resolution, f)
     fps = frames_per_shard
     base_key = threefry.PRNGKey(seed)
 
@@ -282,14 +279,13 @@ def generate(mesh_db: BatchedMeshes, out_dir: str | Path, n_frames: int, resolut
 def generate_bop(mesh_db: BatchedMeshes, objects: RigidObjectDataset, ds_dir: str | Path, n_frames: int,
                  resolution=(480, 640), n_obj_per_scene: int = 3, f: float = 600.0, frames_per_scene: int = 100,
                  seed: int = 0, split: str = "test", write_models: bool = True, background: bool = True,
-                 shadows: bool = True, ibl: bool = True, unlit: bool = False) -> Path:
+                 unlit: bool = False) -> Path:
     """The BOP-layout variant of `generate` (`data/bop_writer.py`), for the
     BOP reader, the runners and the meters. Frame `i` is keyed by the i-th
-    `key, sub = split(key)` from `PRNGKey(seed)`; the domain options are
-    `SceneRenderer`'s."""
+    `key, sub = split(key)` from `PRNGKey(seed)`; `background` and `unlit`
+    are `SceneRenderer`'s."""
     ds_dir = Path(ds_dir)
-    render = make_scene_renderer(mesh_db, n_obj_per_scene, resolution, f, background=background,
-                                 shadows=shadows, ibl=ibl, unlit=unlit)
+    render = SceneRenderer(mesh_db, n_obj_per_scene, resolution, f, background=background, unlit=unlit)
     if write_models:
         write_bop_models(((label_to_obj_id(o.label), o.load()) for o in objects.objects), ds_dir / "models")
 

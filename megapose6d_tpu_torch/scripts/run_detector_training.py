@@ -33,11 +33,12 @@ import torch
 
 from ..meshes.io import make_cube, make_uv_sphere
 from ..meshes.mesh_db import BatchedMeshes, MeshDataBase, RigidObject, RigidObjectDataset
+from ..meshes.worlds import bop_world_objects
 from ..models.detector import CenterNetDetector, DetectorConfig, decode_detections, detection_loss, segmentation_loss
 from ..ops._precision import pin_f32
 from ..training.train import Adam
 from ..utils import threefry
-from .generate_synthetic_dataset import make_scene_renderer
+from .generate_synthetic_dataset import SceneRenderer
 
 logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
@@ -51,7 +52,7 @@ class DetectorBatches:
 
     def __init__(self, mesh_db: BatchedMeshes, batch_size: int, resolution, n_obj: int, f: float = 400.0,
                  with_seg: bool = False):
-        self.render = make_scene_renderer(mesh_db, n_obj, resolution, f)
+        self.render = SceneRenderer(mesh_db, n_obj, resolution, f)
         self.batch_size, self.n_obj, self.with_seg = batch_size, n_obj, with_seg
 
     def __call__(self, key: np.ndarray) -> tuple[Tensor, ...]:
@@ -72,9 +73,6 @@ class DetectorBatches:
             cls = mesh_idx.gather(1, (seg.long() - 1).clamp_min(0).reshape(B, -1)).reshape(B, H, W)
             batch = batch + (torch.where(seg > 0, cls, -1).to(torch.int32),)
         return batch
-
-
-make_batch_fn = DetectorBatches  # the JAX package's name
 
 
 def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int, decay_steps: int, end_value: float):
@@ -151,8 +149,6 @@ def load_state(path: Path, model: CenterNetDetector, opt_state: dict | None) -> 
 
 def training_objects(args: dict[str, str]) -> RigidObjectDataset:
     if args["demo_world"] == "1":  # the demo world of the pose demos and demo_ar_baseline
-        from .demo_ar_baseline import bop_world_objects
-
         return bop_world_objects("demo")
     if args["object_dataset"]:
         from ..data.datasets_cfg import make_object_dataset
@@ -197,7 +193,7 @@ def main(argv=None) -> DetectorRun:
     n_steps, lr, seed = int(args["n_steps"]), float(args["lr"]), int(args["seed"])
     optimizer = Adam(warmup_cosine_decay_schedule(lr, min(500, max(1, n_steps // 10)), max(n_steps, 2), lr * 0.01))
     opt_state = Adam.init(list(model.parameters()))
-    batch_fn = make_batch_fn(mesh_db, int(args["batch_size"]), resolution, int(args["n_obj_per_scene"]),
+    batch_fn = DetectorBatches(mesh_db, int(args["batch_size"]), resolution, int(args["n_obj_per_scene"]),
                              with_seg=predict_masks)
 
     run_dir = Path(args["run_dir"]) / args["run_id"]

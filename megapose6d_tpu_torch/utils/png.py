@@ -35,7 +35,7 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
     return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
 
-def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+def encode_png(img: np.ndarray) -> bytes:
     """`[H, W]` uint8 or uint16 (grey) or `[H, W, 3]` uint8 (RGB) -> PNG
     bytes that `decode_png` (and PIL) read back as the same array."""
     img = np.asarray(img)
@@ -51,7 +51,7 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
     up[1:] -= rows[:-1]  # the Up filter, modulo 256
     raw = np.concatenate([np.full((H, 1), 2, np.uint8), up], axis=1)
     header = struct.pack(">IIBBBBB", W, H, depth, colour, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
+    return (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
             + _chunk(b"IEND", b""))
 
 

@@ -39,7 +39,7 @@ from megapose6d_tpu.scripts.demo_synthetic_e2e import build_world as jbuild_worl
 from megapose6d_tpu.training import config as jtc
 from megapose6d_tpu.training.train import synthetic_batch_fn
 from megapose6d_tpu_torch.scripts import demo_finalize_pipeline as dfp
-from megapose6d_tpu_torch.scripts.demo_synthetic_e2e import build_world
+from megapose6d_tpu_torch.meshes.worlds import build_world
 from megapose6d_tpu_torch.training.forward_loss import BatchPoseData
 from tests.test_torch_checkpoints import flatten
 from tests.torch_production_refs import one_torch_thread  # noqa: F401 (autouse)

@@ -3,16 +3,19 @@
 - The committed detector-driven evaluations
   (`runs/full_eval/synthdemo{,_unlit}.bop19/detector+SO3_grid`, 9 and 27
   ground-truth instances missed by the detector) rescored by the port's
-  meters (`run_eval`, `skip_inference`), misses included: every count and
-  recall equal to the JAX package's own meters rescoring the same files
-  on this CPU (`JAX_CPU`, written by `python -m
-  tests.test_torch_detector_eval jax-rescore <ds>`; ~4 min each), the
-  medians and the mean ADD within 1e-6 relative (float32 sums in another
-  order). Against the committed `summary.json` (scored on a TPU) both
-  packages differ in one (instance, tau, theta) pair of VSD on each set,
-  AR_VSD 0.189541 against 0.189450 and 0.106514 against 0.106422
-  (1/10900): the counts and the other recalls are equal, AR_VSD within
-  that one pair.
+  meters (`run_eval`, `skip_inference`), misses included, against the
+  committed `summary.json` (scored on a TPU): the counts and the other
+  recalls equal, the medians and the mean ADD within 1e-6 relative
+  (float32 sums in another order), AR_VSD within one (instance, tau,
+  theta) pair of VSD (0.189541 against 0.189450 and 0.106514 against
+  0.106422, 1/10900), a pair in which the JAX package's own meters on a
+  CPU differ from the TPU's as the port's do (`python -m
+  tests.test_torch_detector_eval jax-rescore <ds>` prints the JAX
+  package's rescoring of a whole set; ~4 min each).
+- Two frames of those results (scene 2's views 10 and 11; view 11 holds a
+  missed instance in both sets) rescored by both packages' meters in the
+  test: every count and recall equal, the medians and the mean ADD within
+  1e-6 relative.
 - `PredictionRunner(detection_type="detector")` and
   `run_inference_pipeline(run_detector=True)` against the JAX package's on
   one frame of a small BOP set (96x128, the demo world), with seeded
@@ -37,9 +40,12 @@ import numpy as np
 import pytest
 import torch
 
+import megapose6d_tpu.config as jconfig
 from megapose6d_tpu.data.bop_scene_dataset import BOPDataset as JBOPDataset
 from megapose6d_tpu.data import ObservationTensor as JObservation
+from megapose6d_tpu.evaluation.eval_config import EvalConfig as JEvalConfig
 from megapose6d_tpu.evaluation.eval_config import FullEvalConfig as JFullEvalConfig
+from megapose6d_tpu.evaluation.evaluation import run_eval as jrun_eval
 from megapose6d_tpu.evaluation.runner import PredictionRunner as JPredictionRunner
 from megapose6d_tpu.inference import InferenceConfig as JInferenceConfig
 from megapose6d_tpu.inference import PoseEstimator as JPoseEstimator
@@ -47,20 +53,21 @@ from megapose6d_tpu.meshes.mesh_db import MeshDataBase as JMeshDataBase
 from megapose6d_tpu.models import detector as jdet
 from megapose6d_tpu.models import pose_predictor as jpp
 from megapose6d_tpu.scripts import demo_ar_baseline as jdemo
+from megapose6d_tpu.scripts import run_inference_on_example as jexample
 from megapose6d_tpu.scripts.run_full_eval import run_full_eval as jrun_full_eval
 from megapose6d_tpu_torch.data.bop_scene_dataset import BOPDataset
 from megapose6d_tpu_torch.data.types import ObservationTensor
 from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig, FullEvalConfig, get_save_dir
-from megapose6d_tpu_torch.evaluation.evaluation import run_eval
+from megapose6d_tpu_torch.evaluation.evaluation import load_predictions, run_eval, save_predictions
 from megapose6d_tpu_torch.evaluation.runner import PredictionRunner
 from megapose6d_tpu_torch.inference.pose_estimator import PoseEstimator
 from megapose6d_tpu_torch.inference.types import InferenceConfig
 from megapose6d_tpu_torch.interop.from_jax import detector_state_dict_from_jax, state_dict_from_jax
 from megapose6d_tpu_torch.meshes.mesh_db import MeshDataBase
+from megapose6d_tpu_torch.meshes.worlds import build_bop_world
 from megapose6d_tpu_torch.models import detector as tdet
 from megapose6d_tpu_torch.models import pose_predictor as tpp
 from megapose6d_tpu_torch.ops._precision import pin_f32
-from megapose6d_tpu_torch.scripts import demo_ar_baseline as demo
 from megapose6d_tpu_torch.scripts import run_full_eval
 from megapose6d_tpu_torch.scripts.generate_synthetic_dataset import generate_bop
 from tests.test_torch_pose_estimator import rot_deg
@@ -83,48 +90,41 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-# The JAX package's meters on this CPU rescoring the committed results
-# (`python -m tests.test_torch_detector_eval jax-rescore <ds>`).
-JAX_CPU = {
-    "synthdemo": {
-        "modelnet": {"n": 109, "n_missed": 9, "ADD_0.1d": 0.10091743119266056, "5deg_5cm": 0.05504587155963303,
-                     "proj2d_5px": 0.11926605504587157, "add_mean": 0.19008220494491979},
-        "bop": {"n": 109, "AR_MSSD": 0.14403669724770643, "AR_MSPD": 0.1642201834862385,
-                "mssd_median": 0.22633826732635498, "mspd_median": 53.34098434448242,
-                "AR_VSD": 0.18954128440366974, "AR": 0.16593272171253823},
-    },
-    "synthdemo_unlit": {
-        "modelnet": {"n": 109, "n_missed": 27, "ADD_0.1d": 0.07339449541284404, "5deg_5cm": 0.05504587155963303,
-                     "proj2d_5px": 0.2018348623853211, "add_mean": 0.14471296864425445},
-        "bop": {"n": 109, "AR_MSSD": 0.15412844036697249, "AR_MSPD": 0.23302752293577983,
-                "mssd_median": 0.20354530215263367, "mspd_median": 51.14331817626953,
-                "AR_VSD": 0.1065137614678899, "AR": 0.16455657492354742},
-    },
-}
 EXACT = ("n", "n_missed", "ADD_0.1d", "5deg_5cm", "proj2d_5px", "AR_MSSD", "AR_MSPD", "AR_VSD", "AR")
 VSD_PAIR = 1 / (109 * 100)  # one (instance, tau, theta) of AR_VSD's grid
+SUBSET = {("2", 10), ("2", 11)}  # frames (scene, view) of the two-package rescoring
 
 
-def rescore(ds: str, save_dir: Path, make_cfg, run) -> dict:
+def rescore(ds: str, save_dir: Path, make_cfg, run, frames: set | None = None) -> dict:
+    """The committed results of `ds` (only those of `frames`, if given)
+    scored by `run(make_cfg(...))`."""
     committed = FULL_EVAL / f"{ds}.bop19" / "detector+SO3_grid"
     cfg = make_cfg(ds_name=f"{ds}.bop19", save_dir=str(save_dir), skip_inference=True, load_depth=True)
     get_save_dir(cfg).mkdir(parents=True)
-    for f in ("results.npz", "results.json"):
-        shutil.copy(committed / f, get_save_dir(cfg) / f)
+    if frames is None:
+        for f in ("results.npz", "results.json"):
+            shutil.copy(committed / f, get_save_dir(cfg) / f)
+    else:
+        final = load_predictions(committed / "results.npz")["final"]
+        rows = zip(final.infos["scene_id"].tolist(), final.infos["view_id"].tolist())
+        keep = [i for i, (scene, view) in enumerate(rows) if (str(int(scene)), int(view)) in frames]
+        save_predictions({"final": final[keep]}, get_save_dir(cfg) / "results")
     return run(cfg)["summary"]
+
+
+def port_cfg(**kw) -> EvalConfig:
+    return EvalConfig(data_dir=str(ROOT / "runs/ar_dr"), device="cpu",
+                      inference=InferenceConfig(detection_type="detector"), **kw)
 
 
 @pytest.mark.parametrize("ds", ["synthdemo", "synthdemo_unlit"])
 def test_committed_detector_summary_reproduced(ds, tmp_path):
-    summary = rescore(ds, tmp_path, lambda **kw: EvalConfig(
-        data_dir=str(ROOT / "runs/ar_dr"), device="cpu", inference=InferenceConfig(detection_type="detector"), **kw),
-        run_eval)
+    summary = rescore(ds, tmp_path, port_cfg, run_eval)
     want = json.loads((FULL_EVAL / f"{ds}.bop19" / "detector+SO3_grid" / "summary.json").read_text())
-    assert summary["modelnet"]["n_missed"] == {"synthdemo": 9, "synthdemo_unlit": 27}[ds]
+    assert summary["modelnet"]["n_missed"] == want["modelnet"]["n_missed"] == {"synthdemo": 9, "synthdemo_unlit": 27}[ds]
     for meter in ("modelnet", "bop"):
+        assert set(summary[meter]) == set(want[meter]), meter
         for k, v in summary[meter].items():
-            jax_v = JAX_CPU[ds][meter][k]
-            assert v == jax_v if k in EXACT else abs(v - jax_v) <= 1e-6 * abs(jax_v), (meter, k, v, jax_v)
             if k in ("AR_VSD", "AR"):
                 assert abs(v - want[meter][k]) <= VSD_PAIR / (3 if k == "AR" else 1) * 1.0001, (k, v, want[meter][k])
             elif k in EXACT:
@@ -133,12 +133,30 @@ def test_committed_detector_summary_reproduced(ds, tmp_path):
                 assert abs(v - want[meter][k]) <= 1e-6 * abs(want[meter][k]), (meter, k, v, want[meter][k])
 
 
+@pytest.mark.parametrize("ds", ["synthdemo", "synthdemo_unlit"])
+def test_committed_detector_frames_rescored_as_jax(ds, tmp_path, monkeypatch):
+    monkeypatch.setattr(jconfig, "BOP_DS_DIR", ROOT / "runs/ar_dr")  # the JAX package's datasets_cfg reads it
+    # A rescoring JAX run_eval keeps only the mesh database of its
+    # `load_or_init_models`: skip the initialisation of the models it drops.
+    monkeypatch.setattr(jexample, "load_or_init_models", lambda object_ds, *a, max_faces=4096, **kw: (
+        None, None, None, None, JMeshDataBase.from_object_ds(object_ds, max_faces=max_faces).batched()))
+    got = rescore(ds, tmp_path / "port", port_cfg, run_eval, SUBSET)
+    want = rescore(ds, tmp_path / "jax", lambda **kw: JEvalConfig(
+        inference=JInferenceConfig(detection_type="detector"), **kw), jrun_eval, SUBSET)
+    assert got["modelnet"]["n_missed"] >= 1 and got["modelnet"]["n"] == 4
+    for meter in ("modelnet", "bop"):
+        assert set(got[meter]) == set(want[meter]), meter
+        for k, v in got[meter].items():
+            w = float(want[meter][k])
+            assert v == w if k in EXACT else abs(v - w) <= 1e-6 * abs(w), (meter, k, v, w)
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """A one-frame BOP set of the demo world, seeded pose models and a
     seeded detector in both packages."""
     root = tmp_path_factory.mktemp("det_eval")
-    tdb, tobjs = demo.build_bop_world("demo", device="cpu")
+    tdb, tobjs = build_bop_world("demo", device="cpu")
     generate_bop(tdb, tobjs, root / "ds", n_frames=1, resolution=(96, 128), n_obj_per_scene=2, f=120.0,
                  frames_per_scene=4, seed=3)
     jdb, _ = jdemo.build_bop_world("demo")
@@ -255,10 +273,6 @@ if __name__ == "__main__":
     if len(sys.argv) != 3 or sys.argv[1] != "jax-rescore":
         sys.exit("usage: python -m tests.test_torch_detector_eval jax-rescore <synthdemo|synthdemo_unlit>")
     jax.config.update("jax_platforms", "cpu")
-    import megapose6d_tpu.config as jconfig
-    from megapose6d_tpu.evaluation.eval_config import EvalConfig as JEvalConfig
-    from megapose6d_tpu.evaluation.evaluation import run_eval as jrun_eval
-
     jconfig.BOP_DS_DIR = ROOT / "runs/ar_dr"  # holds the committed synthdemo sets
     with tempfile.TemporaryDirectory() as tmp:
         out = rescore(sys.argv[2], Path(tmp), lambda **kw: JEvalConfig(

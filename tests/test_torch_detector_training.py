@@ -1,7 +1,7 @@
 """Port vs JAX (optax): the detector's trainer
 (`scripts/run_detector_training.py`).
 
-- `make_batch_fn` at 64x96 (2 scenes of 2 objects, masks): boxes, classes,
+- `DetectorBatches` (the JAX package's `make_batch_fn`) at 64x96 (2 scenes of 2 objects, masks): boxes, classes,
   valid flags and class maps equal (the scenes' draws are bit for bit);
   rgb as `tests/test_torch_scene_gen.py` holds it.
 - Two Adam steps under the warm-up + cosine schedule (20 steps: warm-up
@@ -38,10 +38,10 @@ from megapose6d_tpu.scripts import demo_ar_baseline as jdemo
 from megapose6d_tpu.scripts import generate_synthetic_dataset as jgen
 from megapose6d_tpu.scripts import run_detector_training as jtrain
 from megapose6d_tpu_torch.interop.from_jax import detector_state_dict_from_jax
+from megapose6d_tpu_torch.meshes import worlds
 from megapose6d_tpu_torch.meshes.mesh_db import MeshDataBase
 from megapose6d_tpu_torch.models import detector as tdet
 from megapose6d_tpu_torch.ops._precision import pin_f32
-from megapose6d_tpu_torch.scripts import demo_ar_baseline as demo
 from megapose6d_tpu_torch.scripts import generate_synthetic_dataset as gen
 from megapose6d_tpu_torch.scripts import run_detector_training as ttrain
 from tests.test_torch_scene_gen import assert_rgb_close, rgb8
@@ -66,7 +66,7 @@ def test_make_batch_fn_matches_jax():
         align=32, device="cpu")
     key = jax.random.PRNGKey(4)
     j = [np.asarray(x) for x in jtrain.make_batch_fn(jdb, 2, (64, 96), 2, f=120.0, with_seg=True)(key)]
-    t = [x.numpy() for x in ttrain.make_batch_fn(tdb, 2, (64, 96), 2, f=120.0, with_seg=True)(np.asarray(key))]
+    t = [x.numpy() for x in ttrain.DetectorBatches(tdb, 2, (64, 96), 2, f=120.0, with_seg=True)(np.asarray(key))]
     for i in range(2):
         assert_rgb_close(rgb8(t[0][i]), rgb8(j[0][i]))
     for a, b, name in zip(t[1:], j[1:], ("boxes", "classes", "valid", "class map")):
@@ -143,13 +143,13 @@ def test_evaluate_detector_matches_jax():
     n_scenes = 4
     jd = jload_detector("runs/detector_long")
     jdb = JMeshDataBase.from_object_ds(jdemo.build_bop_world()[1]).batched()
-    tdb = MeshDataBase.from_object_ds(demo.bop_world_objects("demo")).batched(device="cpu")
+    tdb = MeshDataBase.from_object_ds(worlds.bop_world_objects("demo")).batched(device="cpu")
     jcfg = jd.model.cfg
     tm = tdet.CenterNetDetector(tdet.DetectorConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__}))
     tm.load_state_dict(detector_state_dict_from_jax(jax.tree.map(np.asarray, jd.params)))
     j = jtrain.evaluate_detector(jd.model, jd.params, jd.model.cfg,
                                  jtrain.make_batch_fn(jdb, n_scenes, (240, 320), 2, with_seg=True), 1, True, seed=777)
-    t = ttrain.evaluate_detector(tm.eval(), ttrain.make_batch_fn(tdb, n_scenes, (240, 320), 2, with_seg=True), 1,
+    t = ttrain.evaluate_detector(tm.eval(), ttrain.DetectorBatches(tdb, n_scenes, (240, 320), 2, with_seg=True), 1,
                                  True, seed=777)
     assert t.keys() == j.keys() and t["n_gt"] == j["n_gt"] >= n_scenes
     assert t["recall@iou0.5"] == j["recall@iou0.5"] and t["class_accuracy"] == j["class_accuracy"]

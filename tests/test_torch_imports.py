@@ -59,6 +59,7 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.models.detector", "megapose6d_tpu_torch.data.bop_writer",
         "megapose6d_tpu_torch.data.web_scene_dataset", "megapose6d_tpu_torch.scripts.generate_synthetic_dataset",
         "megapose6d_tpu_torch.scripts.run_detector_training", "megapose6d_tpu_torch.scripts.run_full_eval",
+        "megapose6d_tpu_torch.meshes.worlds",
     }
     assert expected <= set(out["modules"])
 
@@ -74,8 +75,9 @@ def test_entry_points_default_to_cuda():
     from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig
     from megapose6d_tpu_torch.inference.load_model import build_model, load_named_model, load_or_init_models
     from megapose6d_tpu_torch.evaluation.evaluation import load_detector
+    from megapose6d_tpu_torch.meshes import worlds
     from megapose6d_tpu_torch.scripts import (
-        demo_ar_baseline, demo_finalize_pipeline, demo_synthetic_e2e, generate_synthetic_dataset,
+        demo_ar_baseline, demo_finalize_pipeline, generate_synthetic_dataset,
         run_detector_training, run_inference_on_example, run_training,
     )
     from megapose6d_tpu_torch.training.train import create_train_state, synthetic_batch_fn
@@ -85,7 +87,7 @@ def test_entry_points_default_to_cuda():
                build_pose_predictor, make_so3_grid, ObservationTensor.from_numpy,
                build_model, load_or_init_models, load_named_model,
                run_inference_on_example.load_observation, create_train_state, synthetic_batch_fn,
-               demo_synthetic_e2e.build_world, load_detector, demo_ar_baseline.build_bop_world):
+               worlds.build_world, load_detector, worlds.build_bop_world):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert demo_ar_baseline.DEFAULTS["device"] == "cuda"
     assert demo_finalize_pipeline.DEFAULTS["device"] == "cuda"

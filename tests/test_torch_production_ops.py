@@ -137,10 +137,11 @@ def test_wide_and_zoo_backbones_match_jax(name):
 
 def test_demo_world_and_errors_match_jax():
     from megapose6d_tpu.scripts import demo_synthetic_e2e as jdemo
+    from megapose6d_tpu_torch.meshes.worlds import build_world
     from megapose6d_tpu_torch.scripts import demo_synthetic_e2e as tdemo
 
     jw = jdemo.build_world()
-    tw = tdemo.build_world(device="cpu")
+    tw = build_world(device="cpu")
     assert tw.labels == tuple(jw.labels)
     for k in ("vertices", "normals", "colors", "faces", "face_valid", "points", "diameters", "uvs",
               "textures", "has_tex"):
@@ -148,7 +149,7 @@ def test_demo_world_and_errors_match_jax():
     # The 512-face LOD: the sphere is decimated. The JAX package decimates
     # with its native library where built, which numbers the same vertices
     # and faces in another order, so compare them as sets.
-    jl, tl = jdemo.build_world(max_faces=512), tdemo.build_world(max_faces=512, device="cpu")
+    jl, tl = jdemo.build_world(max_faces=512), build_world(max_faces=512, device="cpu")
     assert tuple(tl.faces.shape) == tuple(jl.faces.shape)
     def triangles(db, i):  # {(position and colour of each corner, sorted)}
         v = np.concatenate([np.asarray(db.vertices[i]), np.asarray(db.colors[i])], -1)

@@ -1,7 +1,7 @@
 """Port vs JAX: the synthetic scene generator and what it writes.
 
 `fold_in` bit for bit; the PNG encoder read back by the port's decoder and
-by PIL; `make_scene_renderer` at 64x96 with 3 of `_default_objects` in
+by PIL; `SceneRenderer` (the JAX package's `make_scene_renderer`) at 64x96 with 3 of `_default_objects` in
 every observation domain; `generate`'s webdataset shards and
 `generate_bop`'s BOP tree, read back by both packages' readers; and the
 first frames of `demo_ar_baseline`'s dataset at its full 240x320.
@@ -124,7 +124,7 @@ def assert_scene_close(j, t, i=0):
 def test_scene_renderer_matches_jax(dbs, domain):
     jdb, tdb = dbs
     jr = jgen.make_scene_renderer(jdb, 3, RES, 120.0, **domain)
-    tr = gen.make_scene_renderer(tdb, 3, RES, 120.0, **domain)
+    tr = gen.SceneRenderer(tdb, 3, RES, 120.0, **domain)
     keys = [jax.random.PRNGKey(s) for s in (0, 3)]
     out = tr(np.stack([np.asarray(k) for k in keys]))  # both scenes in one batch
     for i, key in enumerate(keys):
