@@ -122,12 +122,30 @@ Phases, each printing one line with its wall time:
  18. detector serving: one run_inference_pipeline(run_detector=True)
      request on a committed frame with runs/coarse_dr and runs/refiner_dr,
      phased with per-phase seconds (the detector's included), then fused
-     (the detector before the CUDA graph), fused against phased;
+     (the detector before the CUDA graph), fused against phased; two
+     detector calls bit for bit (deterministic cuDNN in `Detector.infer`)
+     and the detector's forward timed with and without it; with the three
+     exports and build/jax_det_eval_f32 (the JAX package's float32
+     run_eval of 4 frames on a CPU), the same frames in float32 on the
+     card against it, per detection and per instance;
      run_full_eval as runs/full_eval/synthdemo.bop19/detector+SO3_grid
      (all 56 frames with the three npz exports, each detection against
      the committed results.npz and the summary beside summary.json; 8
      frames seeded); demo_ar_baseline detector_dir= (runs/ar_dr beside its
-     report.json with the exports; runs/ar_gnc seeded).
+     report.json with the exports; runs/ar_gnc seeded);
+ 19. dataset training: run_training train_datasets=synthdemo.bop19
+     data_dir=runs/ar_dr at runs/refiner_dr's width with 4 loader workers
+     (20 steps), at runs/coarse_dr's (5), and on phase 16's webdataset
+     shard with the generator's objects as a `dir:` models directory (5),
+     K1's launches counted; the refiner with the inline loader and
+     deterministic cuDNN, resumed from step 4, bit for bit the unbroken
+     6-step run; each configuration's step from the loader by part (the
+     host's wait, H2D, forward, backward, Adam) and a traced step's idle
+     share; the loader alone with 4 workers and inline; which decoder
+     ran; one batch through a refiner step on the card and the CPU, stage
+     by stage; K1 at the path's launch shapes (refiner B=64, coarse
+     B=128) bit for bit and timed; run_eval of the trained runs on 2
+     frames, read from their checkpoints.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -2042,10 +2060,11 @@ def phase_detector(errors: list[float]) -> tuple[int, dict]:
 COMMITTED_DET_EVAL = ROOT / "runs/full_eval/synthdemo.bop19/detector+SO3_grid"
 
 
-def detections_vs_committed(port: dict, jax: dict) -> None:
+def detections_vs_committed(port: dict, jax: dict, name: str = "the committed results.npz") -> bool:
     """The detector-driven predictions of both packages, row by row
     (scene, view, label, detection order): rows in both, the detector
-    scores' and the final poses' differences there, rows in one only."""
+    scores' and the final poses' differences there, rows in one only.
+    True when both have the same rows."""
     keys = ("scene_id", "view_id", "label", "instance_id")
     rows = lambda tc: {r: i for i, r in enumerate(zip(*(tc.infos[k].tolist() for k in keys)))}
     a, b = rows(port["final"]), rows(jax["final"])
@@ -2055,11 +2074,12 @@ def detections_vs_committed(port: dict, jax: dict) -> None:
     deg = rot_deg(fa, fb).numpy()
     mm = ((fa[:, :3, 3] - fb[:, :3, 3]).norm(dim=1) * 1e3).numpy()
     ds = np.abs(np.asarray(port["final"].infos["score"])[ia] - np.asarray(jax["final"].infos["score"])[ib])
-    print(f"  per detection against the committed results.npz: {len(both)} rows in both, {len(a) - len(both)} "
-          f"only in the port's, {len(b) - len(both)} only in the committed; detector score |diff| max "
+    print(f"  per detection against {name}: {len(both)} rows in both, {len(a) - len(both)} "
+          f"only in the port's, {len(b) - len(both)} only in the other; detector score |diff| max "
           f"{ds.max() if len(ds) else 0:.3g}; final poses within 1 degree and 1 mm: "
           f"{int(((deg < 1) & (mm < 1)).sum())} of {len(both)}, median {np.median(deg) if len(deg) else 0:.3f} deg "
           f"{np.median(mm) if len(mm) else 0:.3f} mm", flush=True)
+    return len(both) == len(a) == len(b)
 
 
 def serving_trained() -> bool:
@@ -2121,10 +2141,21 @@ def detector_request() -> int:
           f"K1 per request {graph.kernel_launches} in the graph, wrapper count {counted} (warm-up and capture); "
           f"fused vs phased {deg:.3g} deg {mm:.3g} mm ({rel:.3g} of the distance), logit {dl:.3g}", flush=True)
     check(counted == 2 * graph.kernel_launches, "the fused detector request did not launch K1 as expected")
-    # Two calls of the detector: its transposed convolutions may take a
-    # cuDNN algorithm that sums in another order, so scores agree to ulps.
-    check(out_f.labels == out_p.labels and np.allclose(out_f.infos["score"], out_p.infos["score"], rtol=0, atol=1e-5)
+    # Two calls of the detector, with cuDNN's deterministic algorithms
+    # (`Detector.infer`): the same scores, bit for bit.
+    check(out_f.labels == out_p.labels and np.array_equal(out_f.infos["score"], out_p.infos["score"])
           and bool(torch.isfinite(out_f.poses).all()), "the fused request's detections or poses")
+    x = obs.images[..., :3].float()
+    cudnn = torch.backends.cudnn
+    fwd_ms = {}
+    for det in (False, True):
+        with torch.inference_mode(), cudnn.flags(enabled=True, benchmark=False, deterministic=det,
+                                                 allow_tf32=cudnn.allow_tf32):
+            fwd_ms[det] = cuda_ms(lambda: detector.model(x), reps=20, warmup=3)
+            outs = [detector.model(x) for _ in range(2)]
+        same = all(torch.equal(outs[0][k], outs[1][k]) for k in outs[0])
+        print(f"  detector forward, cuDNN deterministic={det}: {fwd_ms[det]:.4f} ms; two calls bit for bit: {same}",
+              flush=True)
     if trained:
         # bf16 convolutions in other cuDNN algorithms (eager against
         # captured): phase 14's tolerance. Seeded weights are held in f32
@@ -2153,7 +2184,57 @@ def detector_request() -> int:
           f"distance); two detector calls' boxes |diff| max {(again.bboxes - dets.bboxes).abs().max().item():.3g} px",
           flush=True)
     check(deg32 < 0.1 and rel32 < 1e-4, "float32 fused and phased poses from the detector's boxes differ")
+    check(torch.equal(again.bboxes, dets.bboxes) and np.array_equal(again.infos["score"], dets.infos["score"]),
+          "two detector calls on one image differ")
     return n_phased + (1 + graph.replays) * graph.kernel_launches + n_f32 + (1 + graph32.replays) * graph32.kernel_launches
+
+
+# The JAX package's detector-driven run_eval of the first 4 frames on a CPU,
+# both pose models in float32 at the committed steps (written where the JAX
+# package is installed, as README.md says; never committed).
+JAX_CPU_DET_EVAL = ROOT / "build/jax_det_eval_f32/synthdemo.bop19/detector+SO3_grid"
+
+
+def detector_f32_vs_jax_cpu() -> int:
+    """The detector-driven evaluation with both pose models in float32 on
+    the card against the JAX package's float32 run of the same frames on a
+    CPU, per detection and per instance (ROADMAP Queue 3, O1): where bf16
+    on another device ends and a fault of the port would begin. Needs the
+    three npz exports and `JAX_CPU_DET_EVAL`."""
+    if not (serving_trained() and (JAX_CPU_DET_EVAL / "results.npz").exists()):
+        print(f"  no float32 JAX CPU detector run in {JAX_CPU_DET_EVAL} (or no exports): not compared", flush=True)
+        return 0
+    ecfg, icfg = committed_det_eval()
+    f32_runs = BUILD_DIR / "f32_runs"
+    for run in ("coarse_dr", "refiner_dr"):
+        d = json.loads((ROOT / "runs" / run / "config.json").read_text())
+        (f32_runs / run).mkdir(parents=True, exist_ok=True)
+        (f32_runs / run / "config.json").write_text(json.dumps({**d, "compute_dtype": "float32"}))
+    jax = load_predictions(JAX_CPU_DET_EVAL / "results.npz")
+    n_frames = len(set(zip(jax["final"].infos["scene_id"].tolist(), jax["final"].infos["view_id"].tolist())))
+    cfg = EvalConfig(
+        detector_run=str(DETECTOR_RUN), detector_weights=str(DETECTOR_NPZ), coarse_run=str(f32_runs / "coarse_dr"),
+        refiner_run=str(f32_runs / "refiner_dr"), coarse_weights=str(WEIGHTS / WEIGHT_FILES["coarse_dr"]),
+        refiner_weights=str(WEIGHTS / WEIGHT_FILES["refiner_dr"]), ds_name=ecfg["ds_name"], data_dir=str(EVAL_DATA),
+        inference=icfg, save_dir=str(BUILD_DIR / "det_eval_f32"), n_frames=n_frames,
+        render_size=tuple(ecfg["render_size"]), max_faces=ecfg["max_faces"], load_depth=True, device="cuda")
+    shutil.rmtree(cfg.save_dir, ignore_errors=True)
+    rt.visibility_kernel.launches = 0  # the float32 detector-driven evaluation starts here
+    t0 = time.perf_counter()
+    out = run_eval(cfg)
+    wall = time.perf_counter() - t0
+    launches = rt.visibility_kernel.launches  # read right after the path
+    port = load_predictions(out["results_path"])
+    jax_ar = json.loads((JAX_CPU_DET_EVAL / "summary.json").read_text())["bop"]["AR"]
+    print(f"  float32 on the card, {n_frames} frames in {wall:.2f} s, K1 launches {launches}: AR "
+          f"{out['summary']['bop']['AR']:.6f} (the JAX CPU float32 run: {jax_ar:.6f})", flush=True)
+    if detections_vs_committed(port, jax, "the JAX package's float32 CPU run"):
+        scene_ds = make_scene_dataset(cfg.ds_name, load_depth=True, data_dir=cfg.data_dir)
+        mesh_db = MeshDataBase.from_object_ds(make_object_dataset(cfg.ds_name, data_dir=cfg.data_dir),
+                                              max_faces=cfg.max_faces).batched(device="cuda")
+        compare_runs("port f32 (card) vs jax f32 (cpu)", port, jax, instance_scores(port["final"], scene_ds, mesh_db),
+                     instance_scores(jax["final"], scene_ds, mesh_db))
+    return launches
 
 
 def detector_full_eval() -> int:
@@ -2220,6 +2301,333 @@ def detector_demo() -> int:
     return n_demo
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: dataset-fed training
+# ---------------------------------------------------------------------------
+
+DATASET_RUNS = BUILD_DIR / "dataset_runs"
+BOP_TRAIN = ["train_datasets=synthdemo.bop19", f"data_dir={EVAL_DATA}", "object_dataset=synthdemo.bop19"]
+
+
+def dataset_args(run: str, run_id: str, workers: int, *extra: str) -> list[str]:
+    """`run_training` arguments at `runs/<run>/config.json`'s width, fed by
+    the committed BOP set (phase 19's runs directory)."""
+    return [f"config_id={run.split('_')[0]}", *run_overrides(run), *BOP_TRAIN, "device=cuda",
+            f"run_dir={DATASET_RUNS}", f"run_id={run_id}", f"n_dataloader_workers={workers}",
+            "save_epoch_interval=1000", *extra]
+
+
+def dataset_step_report(name: str, state, cfg, loader, mesh_db, n: int = 5) -> None:
+    """Seconds per step over `n` steps after two of warm-up, each as
+    `train` runs it from the loader: the host's wait for the next batch
+    (wall clock), then by CUDA events the copy to the card (the batch and
+    the step's draws), forward, backward and Adam; the traced busy and idle
+    share of one more step."""
+    marks: list = []
+    waits: list = []
+
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    def step():
+        t0 = time.perf_counter()
+        host = next(loader)
+        waits.append(time.perf_counter() - t0)
+        mark()
+        batch = host.to("cuda", non_blocking=True)
+        draws = tt.step_draws(cfg, batch, mesh_db, tt.DRAW_STREAM, state.step)
+        tt.train_step(state, cfg, batch, mesh_db, draws, cfg.n_iterations)
+
+    forward, apply = tt.forward_loss, state.apply_gradients
+
+    def marked_forward(*a, **k):
+        mark()
+        out = forward(*a, **k)
+        mark()
+        return out
+
+    def marked_apply(*a, **k):
+        mark()
+        return apply(*a, **k)
+
+    def timed() -> dict:
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        mark()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parts = ("h2d", "forward", "backward", "optimizer")
+        return {"host_wait": waits[-1], **{p: marks[i].elapsed_time(marks[i + 1]) / 1e3 for i, p in enumerate(parts)},
+                "wall": wall}
+
+    tt.forward_loss, state.apply_gradients = marked_forward, marked_apply
+    try:
+        for _ in range(2):
+            timed()
+        times = [timed() for _ in range(n)]
+    finally:
+        tt.forward_loss = forward
+        del state.apply_gradients
+    mean = {k: sum(t[k] for t in times) / n for k in times[0]}
+    wall, busy, top, _ = profile_call(step)
+    print(f"  {name} step from the loader (mean of {n} after warm-up): "
+          + " ".join(f"{k}_s={v:.4f}" for k, v in mean.items())
+          + f"; traced step wall_ms={wall:.2f} device_busy_ms={busy:.2f} idle_share={1 - busy / wall:.3f}; "
+          f"top: {'; '.join(top)}", flush=True)
+
+
+def loader_rate(loader, n: int) -> float:
+    """Batches per second of a started loader alone, over `n` batches."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(loader)
+    return n / (time.perf_counter() - t0)
+
+
+def dataset_resume_check() -> None:
+    """The refiner on the BOP set with the inline loader and deterministic
+    cuDNN: 6 steps unbroken (a checkpoint at step 4), and the same run
+    resumed from step 4: parameters, Adam and the logs bit for bit."""
+    args = dataset_args("refiner_dr", "det_unbroken", 0, "n_epochs=6", "save_epoch_interval=4")
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        unbroken = run_training.main(args)
+        wall = time.perf_counter() - t0
+        shutil.copytree(DATASET_RUNS / "det_unbroken", DATASET_RUNS / "det_resumed")
+        (DATASET_RUNS / "det_resumed/checkpoints/latest.txt").write_text("4")
+        lines = (DATASET_RUNS / "det_resumed/log.txt").read_text().splitlines()
+        (DATASET_RUNS / "det_resumed/log.txt").write_text("\n".join(lines[:4]) + "\n")
+        resumed = run_training.main([a.replace("run_id=det_unbroken", "run_id=det_resumed") for a in args]
+                                    + ["resume_run_id=det_resumed"])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    dp = max((a - b).abs().max().item() for a, b in zip(unbroken.params, resumed.params))
+    dm = max((a - b).abs().max().item() for k in ("mu", "nu")
+             for a, b in zip(unbroken.opt_state[k], resumed.opt_state[k]))
+    log = lambda r: [{k: v for k, v in l.items() if k != "time_per_epoch"} for l in read_log(DATASET_RUNS / r)]
+    print(f"  inline loader, deterministic cuDNN: 6 steps in {wall:.2f} s; resumed from step 4 vs unbroken: params "
+          f"max |diff| {dp:.3g}, Adam moments {dm:.3g}, logs equal {log('det_resumed') == log('det_unbroken')}",
+          flush=True)
+    check(unbroken.step == resumed.step == 6 and dp == 0 and dm == 0 and log("det_resumed") == log("det_unbroken"),
+          "the resumed dataset-fed run differs from the unbroken one")
+
+
+def dataset_card_vs_cpu(errors: list[float], shapes: dict) -> None:
+    """One batch of the BOP stream (inline loader) through a refiner step
+    on the card and on the CPU, in f32 from the same weights and draws, at
+    240x320 with 2 samples, stage by stage. The renders: the devices'
+    last-bit differences in the geometry move a colour by up to ~1e-3
+    where a texel edge lies under a pixel, and flip the face of a pixel on
+    a face edge outright; at most 1e-4 of the pixels may differ by more
+    than 1e-2. The observation crops: within 1e-4. Then the step given the
+    card's renders and crops: the loss to 1e-4 relative and each gradient
+    tensor within the larger of 1e-4 of its largest entry and twice its
+    own move on either device when the crops are scaled by 1 +- 2^-23
+    (phase 13's rule, at the network's input). At 240x320 a ReLU or
+    max-pool decision flips under such an ulp, on the card as on the CPU
+    (and under another CPU thread count), and moves a tensor's gradient by
+    up to ~3% of its largest entry; the randomly initialised network also
+    turns one flipped render pixel into a ~1e-3 move of the loss: hence
+    the stages and the rule. Then K1 at this path's launches of a full
+    batch of 32 (the refiner's 2 views, the coarse scorer's 4 hypotheses;
+    no observation is rendered) bit for bit against the plain twin, and
+    timed."""
+    cfg = run_training.make_config("refiner", False, run_overrides("refiner_dr") + BOP_TRAIN[:1] + [
+        "compute_dtype=float32", "batch_size=2", "n_dataloader_workers=0"])
+    dbs = {d: run_training.dataset_mesh_db(cfg, "synthdemo.bop19", str(EVAL_DATA), d) for d in ("cuda", "cpu")}
+    loader = run_training.dataset_loader(cfg, list(dbs["cpu"].labels), str(EVAL_DATA), "cpu")
+    host = next(loader)
+    loader.close()
+    draws = draw_forward_loss(cfg, 2, dbs["cpu"].points.shape[1], torch.Generator().manual_seed(12))
+
+    def run(dev, scale=1.0, given=None):
+        """(loss, gradients, {stage: [outputs per call]}) of one step on
+        `dev`; `given` replaces the renders and crops, call by call, the
+        crops' images scaled by `scale`."""
+        state = tt.create_train_state(cfg, dev)
+        model, seen = state.model, {"renders": [], "crops": []}
+        render, crop = model.render_views, model.crop_inputs
+
+        def render_views(*a, **k):
+            out = given["renders"][len(seen["renders"])].to(dev) if given else render(*a, **k)
+            seen["renders"].append(out)
+            return out
+
+        def crop_inputs(*a, **k):
+            if given:
+                images, *rest = given["crops"][len(seen["crops"])]
+                out = ((images * scale).to(dev), *(t.to(dev) for t in rest))
+            else:
+                out = crop(*a, **k)
+            seen["crops"].append(out)
+            return out
+
+        model.render_views, model.crop_inputs = render_views, crop_inputs
+        loss, _ = forward_loss(model, cfg, host.to(dev), dbs[dev], draws_to(draws, dev), cfg.n_iterations)
+        grads = torch.autograd.grad(loss, state.params)
+        names = [n for n, _ in model.named_parameters()]
+        kept = {"renders": [r.detach().cpu() for r in seen["renders"]],
+                "crops": [tuple(t.detach().cpu() for t in c) for c in seen["crops"]]}
+        return loss.item(), dict(zip(names, (g.cpu() for g in grads))), kept
+
+    def gaps(a, b) -> dict:
+        return {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in a}
+
+    lg, gg, card = run("cuda")
+    _, _, own = run("cpu")
+    d = torch.cat([(a - b).abs().amax(-1).flatten() for a, b in zip(card["renders"], own["renders"])])
+    dcrop = max((a[0] - b[0]).abs().max().item() for a, b in zip(card["crops"], own["crops"]))
+    lc, gc, _ = run("cpu", given=card)
+    gg = run("cuda", given=card)[1]
+    moves = [gaps(run(dev, 1 + s * 2.0**-23, given=card)[1], g0) for dev, g0 in (("cuda", gg), ("cpu", gc))
+             for s in (1, -1)]
+    move = {n: max(m[n] for m in moves) for n in gc}
+    gap = gaps(gg, gc)
+    worst = max(gap, key=gap.get)
+    beyond = [f"{n} {gap[n]:.3g} (own move {move[n]:.3g})" for n in gap if gap[n] > 1e-4]
+    print(f"  card vs CPU, one BOP batch (2 x 240x320, f32): renders differ by more than 1e-4 at {int((d > 1e-4).sum())} "
+          f"of {d.numel()} pixels, by more than 1e-2 at {int((d > 1e-2).sum())} (largest {d.max().item():.3g}); crops "
+          f"by {dcrop:.3g} at most; on the card's renders and crops loss {lg:.8g} / {lc:.8g} (relative "
+          f"{abs(lg - lc) / abs(lc):.3g}), worst relative gradient gap {gap[worst]:.3g} ({worst}) over {len(gap)} "
+          f"tensors; beyond 1e-4: {', '.join(beyond) or 'none'}", flush=True)
+    check(int((d > 1e-2).sum()) <= 1e-4 * d.numel() and dcrop <= 1e-4 and abs(lg - lc) <= 1e-4 * abs(lc)
+          and all(gap[n] <= max(1e-4, 2 * move[n]) for n in gap), "dataset batch: card and CPU steps differ")
+
+    captured: list = []
+    with torch.no_grad():
+        for run_name in ("refiner_dr", "coarse_dr"):
+            c = run_training.make_config(run_name.split("_")[0], False, run_overrides(run_name) + BOP_TRAIN[:1]
+                                         + ["n_dataloader_workers=0"])
+            db = run_training.dataset_mesh_db(c, "synthdemo.bop19", str(EVAL_DATA), "cuda")
+            ld = run_training.dataset_loader(c, list(db.labels), str(EVAL_DATA), "cuda")
+            batch = next(ld).to("cuda")
+            ld.close()
+            state = tt.create_train_state(c, "cuda")
+            d = draws_to(draw_forward_loss(c, c.batch_size, db.points.shape[1], torch.Generator().manual_seed(13)),
+                         "cuda")
+            restore = record_visibility_inputs(captured)
+            try:
+                forward_loss(state.model, c, batch, db, d, c.n_iterations)
+            finally:
+                rt.visibility = restore
+    check(len(captured) == 2, f"captured {len(captured)} launches, expected 2")
+    kernel_at("train_datasets_refiner_B64", captured[:1], errors, shapes)
+    kernel_at("train_datasets_coarse_B128", captured[1:], errors, shapes)
+
+
+def dataset_eval() -> int:
+    """run_eval on 2 synthdemo frames of the coarse and refiner runs that
+    phase 19 trained, read from their checkpoints (no seeded weights)."""
+    from megapose6d_tpu_torch.inference.load_model import run_checkpoint
+
+    coarse, refiner = DATASET_RUNS / "coarse_bop", DATASET_RUNS / "refiner_bop"
+    ckpts = run_checkpoint(coarse), run_checkpoint(refiner)
+    check(all(c is not None for c in ckpts), f"no port checkpoints in {coarse} and {refiner}")
+    model = build_model(refiner, None, None, device="cuda")
+    saved = torch.load(ckpts[1], map_location="cpu", weights_only=True)["params"]
+    check(all(torch.equal(p.cpu(), saved[n]) for n, p in model.named_parameters()),
+          "build_model did not read the refiner's checkpoint")
+    cfg = EvalConfig(ds_name="synthdemo.bop19", data_dir=str(EVAL_DATA), coarse_run=str(coarse),
+                     refiner_run=str(refiner), save_dir=str(BUILD_DIR / "dataset_eval"), n_frames=2,
+                     inference=InferenceConfig(SO3_grid_size=576, n_pose_hypotheses=4, n_refiner_iterations=3,
+                                               max_detections=2),
+                     load_depth=True, device="cuda")
+    shutil.rmtree(cfg.save_dir, ignore_errors=True)
+    before = rt.visibility_kernel.launches
+    t0 = time.perf_counter()
+    out = run_eval(cfg)
+    wall = time.perf_counter() - t0
+    n = rt.visibility_kernel.launches - before
+    s = out["summary"]
+    print(f"  run_eval of the port-trained runs ({', '.join(str(c.relative_to(ROOT)) for c in ckpts)}), 2 frames "
+          f"in {wall:.2f} s, K1 launches {n}: {json.dumps(s)}", flush=True)
+    check(s["bop"]["n"] > 0 and np.isfinite(s["bop"]["AR"]) and n > 0, "run_eval of the port-trained runs")
+    return n
+
+
+def phase_dataset_training(errors: list[float]) -> tuple[int, dict]:
+    """run_training train_datasets= at the committed runs' width: the
+    refiner on synthdemo.bop19 with 4 loader workers (20 steps), the
+    coarse scorer (5), the refiner on phase 16's webdataset
+    shard (480x640 frames cropped and resized to 240x320; 5) with the
+    generator's objects written as a models directory; the launches
+    counted; a resume with the inline loader, bit for bit an unbroken
+    run; each configuration's step by part;
+    the loader alone; card against CPU; K1 at the path's shapes; run_eval
+    of what was trained."""
+    from megapose6d_tpu_torch import native
+    from megapose6d_tpu_torch.data.bop_writer import write_bop_models
+    from megapose6d_tpu_torch.scripts import generate_synthetic_dataset as gen
+
+    shutil.rmtree(DATASET_RUNS, ignore_errors=True)
+    models = DATASET_RUNS / "wds_models"
+    write_bop_models(((int(o.label.split("_")[-1]), o.load()) for o in gen._default_objects().objects), models)
+    wds = ["train_datasets=webdataset.wds", f"data_dir={BUILD_DIR / 'scene_gen'}", f"object_dataset=dir:{models}"]
+    print(f"  image decoder: {native.decoder()}; mesh decimation: "
+          f"{'native' if native.meshproc_available() else 'numpy'}; {nvidia_smi()}", flush=True)
+
+    rt.visibility_kernel.launches = 0  # the dataset-fed training path starts here
+    t0 = time.perf_counter()
+    state_r = run_training.main(dataset_args("refiner_dr", "refiner_bop", 4, "n_epochs=20"))
+    t_r = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state_c = run_training.main(dataset_args("coarse_dr", "coarse_bop", 4, "n_epochs=5"))
+    t_c = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state_w = run_training.main(dataset_args("refiner_dr", "refiner_wds", 4, "n_epochs=5") + wds)
+    t_w = time.perf_counter() - t0
+    launches = rt.visibility_kernel.launches  # read right after the path
+    cfg_r, cfg_c = (load_config(DATASET_RUNS / r / "config.json") for r in ("refiner_bop", "coarse_bop"))
+    check(cfg_r.backbone_str == "resnet18-spatial" and cfg_r.batch_size == 32 and cfg_r.compute_dtype == "bfloat16"
+          and tuple(cfg_r.input_resize) == HW and cfg_r.n_rendered_views == 2 and cfg_r.min_area == 1000
+          and cfg_r.n_dataloader_workers == 4 and cfg_c.n_hypotheses == 4, f"not at the committed width: {cfg_r}")
+    expected = 20 * cfg_r.n_iterations + 5 + 5 * cfg_r.n_iterations  # no observation render on this path
+    print(f"  kernel launches on the dataset-fed training path: {launches} (expected {expected})", flush=True)
+    check(launches == expected, "the dataset-fed training path did not launch K1 as expected")
+    check(state_r.step == 20 and state_c.step == 5 and state_w.step == 5, "steps")
+    for name, run, t in (("refiner bop", "refiner_bop", t_r), ("coarse bop", "coarse_bop", t_c),
+                         ("refiner wds", "refiner_wds", t_w)):
+        log = read_log(DATASET_RUNS / run)
+        check(all(np.isfinite(v) for l in log for v in l.values()) and all("val_loss" not in l for l in log),
+              f"{name}: metrics")
+        keys = [k for k in log[0] if k.startswith(("loss_total", "grad"))]
+        print(f"  {name}: {len(log)} steps in {t:.2f} s (first {log[0]['time_per_epoch']:.2f} s with the workers' "
+              f"start, later mean {np.mean([l['time_per_epoch'] for l in log[2:]]):.4f} s); first / last "
+              + " ".join(f"{k}={log[0][k]:.4g}/{log[-1][k]:.4g}" for k in keys), flush=True)
+
+    dataset_resume_check()
+    # One loader (4 workers, started outside the timed steps) for both
+    # configurations' step reports, then alone for its rate; then inline.
+    db = run_training.dataset_mesh_db(cfg_r, "synthdemo.bop19", str(EVAL_DATA), "cuda")
+    loader = run_training.dataset_loader(cfg_r, list(db.labels), str(EVAL_DATA), "cuda")
+    try:
+        t0 = time.perf_counter()
+        next(loader)
+        print(f"  4 workers: first batch after {time.perf_counter() - t0:.2f} s (the workers' start and first batch)",
+              flush=True)
+        for name, cfg in (("refiner", cfg_r), ("coarse", cfg_c)):
+            dataset_step_report(f"{name} (synthdemo.bop19, 4 workers)", tt.create_train_state(cfg, "cuda"), cfg,
+                                loader, db)
+        rates = {4: loader_rate(loader, 12)}
+    finally:
+        loader.close()
+    inline = run_training.dataset_loader(dataclasses.replace(cfg_r, n_dataloader_workers=0), list(db.labels),
+                                         str(EVAL_DATA), "cuda")
+    next(inline)
+    rates[0] = loader_rate(inline, 3)
+    for workers, rate in rates.items():
+        print(f"  loader alone, synthdemo.bop19 at 240x320, batch 32, {workers} workers: {rate:.3f} batches/s "
+              f"({rate * 32:.1f} samples/s)", flush=True)
+    shapes: dict = {}
+    dataset_card_vs_cpu(errors, shapes)
+    return launches + dataset_eval(), shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2269,13 +2677,16 @@ def main() -> int:
     with Phase("detector"):
         det_launches, det_shapes = phase_detector(errors)
     with Phase("detector serving"):
-        serve_launches = detector_request() + detector_full_eval() + detector_demo()
+        serve_launches = detector_request() + detector_f32_vs_jax_cpu() + detector_full_eval() + detector_demo()
+    with Phase("dataset training"):
+        dataset_launches, dataset_shapes = phase_dataset_training(errors)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
     timing["by_shape"].update(prod_shapes)
     timing["by_shape"].update(gen_shapes)
     timing["by_shape"].update(det_shapes)
+    timing["by_shape"].update(dataset_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
@@ -2283,13 +2694,13 @@ def main() -> int:
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
-        + serve_launches,
+        + serve_launches + dataset_launches,
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
                              "production": prod_launches, "demo_finalize": final_launches,
                              "scene_gen": gen_launches, "detector": det_launches,
-                             "detector_serving": serve_launches},
+                             "detector_serving": serve_launches, "train_datasets": dataset_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

@@ -4,7 +4,11 @@ Counterpart of `megapose6d_tpu/data/bop_scene_dataset.py`: reads the BOP
 directory layout (scene_camera.json, scene_gt.json, scene_gt_info.json,
 rgb/, depth/, mask_visib/), converts mm to m, and yields
 `SceneObservation`s with ground-truth poses and visible/full boxes.
-Images are decoded by the port's PNG reader (`utils/png.py`).
+Images are decoded by `native.decode_image`: libpng and libjpeg where the
+native library builds, else the port's PNG reader (`utils/png.py`, the
+same arrays; a JPEG then raises). Labels follow `label_format`
+(`obj_{label}` by default, `tless-{label}` and so on for the BOP
+challenge datasets). The `train_pbr` splits keep their rgb as JPEG.
 
 See https://github.com/thodan/bop_toolkit/blob/master/docs/bop_datasets_format.md
 """
@@ -16,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils.png import read_png
+from .. import native
 from .scene_dataset import FrameIndex, ObservationInfos, SceneDataset, SceneObservation
 from .types import CameraData, ObjectData
 
@@ -26,6 +30,7 @@ class BOPDataset(SceneDataset):
         self,
         ds_dir: str | Path,
         split: str = "test",
+        label_format: str = "obj_{label}",
         load_depth: bool = False,
         load_segmentation: bool = True,
     ):
@@ -33,6 +38,7 @@ class BOPDataset(SceneDataset):
         if not self.ds_dir.exists():
             raise FileNotFoundError(f"missing dataset dir: {ds_dir}")
         self.split = split
+        self.label_format = label_format
         self.base_dir = self.ds_dir / split
 
         scene_ids, view_ids = [], []
@@ -61,7 +67,12 @@ class BOPDataset(SceneDataset):
         cam_ann = ann["scene_camera"][str(view_id)]
         K = np.asarray(cam_ann["cam_K"], np.float64).reshape(3, 3)
 
-        rgb = read_png(scene_dir / "rgb" / f"{view_id:06d}.png")
+        rgb_path = scene_dir / "rgb" / f"{view_id:06d}.png"
+        if not rgb_path.exists():
+            rgb_path = rgb_path.with_suffix(".jpg")
+        if not rgb_path.exists():  # ITODD's grey TIFFs
+            raise NotImplementedError(f"{scene_dir}/gray/{view_id:06d}.tif: TIFF images are not read by the port")
+        rgb = _imread(rgb_path)
         if rgb.ndim == 2:
             rgb = np.repeat(rgb[..., None], 3, axis=-1)
         rgb = rgb[..., :3]
@@ -69,7 +80,7 @@ class BOPDataset(SceneDataset):
 
         depth = None
         if self.load_depth:
-            depth = read_png(scene_dir / "depth" / f"{view_id:06d}.png").astype(np.float32)
+            depth = _imread(scene_dir / "depth" / f"{view_id:06d}.png").astype(np.float32)
             depth *= float(cam_ann.get("depth_scale", 1.0)) / 1000.0  # -> m
 
         object_datas: list[ObjectData] = []
@@ -84,7 +95,7 @@ class BOPDataset(SceneDataset):
                 TCO[:3, :3] = np.asarray(obj["cam_R_m2c"], np.float64).reshape(3, 3)
                 TCO[:3, 3] = np.asarray(obj["cam_t_m2c"], np.float64) / 1000.0  # mm -> m
                 # BOP stores camera <- model; the world frame is the camera's.
-                obj_data = ObjectData(label=_label(int(obj["obj_id"])), TWO=TCO, unique_id=n + 1)
+                obj_data = ObjectData(label=_label(int(obj["obj_id"]), self.label_format), TWO=TCO, unique_id=n + 1)
                 if gt_info is not None:
                     info_n = gt_info[n]
                     obj_data.bbox_modal = np.asarray(_xywh_to_xyxy(info_n["bbox_visib"]), np.float64)
@@ -93,7 +104,7 @@ class BOPDataset(SceneDataset):
                 if self.load_segmentation:
                     mask_path = scene_dir / "mask_visib" / f"{view_id:06d}_{n:06d}.png"
                     if mask_path.exists():
-                        segmentation[read_png(mask_path) > 0] = n + 1
+                        segmentation[_imread(mask_path) > 0] = n + 1
                 object_datas.append(obj_data)
 
         return SceneObservation(
@@ -102,9 +113,15 @@ class BOPDataset(SceneDataset):
         )
 
 
-def _label(obj_id: int) -> str:
-    """Objects are labelled `obj_NNNNNN`, as their PLY files are named."""
-    return f"obj_{obj_id:06d}"
+def _imread(path: Path) -> np.ndarray:
+    """A PNG or JPEG file through `native.decode_image`."""
+    return native.decode_image(Path(path).read_bytes())
+
+
+def _label(obj_id: int, label_format: str = "obj_{label}") -> str:
+    """`label_format` of the zero-padded id: `obj_NNNNNN` by default, as
+    the PLY files are named."""
+    return label_format.format(label=f"{obj_id:06d}")
 
 
 def _xywh_to_xyxy(box: list) -> list:
@@ -112,9 +129,9 @@ def _xywh_to_xyxy(box: list) -> list:
     return [x, y, x + w, y + h]
 
 
-def load_bop_object_dataset(models_dir: str | Path):
+def load_bop_object_dataset(models_dir: str | Path, label_format: str = "obj_{label}"):
     """A `RigidObjectDataset` from a BOP `models/` directory: PLY meshes in
-    mm and the symmetries of `models_info.json`."""
+    mm and the symmetries of `models_info.json`, labelled by `label_format`."""
     from ..meshes.mesh_db import RigidObject, RigidObjectDataset
     from ..ops.symmetries import ContinuousSymmetry, DiscreteSymmetry
 
@@ -130,7 +147,7 @@ def load_bop_object_dataset(models_dir: str | Path):
         sym_c = [ContinuousSymmetry(np.asarray(s["offset"], np.float64), np.asarray(s["axis"], np.float64))
                  for s in info.get("symmetries_continuous", [])]
         objects.append(RigidObject(
-            label=_label(obj_id), mesh_path=ply, mesh_units="mm",
+            label=_label(obj_id, label_format), mesh_path=ply, mesh_units="mm",
             symmetries_discrete=sym_d, symmetries_continuous=sym_c,
         ))
     return RigidObjectDataset(objects)

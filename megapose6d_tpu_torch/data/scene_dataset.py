@@ -1,14 +1,16 @@
 """Scene dataset: annotated frames indexed by (scene_id, view_id).
 
-Counterpart of `ObservationInfos`, `SceneObservation` and `SceneDataset`
-in `megapose6d_tpu/data/scene_dataset.py`. The frame index is a pair of
-numpy columns instead of a DataFrame.
+Counterpart of `megapose6d_tpu/data/scene_dataset.py`. The frame index is
+a pair of numpy columns instead of a DataFrame. The two endless iterators
+draw from `random.Random(seed)` in the JAX package's order, so one seed
+gives the same frames.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+import random
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -81,3 +83,27 @@ class SceneDataset:
     def __iter__(self) -> Iterator[SceneObservation]:
         for i in range(len(self)):
             yield self[i]
+
+
+class RandomIterableSceneDataset:
+    """Endless frames of `scene_ds`, each drawn uniformly at random."""
+
+    def __init__(self, scene_ds: SceneDataset, seed: int = 0):
+        self.scene_ds = scene_ds
+        self.rng = random.Random(seed)
+
+    def __iter__(self) -> Iterator[SceneObservation]:
+        while True:
+            yield self.scene_ds[self.rng.randrange(len(self.scene_ds))]
+
+
+class IterableMultiSceneDataset:
+    """Endless frames from a random choice among endless iterators."""
+
+    def __init__(self, datasets: Sequence, seed: int = 0):
+        self.iterators = [iter(d) for d in datasets]
+        self.rng = random.Random(seed)
+
+    def __iter__(self) -> Iterator[SceneObservation]:
+        while True:
+            yield next(self.rng.choice(self.iterators))

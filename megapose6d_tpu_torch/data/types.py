@@ -40,11 +40,13 @@ class ObjectData:
     bbox_amodal: np.ndarray | None = None  # [4] xyxy
     bbox_modal: np.ndarray | None = None  # [4] xyxy, the visible part
     visib_fract: float | None = None
+    TWO_init: np.ndarray | None = None  # [4, 4], an external initial pose (DeepIM's on ModelNet)
 
     def to_json(self) -> dict:
         d: dict = {"label": self.label}
-        if self.TWO is not None:
-            d["TWO"] = _pose_to_list(self.TWO)
+        for k in ("TWO", "TWO_init"):
+            if getattr(self, k) is not None:
+                d[k] = _pose_to_list(getattr(self, k))
         for k in ("bbox_amodal", "bbox_modal"):
             if getattr(self, k) is not None:
                 d[k] = np.asarray(getattr(self, k)).tolist()
@@ -56,8 +58,9 @@ class ObjectData:
     @staticmethod
     def from_json(d: dict) -> "ObjectData":
         data = ObjectData(label=d["label"], unique_id=d.get("unique_id"), visib_fract=d.get("visib_fract"))
-        if "TWO" in d:
-            data.TWO = _pose_from_list(d["TWO"])
+        for k in ("TWO", "TWO_init"):
+            if k in d:
+                setattr(data, k, _pose_from_list(d[k]))
         for k in ("bbox_amodal", "bbox_modal"):
             if k in d:
                 setattr(data, k, np.array(d[k], dtype=np.float64))
@@ -74,13 +77,17 @@ def object_data_to_json_path(objects: list[ObjectData], path: str | Path) -> Non
 
 @dataclasses.dataclass
 class CameraData:
-    """A frame's camera."""
+    """A frame's camera; `TWC` is its pose in the world (None: the world is
+    the camera's frame, as in BOP)."""
 
     K: np.ndarray | None = None  # [3, 3]
     resolution: tuple[int, int] | None = None  # (h, w)
+    TWC: np.ndarray | None = None  # [4, 4]
 
     def to_json(self) -> str:
         d: dict = {}
+        if self.TWC is not None:
+            d["TWC"] = _pose_to_list(self.TWC)
         if self.K is not None:
             d["K"] = np.asarray(self.K).tolist()
         if self.resolution is not None:
@@ -91,6 +98,8 @@ class CameraData:
     def from_json(data_str: str) -> "CameraData":
         d = json.loads(data_str)
         data = CameraData()
+        if "TWC" in d:
+            data.TWC = _pose_from_list(d["TWC"])
         if "K" in d:
             data.K = np.array(d["K"], dtype=np.float64)
         if "resolution" in d:

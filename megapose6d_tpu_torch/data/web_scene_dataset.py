@@ -4,8 +4,9 @@ Counterpart of `megapose6d_tpu/data/web_scene_dataset.py`: tar shards of
 frames, each frame a key with `rgb.png`, `segmentation.png`, `depth.png`,
 `camera_data.json`, `object_datas.json` and `infos.json`, on the standard
 library's `tarfile`; a writer, a random-access reader and an endless
-shuffled iterator with a sample buffer. PNGs go through the port's codec
-(`utils/png.py`), which reads and writes the same arrays as PIL.
+shuffled iterator with a sample buffer. PNGs are written by the port's
+codec (`utils/png.py`) and read by `native.decode_image` (libpng where the
+native library builds, else `utils/png.py`; both give PIL's arrays).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Iterator
 
 import numpy as np
 
-from ..utils.png import decode_png, encode_png
+from ..native import decode_image
+from ..utils.png import encode_png
 from .scene_dataset import FrameIndex, ObservationInfos, SceneDataset, SceneObservation
 from .types import CameraData, ObjectData
 
@@ -73,11 +75,11 @@ def write_scene_ds_as_wds(
 
 
 def _decode_sample(parts: dict[str, bytes], load_depth: bool) -> SceneObservation:
-    rgb = decode_png(parts["rgb.png"])[..., :3]
-    seg = decode_png(parts["segmentation.png"]).astype(np.uint32) if "segmentation.png" in parts else None
+    rgb = decode_image(parts["rgb.png"])[..., :3]
+    seg = decode_image(parts["segmentation.png"]).astype(np.uint32) if "segmentation.png" in parts else None
     depth = None
     if load_depth and "depth.png" in parts:
-        depth = decode_png(parts["depth.png"]).astype(np.float32) / DEPTH_SCALE
+        depth = decode_image(parts["depth.png"]).astype(np.float32) / DEPTH_SCALE
     infos_d = json.loads(parts.get("infos.json", b"{}"))
     return SceneObservation(
         rgb=rgb, depth=depth, segmentation=seg,

@@ -22,7 +22,7 @@ import torch
 
 from ..data.datasets_cfg import make_object_dataset, make_scene_dataset
 from ..data.tensor_collection import TensorCollection
-from ..inference.load_model import load_or_init_models, load_params_npz
+from ..inference.load_model import load_or_init_models, read_weights, weight_source
 from ..interop.from_jax import detector_state_dict_from_jax
 from ..inference.pose_estimator import PoseEstimator
 from ..meshes.mesh_db import MeshDataBase
@@ -39,13 +39,15 @@ logger = logging.getLogger(__name__)
 def load_detector(run_dir: str | Path, weights: str | Path | None = None,
                   device: str | torch.device = "cuda") -> Detector:
     """A detector from its run directory's `labels.json` and `config.json`,
-    with the weights of an npz export of the JAX run's params (`weights`),
-    else drawn from seed 0; threshold 0.7."""
+    with the weights of `weights` (an npz export of a JAX run's params, or
+    a port checkpoint), else of the run's latest port checkpoint
+    (`run_detector_training`'s), else drawn from seed 0; threshold 0.7."""
     run_dir = Path(run_dir)
     labels = json.loads((run_dir / "labels.json").read_text())
     model = CenterNetDetector(DetectorConfig(**json.loads((run_dir / "config.json").read_text())))
-    if weights:
-        model.load_state_dict(detector_state_dict_from_jax(load_params_npz(weights)))
+    source = weight_source(run_dir, weights)
+    if source is not None:
+        model.load_state_dict(read_weights(source, detector_state_dict_from_jax))
     else:
         logger.warning("detector weights drawn from a seed")
         model.init_weights(torch.Generator().manual_seed(0))
@@ -158,8 +160,6 @@ def run_eval(cfg: EvalConfig, scene_ds=None, object_ds=None) -> Optional[dict]:
         cfg.coarse_weights or None, cfg.refiner_weights or None,
         render_size=tuple(cfg.render_size), max_faces=cfg.max_faces, device=cfg.device,
     )
-    if not (cfg.coarse_weights and cfg.refiner_weights):
-        logger.warning("weights drawn from a seed for the model(s) without a weight file")
     estimator = PoseEstimator(coarse, refiner, mesh_db, cfg.inference, device=cfg.device)
     detector = None
     if cfg.inference.detection_type == "detector":

@@ -4,18 +4,23 @@ named megapose-1.0 configurations.
 Counterpart of `load_or_init_models` in
 `megapose6d_tpu/scripts/run_inference_on_example.py` and of `NAMED_MODELS`
 and `load_named_model` in `megapose6d_tpu/inference/load_model.py`. A run directory
-gives the model configuration (`config.json`). The JAX package's
-checkpoints are orbax (OCDBT, zstd-compressed), which the port does not
-read; the weights come instead from an npz of the params tree, flat keys
-joined by `/` (`backbone/Conv_0/kernel`), written from the checkpoint by
-`python -m tests.test_torch_checkpoints export <run> <out.npz>` where the
-JAX package is installed. Without an npz the weights are drawn from a seed.
+gives the model configuration (`config.json`). The weights come from, in
+order: a weight file given by name, either an npz of a JAX run's params
+tree (flat keys joined by `/`, `backbone/Conv_0/kernel`, written from its
+orbax checkpoint by `python -m tests.test_torch_checkpoints export <run>
+<out.npz>` where the JAX package is installed) or a port checkpoint
+(`state.pt`, or the checkpoint directory holding it, to name a step); the
+run directory's latest port checkpoint (`checkpoints/latest.txt`, as
+`run_training` and `run_detector_training` write them); else a seed, with
+a warning. The JAX package's own checkpoints are orbax (OCDBT,
+zstd-compressed), which the port does not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 import re
 from pathlib import Path
 from typing import Any
@@ -29,6 +34,8 @@ from ..models.pose_predictor import PosePredictor, make_coarse_config, make_refi
 from .depth_refiner import DepthRefiner, GNCRegistrationRefiner, ICPRefiner
 from .pose_estimator import PoseEstimator
 from .types import InferenceConfig
+
+logger = logging.getLogger(__name__)
 
 NAMED_MODELS: dict[str, dict[str, Any]] = {
     "megapose-1.0-RGB": {
@@ -84,6 +91,41 @@ def npz_step(weights: str | Path | None) -> int:
     return int(m.group(1)) if m else 0
 
 
+def run_checkpoint(run_dir: str | Path | None) -> Path | None:
+    """The `state.pt` that a port run's `checkpoints/latest.txt` names
+    (`epoch_N/` of `run_training`, `step_N/` of `run_detector_training`),
+    or None (no such file: a JAX run, or no run)."""
+    if not run_dir:
+        return None
+    ckpt = Path(run_dir) / "checkpoints"
+    latest = ckpt / "latest.txt"
+    if not latest.exists():
+        return None
+    n = latest.read_text().strip()
+    for name in (f"epoch_{n}", f"step_{n}", n):
+        if (ckpt / name / "state.pt").exists():
+            return ckpt / name / "state.pt"
+    return None
+
+
+def weight_source(run_dir: str | Path | None, weights: str | Path | None) -> Path | None:
+    """The weight file of a model: `weights` (an npz, a `state.pt` or a
+    checkpoint directory holding one) if given, else the run's latest port
+    checkpoint, else None."""
+    if weights:
+        path = Path(weights)
+        return path / "state.pt" if path.is_dir() else path
+    return run_checkpoint(run_dir)
+
+
+def read_weights(path: Path, from_jax) -> dict[str, torch.Tensor]:
+    """A module's state dict from an npz export (through `from_jax`) or the
+    `params` of a port checkpoint."""
+    if path.suffix == ".npz":
+        return from_jax(load_params_npz(path))
+    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+
+
 def build_model(
     run_dir: str | Path | None,
     weights: str | Path | None,
@@ -93,13 +135,17 @@ def build_model(
     device: str | torch.device = "cuda",
 ) -> PosePredictor:
     """One `PosePredictor`: the run's configuration (or `default_config`
-    at `render_size`), with the npz's weights or weights drawn from `seed`."""
+    at `render_size`), with the weights of `weight_source(run_dir,
+    weights)`, else drawn from `seed`."""
     cfg = (config_from_run_json(Path(run_dir) / "config.json")[0] if run_dir
            else default_config(render_size=tuple(render_size)))
     model = PosePredictor(cfg)
-    if weights:
-        model.load_state_dict(state_dict_from_jax(load_params_npz(weights)))
+    source = weight_source(run_dir, weights)
+    if source is not None:
+        model.load_state_dict(read_weights(source, state_dict_from_jax))
     else:
+        logger.warning("pose model weights drawn from seed %d (no weight file, no port checkpoint in %s)",
+                       seed, run_dir)
         model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 

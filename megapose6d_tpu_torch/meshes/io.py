@@ -344,9 +344,17 @@ def load_mesh(path: str | Path, **kw) -> TriMesh:
 
 def simplify_vertex_clustering(mesh: TriMesh, target_faces: int) -> TriMesh:
     """Reduce the face count to at most `target_faces` by uniform-grid vertex
-    clustering, with a binary search on the cell size."""
+    clustering, with a binary search on the cell size. Through the native
+    library (`native/meshproc.cc`, as the JAX package does) where it builds,
+    which numbers the vertices and faces as the JAX package's build; else
+    with numpy (the same triangles in another order)."""
     if mesh.n_faces <= target_faces:
         return mesh
+    from .. import native
+
+    if native.meshproc_available():
+        v, f, c = native.simplify_mesh(mesh.vertices, mesh.faces, mesh.vertex_colors, target_faces)
+        return TriMesh(vertices=v, faces=f, vertex_colors=c).with_computed_normals()
     lo, hi = 1e-5, 1.0
     ext = float(np.linalg.norm(mesh.vertices.max(0) - mesh.vertices.min(0)))
     best = None

@@ -104,6 +104,10 @@ class RigidObjectDataset:
     def labels(self) -> list[str]:
         return [o.label for o in self.objects]
 
+    def filter_objects(self, keep_labels: set[str]) -> "RigidObjectDataset":
+        """The objects whose label is in `keep_labels`, in order."""
+        return RigidObjectDataset([o for o in self.objects if o.label in keep_labels])
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m

@@ -221,8 +221,13 @@ class Detector:
     @torch.inference_mode()
     def infer(self, images: Tensor) -> dict[str, Tensor]:
         """Decoded detections of `images [B, H, W, 3]`, and with masks the
-        class probabilities upsampled to the images, `seg [B, H, W, C]`."""
-        raw = self.model(images)
+        class probabilities upsampled to the images, `seg [B, H, W, C]`.
+        cuDNN runs its deterministic algorithms here, so that two calls on
+        one image give the same bits (its transposed convolutions may
+        otherwise sum in another order from call to call)."""
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True, allow_tf32=cudnn.allow_tf32):
+            raw = self.model(images)
         cfg = self.model.cfg
         out = decode_detections(raw, cfg.stride, cfg.max_detections)
         if cfg.predict_masks:

@@ -66,11 +66,18 @@ class BatchPoseData:
             return self.rgbs
         return torch.cat([self.rgbs, self.depths[..., None]], -1)
 
-    def to(self, device: str | torch.device) -> "BatchPoseData":
+    def _map(self, fn) -> "BatchPoseData":
         return BatchPoseData(**{
-            f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+            f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
             for f in dataclasses.fields(self)
         })
+
+    def to(self, device: str | torch.device, non_blocking: bool = False) -> "BatchPoseData":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> "BatchPoseData":
+        """Every tensor in page-locked memory (the DataLoader's pin hook)."""
+        return self._map(lambda t: t.pin_memory())
 
 
 def draws_to(draws, device: str | torch.device):

@@ -23,7 +23,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -371,22 +371,39 @@ def n_iterations_at(cfg: TrainingConfig, epoch: int) -> int:
     return cfg.n_iterations
 
 
+def batch_source(batches: Callable[[int], BatchPoseData] | Iterator[BatchPoseData], start_step: int,
+                 device: torch.device) -> Callable[[int], BatchPoseData]:
+    """`step -> batch` on `device`. A callable is used as it is; an
+    iterator of host batches (the dataset loader's, pinned on the card)
+    gives its batches in turn, each copied with `non_blocking=True`, the
+    first `start_step` skipped: the batch of step s is the stream's s-th,
+    so a resumed run sees what the unbroken one did."""
+    if callable(batches):
+        return batches
+    stream = iter(batches)
+    for _ in range(start_step):
+        next(stream)
+    return lambda step: next(stream).to(device, non_blocking=True)
+
+
 def train(
     cfg: TrainingConfig,
     mesh_db: BatchedMeshes,
-    batches: Callable[[int], BatchPoseData],
-    val_batches: Callable[[int, int], BatchPoseData],
+    batches: Callable[[int], BatchPoseData] | Iterator[BatchPoseData],
+    val_batches: Callable[[int, int], BatchPoseData] | None,
     log_fn: Callable[[dict], None],
 ) -> TrainState:
-    """Train on `batches(step)` on `mesh_db`'s device for `cfg.n_epochs`
-    epochs of `epoch_size // batch_size` steps: per-epoch metric averages
-    as JSON lines in `<run_dir>/<run_id>/log.txt`, also passed to
-    `log_fn`, the iteration ramp, validation every `val_epoch_interval`
-    epochs on `val_batches(epoch, i)` for `N_VAL_BATCHES` batches (forward
-    loss only), checkpoints every `save_epoch_interval` epochs and at the
-    end. `resume_run_id` restores parameters, Adam and the step and
-    continues at the saved epoch + 1; `pretrain_run_id` restores the
-    weights only (a port run or an npz, under `run_dir`)."""
+    """Train on `batches` (see `batch_source`) on `mesh_db`'s device for
+    `cfg.n_epochs` epochs of `epoch_size // batch_size` steps: per-epoch
+    metric averages as JSON lines in `<run_dir>/<run_id>/log.txt`, also
+    passed to `log_fn`, the iteration ramp, validation every
+    `val_epoch_interval` epochs on `val_batches(epoch, i)` for
+    `N_VAL_BATCHES` batches (forward loss only; none without
+    `val_batches`, as on the dataset path), checkpoints every
+    `save_epoch_interval` epochs and at the end. `resume_run_id` restores
+    parameters, Adam and the step and continues at the saved epoch + 1;
+    `pretrain_run_id` restores the weights only (a port run or an npz,
+    under `run_dir`)."""
     run_dir = Path(cfg.run_dir) / cfg.run_id
     run_dir.mkdir(parents=True, exist_ok=True)
     save_config(cfg, run_dir / "config.json")
@@ -399,19 +416,20 @@ def train(
         state = load_pretrained(Path(cfg.run_dir) / cfg.pretrain_run_id, state)
 
     steps_per_epoch = max(1, cfg.epoch_size // cfg.batch_size)
+    batch_at = batch_source(batches, state.step, mesh_db.device)
     for epoch in range(start_epoch, cfg.n_epochs + 1):
         n_iter = n_iterations_at(cfg, epoch)
         sums: dict[str, float] = {}
         t0 = time.monotonic()
         for _ in range(steps_per_epoch):
-            batch = batches(state.step)
+            batch = batch_at(state.step)
             draws = step_draws(cfg, batch, mesh_db, DRAW_STREAM, state.step)
             metrics = train_step(state, cfg, batch, mesh_db, draws, n_iter)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
         log = {k: v / steps_per_epoch for k, v in sums.items()}
         log.update(epoch=epoch, n_iterations=n_iter, time_per_epoch=time.monotonic() - t0)
-        if epoch % max(1, cfg.val_epoch_interval) == 0:
+        if val_batches is not None and epoch % max(1, cfg.val_epoch_interval) == 0:
             val_losses = []
             with torch.no_grad():
                 for i in range(N_VAL_BATCHES):

@@ -62,10 +62,11 @@ def write_png(path: str | Path, img: np.ndarray) -> Path:
     return path
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def decode_png(data: bytes, unfilter_rows=None) -> np.ndarray:
     """PNG bytes -> `[H, W]` (grey) or `[H, W, C]` (RGB, RGBA) array,
     `uint8`, or `uint16` for 16-bit grey. The same arrays as
-    `np.asarray(PIL.Image.open(...))`."""
+    `np.asarray(PIL.Image.open(...))`. `unfilter_rows` replaces `unfilter`
+    (`native.unfilter`, the same bytes in C)."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -99,7 +100,7 @@ def decode_png(data: bytes) -> np.ndarray:
     ftype = raw[:, 0]
     if (ftype > 4).any():
         raise ValueError(f"bad PNG row filter {int(ftype.max())}")
-    pixels = unfilter(raw[:, 1:].reshape(H, W, bpp), ftype)
+    pixels = (unfilter_rows or unfilter)(raw[:, 1:].reshape(H, W, bpp), ftype)
     if depth == 16:
         pixels = pixels.view(">u2").astype(np.uint16)
     pixels = pixels.reshape(H, W, channels)

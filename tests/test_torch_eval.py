@@ -367,11 +367,12 @@ def test_dataset_names(bop_root, tmp_path):
         assert len(keep_bop19(tbop.BOPDataset(bop_root))) == 2
     finally:
         (bop_root / "test_targets_bop19.json").unlink()
+    # Every name resolves now (tests/test_torch_datasets_cfg.py); without its data each raises.
     for name in ("webdataset.x", "modelnet.bathtub.test", "ycbv.bop19"):
-        with pytest.raises(NotImplementedError):
-            make_scene_dataset(name)
-    with pytest.raises(NotImplementedError):
-        make_object_dataset("gso.orig")
+        with pytest.raises(FileNotFoundError):
+            make_scene_dataset(name, data_dir=tmp_path)
+    with pytest.raises(FileNotFoundError):
+        make_object_dataset("gso.orig", data_dir=tmp_path)
     with pytest.raises(ValueError):
         make_object_dataset("nothing_here.bop19", data_dir=tmp_path)
     with pytest.raises(ValueError):

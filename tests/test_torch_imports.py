@@ -59,7 +59,11 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.models.detector", "megapose6d_tpu_torch.data.bop_writer",
         "megapose6d_tpu_torch.data.web_scene_dataset", "megapose6d_tpu_torch.scripts.generate_synthetic_dataset",
         "megapose6d_tpu_torch.scripts.run_detector_training", "megapose6d_tpu_torch.scripts.run_full_eval",
-        "megapose6d_tpu_torch.meshes.worlds",
+        "megapose6d_tpu_torch.meshes.worlds", "megapose6d_tpu_torch.bop_config",
+        "megapose6d_tpu_torch.native", "megapose6d_tpu_torch.utils.imaging",
+        "megapose6d_tpu_torch.data.augmentations", "megapose6d_tpu_torch.data.pose_dataset",
+        "megapose6d_tpu_torch.data.loader", "megapose6d_tpu_torch.data.object_datasets",
+        "megapose6d_tpu_torch.data.modelnet",
     }
     assert expected <= set(out["modules"])
 

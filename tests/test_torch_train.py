@@ -190,6 +190,7 @@ def test_run_training_cli(tmp_path):
     assert set(log) == JAX_LOG_KEYS and all(np.isfinite(v) for v in log.values())
     assert (run / "checkpoints/epoch_1/state.pt").exists() and state.step == 1
     assert load_config(run / "config.json").backbone_str == "resnet18"
-    with pytest.raises(NotImplementedError, match="M10"):
+    # Neither synthetic=1 nor train_datasets=: refused, as the JAX package's CLI refuses it.
+    with pytest.raises(ValueError, match="train_datasets"):
         run_training.main([a for a in TINY if a != "synthetic=1"] + [f"run_dir={tmp_path}"])
     shutil.rmtree(tmp_path)
