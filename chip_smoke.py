@@ -145,7 +145,25 @@ Phases, each printing one line with its wall time:
      ran; one batch through a refiner step on the card and the CPU, stage
      by stage; K1 at the path's launch shapes (refiner B=64, coarse
      B=128) bit for bit and timed; run_eval of the trained runs on 2
-     frames, read from their checkpoints.
+     frames, read from their checkpoints;
+ 20. multi-device and reference weights: phase 4's request with
+     `device_mesh` = the card twice, in float32 twins against the
+     unsharded run at the same chunks (and, not held, at its own), one
+     bf16 sharded request, one request whose rows the sharded mode pads
+     with identity poses, K1 at the sharded shapes; run_training at
+     runs/refiner_dr's settings for 3 steps in float32 as one NCCL rank
+     and as two gloo rank processes on the card (`chip_smoke.py dp-worker
+     <run_id>`, every exit code checked): the first step's averaged
+     gradients and the parameters against the 1-rank run by phase 13's
+     own-move rule, one label-sharded step (synthdemo's objects, one
+     shard a rank), 2 dataset-fed steps (a loader per rank), which gloo
+     collectives take CUDA tensors, each rank's
+     bf16 step by part with the all-reduce's share, K1 at a rank's
+     shapes; run_eval of 8 frames as world 1 and as ranks 0 and 1 of 2,
+     the ranks' union against world 1; seeded reference-layout
+     zoo_resnet34 checkpoint.pth.tar files served at full width and
+     through from_jax, K1 at the 4-view refiner's shape; a
+     zoo_resnet34-train step on the card against the CPU.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -173,7 +191,7 @@ from megapose6d_tpu_torch.evaluation.evaluation import load_predictions, run_eva
 from megapose6d_tpu_torch.evaluation.meters import BOPScoreMeter
 from megapose6d_tpu_torch.evaluation.runner import EvaluationRunner
 from megapose6d_tpu_torch.evaluation.vsd import BOP19_THRESHOLDS
-from megapose6d_tpu_torch.data.tensor_collection import TensorCollection
+from megapose6d_tpu_torch.data.tensor_collection import TensorCollection, concatenate
 from megapose6d_tpu_torch.inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
 from megapose6d_tpu_torch.inference.load_model import build_model, load_named_model
 from megapose6d_tpu_torch.inference.pose_estimator import PoseEstimator
@@ -363,14 +381,19 @@ def phase_kernel_vs_plain(errors: list[float]) -> None:
               f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f}", flush=True)
 
 
-def build_scene_pipeline(cfg_coarse, cfg_refiner, db_kw, inference_cfg, device, seed=0):
+def scene_mesh_db(db_kw, device):
+    """The committed scene's models, with a run's mesh-database settings."""
     objects = RigidObjectDataset([
         RigidObject(label=p.stem, mesh_path=p, mesh_units="mm")
         for p in sorted((SCENE / "models").glob("*.ply"))
     ])
-    mesh_db = MeshDataBase.from_object_ds(
+    return MeshDataBase.from_object_ds(
         objects, max_faces=db_kw["max_faces"], n_points=db_kw["n_points_mesh"], n_sym=db_kw["n_sym"],
     ).batched(device=device)
+
+
+def build_scene_pipeline(cfg_coarse, cfg_refiner, db_kw, inference_cfg, device, seed=0):
+    mesh_db = scene_mesh_db(db_kw, device)
     coarse = build_pose_predictor(cfg_coarse, seed=seed, device=device)
     refiner = build_pose_predictor(cfg_refiner, seed=seed + 1, device=device)
     return PoseEstimator(coarse, refiner, mesh_db, inference_cfg, device=device)
@@ -2628,6 +2651,743 @@ def phase_dataset_training(errors: list[float]) -> tuple[int, dict]:
     return launches + dataset_eval(), shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: several devices and the reference's own weights
+# ---------------------------------------------------------------------------
+
+DP_RUNS = BUILD_DIR / "dp_runs"
+DP_STEPS = 3
+MESH = [torch.device("cuda", 0)] * 2  # two shards on the one card
+
+
+def sharded_chunks(n: int, chunk: int, n_dev: int) -> int:
+    """Launches of `n` hypotheses in the sharded mode (`PoseEstimator._shards`):
+    per device `ceil(n / (n_dev * c)) * c` rows in chunks of
+    `c = min(chunk, ceil(n / n_dev))`."""
+    c = min(chunk, -(-n // n_dev))
+    return n_dev * (-(-n // (n_dev * c)))
+
+
+def sharded_phases(n_det: int, cfg: InferenceConfig, n_dev: int) -> list[str]:
+    """The phase of each kernel launch of one sharded request, in order."""
+    n = n_det * cfg.SO3_grid_size
+    coarse = sharded_chunks(n, min(cfg.bsz_images, n), n_dev)
+    k = n_det * cfg.n_pose_hypotheses
+    chunks = sharded_chunks(k, min(cfg.bsz_objects, k), n_dev)
+    return ["coarse"] * coarse + ["refiner"] * (chunks * cfg.n_refiner_iterations) + ["rescore"] * chunks
+
+
+def poses_gap(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(largest rotation gap in degrees, largest translation gap over the
+    distance) between two pose sets."""
+    rel = ((a[:, :3, 3] - b[:, :3, 3]).norm(dim=-1) / b[:, :3, 3].norm(dim=-1)).max().item()
+    return rot_deg(a, b).max().item(), rel
+
+
+def kernel_by_phase(prefix: str, est, obs, dets, phases: list[str], errors: list[float], shapes: dict) -> None:
+    """K1 at each phase's launches of one more request, bit for bit
+    against the plain twin and timed (`kernel_at`)."""
+    launches = capture_launches(est, obs, dets)
+    check(len(launches) == len(phases), f"{prefix}: {len(launches)} launches, expected {len(phases)}")
+    for phase in dict.fromkeys(phases):
+        kernel_at(f"{prefix} {phase}", [v for v, p in zip(launches, phases) if p == phase], errors, shapes)
+
+
+def sharded_vs_single(name: str, sharded, single, obs, dets, out) -> None:
+    """One request sharded against unsharded at the same chunk sizes:
+    every output finite, the coarse logits of every hypothesis within 1e-4
+    of the largest, the same top-K, the refined poses of all K hypotheses
+    and the final poses within 0.1 degree and 1e-4 of the distance (bit
+    for bit expected where the launches are the same on the same card)."""
+    ref, extra = single.run_inference_pipeline(obs, dets)
+    sx = out[1]
+    check(all(bool(torch.isfinite(t).all()) for t in (out[0].poses, sx["coarse"]["logits"],
+                                                      sx["refiner"]["TCO_refined"], sx["refiner"]["pose_logits"])),
+          f"{name}: sharded outputs not finite")
+    lg = (sx["coarse"]["logits"] - extra["coarse"]["logits"]).abs().max().item()
+    check(lg <= 1e-4 * max(1.0, extra["coarse"]["logits"].abs().max().item()),
+          f"{name}: sharded coarse logits differ")
+    check(torch.equal(sx["coarse"]["top_ids"], extra["coarse"]["top_ids"]), f"{name}: another top-K")
+    deg, rel = poses_gap(sx["refiner"]["TCO_refined"].reshape(-1, 4, 4), extra["refiner"]["TCO_refined"].reshape(-1, 4, 4))
+    fdeg, frel = poses_gap(out[0].poses, ref.poses)
+    tm = extra["timing"]
+    print(f"  f32 {name}, sharded vs unsharded at the same chunks: coarse logits {lg:.3g}; refined poses "
+          f"{deg:.3g} deg, {rel:.3g} of the distance; final poses {fdeg:.3g} deg, {frel:.3g}; bit for bit "
+          f"{torch.equal(out[0].poses, ref.poses)}; unsharded coarse_s={tm['coarse']:.4f} "
+          f"refiner_s={tm['refiner']:.4f} scoring_s={tm['scoring']:.4f}", flush=True)
+    check(max(deg, fdeg) < 0.1 and max(rel, frel) < 1e-4, f"{name}: sharded poses differ")
+
+
+def sharded_inference(errors: list[float], shapes: dict) -> int:
+    """Phase 4's request (resnet18-spatial at 240x320, 576 / K=5 / 5
+    iterations, 2 detections, committed frames) with `device_mesh` = the
+    card twice and without, on float32 twins of the models (bf16 cuDNN
+    algorithms may differ between chunk sizes), the unsharded run at the
+    sharded run's chunk sizes (`sharded_vs_single`); beside it, not held,
+    the unsharded run at its own chunks (the seeded refiner amplifies the
+    last-bit differences of another batch size, ROADMAP Queue 3); one bf16
+    sharded request; one f32 request whose chunks the devices' rows do not
+    fill (coarse chunks of 400, refiner chunks of 4: 1152 -> 1600 coarse
+    rows and 10 -> 16 refiner rows, identity poses of mesh 0 in the pad, a
+    live chunk part pad), held as the others; K1 at the sharded shapes.
+    Returns the sharded path's launches."""
+    cfg_c, db_kw = config_from_run_json(ROOT / "runs/coarse_dr/config.json")
+    cfg_r, _ = config_from_run_json(ROOT / "runs/refiner_dr/config.json")
+    f32 = lambda c: dataclasses.replace(c, compute_dtype="float32")  # noqa: E731
+    icfg = InferenceConfig()
+    own = build_scene_pipeline(f32(cfg_c), f32(cfg_r), db_kw, icfg, "cuda")
+    sharded = PoseEstimator(own.coarse_model, own.refiner_model, own.mesh_db, icfg, device="cuda", device_mesh=MESH)
+    requests = scene_requests(2)
+    n_det = {len(d) for _, d in requests}
+    check(len(n_det) == 1, "requests with other detection counts")
+    # The sharded chunks: min(bsz, ceil(N / n_dev)) of N = D * M and D * K.
+    same_chunks = dataclasses.replace(icfg, bsz_objects=-(-n_det.pop() * icfg.n_pose_hypotheses // len(MESH)))
+    single = PoseEstimator(own.coarse_model, own.refiner_model, own.mesh_db, same_chunks, device="cuda")
+    bf16 = build_scene_pipeline(cfg_c, cfg_r, db_kw, icfg, "cuda")
+    bf16_sharded = PoseEstimator(bf16.coarse_model, bf16.refiner_model, bf16.mesh_db, icfg, device="cuda",
+                                 device_mesh=MESH)
+    pad_cfg = dataclasses.replace(icfg, bsz_images=400, bsz_objects=4)
+    padded = PoseEstimator(own.coarse_model, own.refiner_model, own.mesh_db, pad_cfg, device="cuda", device_mesh=MESH)
+    padded_single = PoseEstimator(own.coarse_model, own.refiner_model, own.mesh_db, pad_cfg, device="cuda")
+    rt.visibility_kernel.launches = 0  # the sharded-inference path starts here
+    expected, outs = 0, []
+    for i, (obs, dets) in enumerate(requests):
+        t0 = time.perf_counter()
+        outs.append(sharded.run_inference_pipeline(obs, dets))
+        torch.cuda.synchronize()
+        tm = outs[-1][1]["timing"]
+        print(f"  sharded f32 request {i}{' (warm-up)' if i == 0 else ''}: coarse_s={tm['coarse']:.4f} "
+              f"refiner_s={tm['refiner']:.4f} scoring_s={tm['scoring']:.4f} wall_s={time.perf_counter() - t0:.4f}",
+              flush=True)
+        expected += len(sharded_phases(len(dets), icfg, len(MESH)))
+    bf_out = bf16_sharded.run_inference_pipeline(*requests[1])
+    expected += len(sharded_phases(len(requests[1][1]), icfg, len(MESH)))
+    pad_out = padded.run_inference_pipeline(*requests[1])
+    expected += len(sharded_phases(len(requests[1][1]), pad_cfg, len(MESH)))
+    launches = rt.visibility_kernel.launches  # read right after the path
+    print(f"  kernel launches on the sharded path: {launches} (expected {expected})", flush=True)
+    check(launches == expected, "the sharded path did not launch K1 as expected")
+    for i, (obs, dets) in enumerate(requests):
+        sharded_vs_single(f"request {i}", sharded, single, obs, dets, outs[i])
+        deg, rel = poses_gap(outs[i][0].poses, own.run_inference_pipeline(obs, dets)[0].poses)
+        print(f"  f32 request {i}, sharded vs unsharded at its own chunks (refiner chunk "
+              f"{min(icfg.bsz_objects, len(dets) * icfg.n_pose_hypotheses)}): final poses {deg:.3g} deg, {rel:.3g} "
+              f"of the distance (not held)", flush=True)
+    deg, rel = poses_gap(bf_out[0].poses, bf16.run_inference_pipeline(*requests[1])[0].poses)
+    print(f"  bf16 request: sharded vs unsharded poses {deg:.3g} deg, {rel:.3g} of the distance (not held: "
+          f"other chunk sizes may take other bf16 cuDNN algorithms)", flush=True)
+    n_det = len(requests[1][1])
+    n_coarse, n_refine = n_det * icfg.SO3_grid_size, n_det * icfg.n_pose_hypotheses
+    print(f"  padded request: coarse {n_coarse} -> {sharded_chunks(n_coarse, 400, len(MESH)) * 400} rows in chunks "
+          f"of 400, refiner {n_refine} -> {sharded_chunks(n_refine, 4, len(MESH)) * 4} rows in chunks of 4", flush=True)
+    sharded_vs_single("padded request", padded, padded_single, *requests[1], pad_out)
+    obs, dets = requests[1]
+    kernel_by_phase("sharded", sharded, obs, dets, sharded_phases(len(dets), icfg, len(MESH)), errors, shapes)
+    kernel_by_phase("sharded padded", padded, obs, dets, sharded_phases(len(dets), pad_cfg, len(MESH)), errors,
+                    shapes)
+    return launches
+
+
+def dp_args(run_id: str) -> list[str]:
+    """`run_training synthetic=1` at runs/refiner_dr's settings, 3 steps, in
+    float32: in bfloat16 another batch size's cuDNN algorithms move a
+    gradient as far as a 1-ulp change of the observations does (~10% of
+    a tensor's largest entry on an H100; ROADMAP Queue 3)."""
+    return ["config_id=refiner", *run_overrides("refiner_dr"), "synthetic=1", "device=cuda", f"run_dir={DP_RUNS}",
+            f"run_id={run_id}", f"n_epochs={DP_STEPS}", "epoch_size=32", "batch_size=32",
+            "save_epoch_interval=100", "val_epoch_interval=100", "compute_dtype=float32"]
+
+
+def step0_grads(cfg, rank: int, world: int, scale: float = 1.0, halves: int = 1) -> dict:
+    """The gradients of the first step's global batch at the initial
+    weights: this rank's rows averaged over the ranks (all-reduced), or in
+    one process the mean over the batch's `halves` parts."""
+    db = run_training.synthetic_mesh_db(cfg, "cuda")
+    synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
+    state = tt.create_train_state(cfg, "cuda")
+    if world > 1:
+        draws = tt.rank_rows(synth.draw(tt.step_generator(cfg.seed, tt.BATCH_STREAM, 0)), rank, world)
+        batch = synth.make(draws_to(draws, "cuda"))
+        fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, 0, rank=rank, world=world)
+        loss, _ = forward_loss(state.model, cfg, batch, db, fdraws, cfg.n_iterations)
+        grads = tt.all_reduce_mean(list(torch.autograd.grad(loss, state.params)), torch.distributed.group.WORLD)
+    else:
+        grads = part_grads(state, cfg, synth, db, 0, halves, scale)
+    return {n: g.float().cpu() for (n, _), g in zip(state.model.named_parameters(), grads)}
+
+
+def replay_training(cfg, scale: float, halves: int = 1) -> dict:
+    """`run_training`'s 1-rank steps replayed in this process, each batch's
+    observations scaled by `scale`, each step's gradient the mean of its
+    batch's `halves` parts (as `halves` ranks compute it, without the
+    all-reduce); the parameters after them."""
+    db = run_training.synthetic_mesh_db(cfg, "cuda")
+    synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
+    state = tt.create_train_state(cfg, "cuda")
+    for step in range(DP_STEPS):
+        grads = part_grads(state, cfg, synth, db, step, halves, scale)
+        state.apply_gradients(grads, cfg.clip_grad_norm)
+    return {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+
+
+def part_grads(state, cfg, synth, db, step: int, halves: int, scale: float = 1.0) -> list:
+    """The mean over the `halves` parts of step `step`'s global batch of
+    each part's gradients (one part: the whole batch's)."""
+    total = None
+    for h in range(halves):
+        draws = tt.rank_rows(synth.draw(tt.step_generator(cfg.seed, tt.BATCH_STREAM, step)), h, halves)
+        batch = synth.make(draws_to(draws, "cuda"))
+        batch = dataclasses.replace(batch, rgbs=batch.rgbs * scale)
+        fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, step, rank=h, world=halves)
+        loss, _ = forward_loss(state.model, cfg, batch, db, fdraws, tt.n_iterations_at(cfg, step + 1))
+        g = torch.autograd.grad(loss, state.params)
+        total = list(g) if total is None else [a + b for a, b in zip(total, g)]
+    return [t / halves for t in total] if halves > 1 else total
+
+
+def dp_step_times(cfg, rank: int, world: int, n: int = 4) -> dict:
+    """Seconds of a data-parallel step by part (CUDA events): the rank's
+    batch render, forward, backward, the all-reduce, Adam; mean over `n`
+    steps after one warm-up."""
+    import torch.distributed as dist
+
+    db = run_training.synthetic_mesh_db(cfg, "cuda")
+    synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
+    state = tt.create_train_state(cfg, "cuda")
+    group = dist.group.WORLD if world > 1 else None
+    marks: list = []
+
+    def mark():
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    reduce, forward, apply = tt.all_reduce_mean, tt.forward_loss, state.apply_gradients
+
+    def marked_forward(*a, **k):
+        mark()
+        out = forward(*a, **k)
+        mark()
+        return out
+
+    def marked_reduce(*a, **k):
+        mark()
+        out = reduce(*a, **k)
+        mark()
+        return out
+
+    def marked_apply(*a, **k):
+        if world == 1:  # no all-reduce: an empty span in its place
+            mark()
+            mark()
+        mark()
+        return apply(*a, **k)
+
+    tt.forward_loss, tt.all_reduce_mean, state.apply_gradients = marked_forward, marked_reduce, marked_apply
+    times = []
+    try:
+        for i in range(n + 1):
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark()
+            draws = tt.rank_rows(synth.draw(tt.step_generator(cfg.seed, tt.BATCH_STREAM, i)), rank, world)
+            batch = synth.make(draws_to(draws, "cuda"))
+            fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, i, rank=rank, world=world)
+            tt.train_step(state, cfg, batch, db, fdraws, cfg.n_iterations, group)
+            mark()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            parts = {"batch": (0, 1), "forward": (1, 2), "backward": (2, 3), "all_reduce": (3, 4), "adam": (5, 6)}
+            if i:
+                times.append({**{p: marks[a].elapsed_time(marks[b]) / 1e3 for p, (a, b) in parts.items()},
+                              "wall": wall})
+    finally:
+        tt.forward_loss, tt.all_reduce_mean = forward, reduce
+        del state.apply_gradients
+    return {k: sum(t[k] for t in times) / n for k in times[0]}
+
+
+def label_sharded_step(cfg, rank: int, world: int) -> dict:
+    """One label-sharded step: the synthdemo objects split over the ranks
+    (`ShardedMeshDB`, this rank's shard only, the pad targets of the whole
+    set), a batch of `batch_size / world` of the rank's labels with local
+    indices, its draws carrying the shard index, gradients averaged."""
+    import torch.distributed as dist
+
+    from megapose6d_tpu_torch.meshes.sharded_db import ShardedMeshDB
+
+    objects = make_object_dataset("synthdemo.bop19", data_dir=str(EVAL_DATA))
+    db_kw = dict(max_faces=cfg.max_faces, n_points=cfg.n_points_mesh, n_sym=cfg.n_sym)
+    V, F = MeshDataBase.from_object_ds(objects, **db_kw).pad_targets()
+    sdb = ShardedMeshDB.build(objects, n_shards=world, devices="cuda", shard_ids=[rank], n_vertices_pad=V,
+                              n_faces_pad=F, **db_kw)
+    local = sdb.local_shard(rank)
+    synth = tt.synthetic_batch_fn(local, cfg.batch_size // world, tuple(cfg.input_resize), device="cuda")
+    batch = synth(tt.step_generator(cfg.seed, tt.BATCH_STREAM, 0, shard=rank))
+    draws = tt.step_draws(cfg, batch, local, tt.DRAW_STREAM, 0, shard=rank)
+    state = tt.create_train_state(cfg, "cuda")
+    metrics = tt.train_step(state, cfg, batch, local, draws, cfg.n_iterations, dist.group.WORLD)
+    sums = torch.stack([p.detach().double().sum() for p in state.params]).cpu()
+    gathered = [torch.empty_like(sums) for _ in range(world)]
+    dist.all_gather(gathered, sums)
+    return {"labels": list(local.labels), "all_labels": sorted(objects.labels), "metrics": metrics,
+            "params_equal": all(torch.equal(g, gathered[0]) for g in gathered)}
+
+
+class RecordedLoader:
+    """A dataset loader that notes each batch's rows and the sum of its
+    observations."""
+
+    def __init__(self, loader, seen: list):
+        self.loader, self.seen = loader, seen
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.loader)
+        self.seen.append((batch.rgbs.shape[0], batch.rgbs.double().sum().item()))
+        return batch
+
+    def close(self):
+        self.loader.close()
+
+
+def dataset_fed_ranks() -> dict:
+    """`run_training train_datasets=synthdemo.bop19` at runs/refiner_dr's
+    width for 2 steps on this rank (its own inline loader of
+    `batch_size / world` samples); the rows and sums of its batches and of
+    its parameters after."""
+    seen: list = []
+    make = run_training.dataset_loader
+    run_training.dataset_loader = lambda *a, **k: RecordedLoader(make(*a, **k), seen)
+    try:
+        state = run_training.main(dataset_args("refiner_dr", "dp_bop", 0, "n_epochs=2") + [f"run_dir={DP_RUNS}"])
+    finally:
+        run_training.dataset_loader = make
+    return {"batches": seen, "steps": state.step,
+            "param_sums": [p.detach().double().sum().item() for p in state.params]}
+
+
+def gloo_cuda_collectives(world: int) -> dict[str, str]:
+    """Which of gloo's collectives take CUDA tensors on this machine: each
+    tried once on a tensor on the card, "ok" or the error's first words."""
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    tries = {"all_reduce": lambda: dist.all_reduce(x), "broadcast": lambda: dist.broadcast(x, src=0),
+             "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x),
+             "reduce_scatter": lambda: dist.reduce_scatter(torch.empty_like(x), [x.clone() for _ in range(world)])}
+    out = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:  # a collective gloo does not implement for CUDA tensors
+            out[name] = str(e).splitlines()[0][:90]
+    return out
+
+
+def dp_worker(argv: list[str]) -> int:
+    """One rank of phase 20's data-parallel runs (`chip_smoke.py dp-worker
+    <run_id>`, with torchrun's variables set): `run_training` for 3 steps
+    and, with two ranks, one label-sharded step and 2 dataset-fed steps,
+    K1's launches counted;
+    then the first step's averaged gradients, the step by part and, on
+    rank 0 of two, K1 at the rank's launch shapes. Prints `DP_REPORT
+    <json>`."""
+    import torch.distributed as dist
+
+    run_id = argv[0]
+    pin_f32()
+    rt.visibility_kernel.library()
+    rt.visibility_kernel.launches = 0  # the data-parallel training path starts here
+    state = run_training.main(dp_args(run_id))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = load_config(DP_RUNS / run_id / "config.json")
+    report = {"rank": rank, "world": world, "backend": dist.get_backend(), "steps": state.step,
+              "device": str(state.params[0].device)}
+    if world > 1:
+        report["label_sharded"] = label_sharded_step(cfg, rank, world)
+        report["dataset_fed"] = dataset_fed_ranks()
+    report["launches"] = rt.visibility_kernel.launches  # read right after the path
+    if world > 1 and report["backend"] == "gloo":
+        report["gloo_cuda"] = gloo_cuda_collectives(world)
+    grads = step0_grads(cfg, rank, world)
+    if rank == 0:
+        out = {"grads": grads}
+        if world == 1:  # the 1-rank run's own moves: 1-ulp scalings, the replay, the batch in halves
+            out["moves"] = [step0_grads(cfg, 0, 1, 1 + s * 2.0**-23) for s in (1, -1)]
+            out["split"] = step0_grads(cfg, 0, 1, halves=2)
+            out["initial"] = {n: p.detach().cpu() for n, p in tt.create_train_state(cfg, "cuda").model.named_parameters()}
+            out["replayed"] = replay_training(cfg, 1.0)
+            out["param_moves"] = [replay_training(cfg, 1 + s * 2.0**-23) for s in (1, -1)]
+            out["split_params"] = replay_training(cfg, 1.0, halves=2)
+        torch.save(out, DP_RUNS / f"{run_id}_grads.pt")
+    report["step"] = dp_step_times(load_config(ROOT / "runs/refiner_dr/config.json"), rank, world)
+    if rank == 0 and world > 1:
+        db = run_training.synthetic_mesh_db(cfg, "cuda")
+        synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
+        captured: list = []
+        restore = record_visibility_inputs(captured)
+        try:
+            batch = synth.make(draws_to(tt.rank_rows(synth.draw(tt.step_generator(cfg.seed, tt.BATCH_STREAM, 0)), 0, world),
+                                        "cuda"))
+            fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, 0, rank=0, world=world)
+            forward_loss(tt.create_train_state(cfg, "cuda").model, cfg, batch, db, fdraws, cfg.n_iterations)
+        finally:
+            rt.visibility = restore
+        errors: list[float] = []
+        shapes: dict = {}
+        kernel_at(f"data-parallel observations B={captured[0][0].shape[0]}", captured[:1], errors, shapes)
+        kernel_at(f"data-parallel refiner B={captured[1][0].shape[0]}", captured[1:], errors, shapes)
+        report.update(shapes=shapes, max_abs_err=max(errors))
+    print("DP_REPORT " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(run_id: str, world: int) -> list[dict]:
+    """`world` rank processes of `dp_worker` on the card; every one must
+    exit 0. Their reports, by rank."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "dp-worker", run_id],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:  # none outlives the phase
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(log[-6000:], flush=True)
+        check(p.returncode == 0, f"{run_id}: rank {r} of {world} exited {p.returncode}")
+        lines = [line for line in log.splitlines() if line.startswith("DP_REPORT ")]
+        check(len(lines) == 1, f"{run_id}: rank {r} printed no report")
+        for line in log.splitlines():
+            if line.startswith("  K1 ") or line.startswith("  data-parallel"):
+                print(f"  [{run_id} rank {r}]{line}", flush=True)
+        reports.append(json.loads(lines[0][len("DP_REPORT "):]))
+    return reports
+
+
+def dp_training(errors: list[float], shapes: dict) -> int:
+    """runs/refiner_dr's settings for 3 steps: one rank over NCCL, then two
+    rank processes on the one card over gloo (NCCL refuses two ranks on
+    one card), each step's global batch of 32 split 16 / 16. The first
+    step's averaged gradients are held to the 1-rank gradients within the
+    larger of 1e-4 of each tensor's largest entry and twice the tensor's
+    own move under a 1 +- 2^-23 scaling of the observations (phase 13's
+    rule), and, since the ranks run the 1-rank arithmetic on half
+    batches, that move also counts the batch computed in two halves in one
+    process (cuDNN takes other algorithms at 16 than at 32); to that
+    split computation the 2-rank run is held by the 1-ulp rule alone. The
+    parameters are held by the same rules on the norm of each tensor's
+    difference over the norm of its update (Adam turns a gradient entry
+    near 0 into a step of either sign), their own move being the 1-rank
+    steps replayed with the observations scaled by 1 +- 2^-23, unscaled
+    (the run-to-run spread of cuDNN's backward) and in halves.
+    One label-sharded step with the synthdemo objects over the two ranks;
+    2 dataset-fed steps, each rank with a loader of its own (16 samples a
+    batch, a stream of its own), the ranks' parameters equal after.
+    The step by part in bf16 (the run's dtype), the all-reduce's share."""
+    shutil.rmtree(DP_RUNS, ignore_errors=True)
+    DP_RUNS.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    one = run_ranks("w1", 1)
+    two = run_ranks("w2", 2)
+    check(one[0]["backend"] == "nccl" and all(r["backend"] == "gloo" for r in two), "backends")
+    check(all(r["steps"] == DP_STEPS for r in one + two), "steps")
+    cfg = load_config(DP_RUNS / "w1" / "config.json")
+    per_step = 1 + cfg.n_iterations  # the observations' render and each iteration's
+    # Two ranks add the label-sharded step and 2 dataset-fed steps (no observation render).
+    expected = {1: DP_STEPS * per_step, 2: (DP_STEPS + 1) * per_step + 2 * cfg.n_iterations}
+    for r in one + two:
+        check(r["launches"] == expected[r["world"]], f"rank {r['rank']} of {r['world']}: {r['launches']} launches, "
+              f"expected {expected[r['world']]}")
+    launches = sum(r["launches"] for r in one + two)
+    load = lambda run: torch.load(DP_RUNS / run / "checkpoints" / f"epoch_{DP_STEPS}" / "state.pt",  # noqa: E731
+                                  map_location="cpu", weights_only=True)["params"]
+    p1, p2 = load("w1"), load("w2")
+    g1 = torch.load(DP_RUNS / "w1_grads.pt", weights_only=True)
+    g2 = torch.load(DP_RUNS / "w2_grads.pt", weights_only=True)["grads"]
+    rel = lambda a, b: {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in b}  # noqa
+    p0 = g1["initial"]
+    # Adam turns a gradient entry near 0 into a step of either sign, so a
+    # parameter's largest entry is no scale for its gap: its update is.
+    upd = lambda a, b: {n: ((a[n] - b[n]).norm() / (b[n] - p0[n]).norm().clamp_min(1e-30)).item() for n in b}  # noqa
+    print(f"  1-rank steps replayed in-process vs run_training: worst {max(upd(g1['replayed'], p1).values()):.3g} "
+          f"of a tensor's update (cuDNN's backward need not sum in one order run to run)", flush=True)
+    # Two ranks compute the 1-rank arithmetic on two half batches: held to
+    # that in one process first, then to the 1-rank run, whose own move
+    # counts the half batches (cuDNN picks other algorithms at 16 than at 32).
+    print(f"  2 ranks vs the same half batches in one process: gradients worst "
+          f"{max(rel(g2, g1['split']).values()):.3g} of a tensor's largest entry, parameters worst "
+          f"{max(upd(p2, g1['split_params']).values()):.3g} of a tensor's update", flush=True)
+    for what, scale, gap, moved in (
+            ("first step's averaged gradients", "the tensor's largest entry", rel(g2, g1["grads"]),
+             [rel(m, g1["grads"]) for m in [*g1["moves"], g1["split"]]]),
+            (f"parameters after {DP_STEPS} steps", "the norm of the tensor's update", upd(p2, p1),
+             [upd(m, p1) for m in [g1["replayed"], *g1["param_moves"], g1["split_params"]]])):
+        move = {n: max(m[n] for m in moved) for n in gap}
+        worst = max(gap, key=gap.get)
+        beyond = [f"{n} {gap[n]:.3g} (own move {move[n]:.3g})" for n in gap if gap[n] > 1e-4]
+        failing = [f"{n} {gap[n]:.3g} (own move {move[n]:.3g})" for n in gap if gap[n] > max(1e-4, 2 * move[n])]
+        print(f"  2 ranks (gloo) vs 1 rank (nccl), float32, {what}: worst {gap[worst]:.3g} of {scale} ({worst}); "
+              f"beyond 1e-4: {', '.join(beyond[:6]) or 'none'}{' ...' if len(beyond) > 6 else ''} "
+              f"({len(beyond)} of {len(gap)}); beyond twice their own move: {', '.join(failing) or 'none'}",
+              flush=True)
+        check(not failing, f"2-rank {what} differ from 1-rank")
+    split_gap = {**rel(g2, g1["split"]), **{f"{n} (parameters)": v for n, v in upd(p2, g1["split_params"]).items()}}
+    own = {**{n: max(rel(m, g1["grads"])[n] for m in g1["moves"]) for n in g2},
+           **{f"{n} (parameters)": max(upd(m, p1)[n] for m in [g1["replayed"], *g1["param_moves"]]) for n in p1}}
+    check(all(split_gap[n] <= max(1e-4, 2 * own[n]) for n in split_gap),
+          "2 ranks differ from the same half batches in one process")
+    ls = [r["label_sharded"] for r in two]
+    check(all(x["params_equal"] for x in ls) and ls[0]["metrics"] == ls[1]["metrics"], "label-sharded ranks differ")
+    check(sorted(ls[0]["labels"] + ls[1]["labels"]) == ls[0]["all_labels"], "label shards do not cover the objects")
+    fed = [r["dataset_fed"] for r in two]
+    rows = [[n for n, _ in f["batches"]] for f in fed]
+    print(f"  dataset-fed, 2 ranks (synthdemo.bop19, inline loaders): rows a batch {rows}; first batches' sums "
+          f"{[f['batches'][0][1] for f in fed]}; parameters equal on both ranks "
+          f"{fed[0]['param_sums'] == fed[1]['param_sums']}", flush=True)
+    check(all(f["steps"] == 2 for f in fed) and rows == [[cfg.batch_size // 2] * 2] * 2
+          and fed[0]["batches"][0][1] != fed[1]["batches"][0][1] and fed[0]["param_sums"] == fed[1]["param_sums"]
+          and all(np.isfinite(fed[0]["param_sums"])), "dataset-fed ranks")
+    print(f"  gloo collectives on CUDA tensors: {two[0]['gloo_cuda']}", flush=True)
+    print(f"  label-sharded step: shards {[x['labels'] for x in ls]}; loss_total {ls[0]['metrics']['loss_total']:.6g}"
+          f", grad_norm {ls[0]['metrics']['grad_norm']:.6g}, parameters equal on both ranks", flush=True)
+    for r in one + two:
+        s = r["step"]
+        print(f"  bf16 step by part (runs/refiner_dr's dtype), rank {r['rank']} of {r['world']} ({r['backend']}, "
+              f"{r['device']}): "
+              + " ".join(f"{k}_s={v:.4f}" for k, v in s.items())
+              + f"; all-reduce share {s['all_reduce'] / s['wall']:.3f}", flush=True)
+    shapes.update(two[0]["shapes"])
+    errors.append(two[0]["max_abs_err"])
+    return launches
+
+
+def eval_by_rank() -> int:
+    """run_eval as the committed evaluation (seeded, gt detections, 576 /
+    K=4 / 3 iterations) on the first 8 synthdemo frames: world 1, then
+    rank 0 and rank 1 of 2; the union of the ranks' predictions must be
+    the world-1 run's (rows equal, poses within 0.1 degree and 1e-4 of the
+    distance). Deterministic cuDNN."""
+    ecfg = json.loads((COMMITTED_EVAL / "eval_config.json").read_text())
+    icfg = InferenceConfig(**ecfg["inference"])
+    scene_ds = make_scene_dataset(ecfg["ds_name"], load_depth=True, data_dir=str(EVAL_DATA))
+    scene_ds.frame_index = scene_ds.frame_index.take(np.arange(8))
+    root = BUILD_DIR / "eval_rank"
+    shutil.rmtree(root, ignore_errors=True)
+    finals, expected = {}, 0
+    rt.visibility_kernel.launches = 0  # the rank-sharded evaluation starts here
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+        for rank, world in ((0, 1), (0, 2), (1, 2)):
+            cfg = EvalConfig(coarse_run=str(ROOT / ecfg["coarse_run"]), refiner_run=str(ROOT / ecfg["refiner_run"]),
+                             ds_name=ecfg["ds_name"], data_dir=str(EVAL_DATA), inference=icfg,
+                             save_dir=str(root / f"{rank}of{world}"), render_size=tuple(ecfg["render_size"]),
+                             max_faces=ecfg["max_faces"], load_depth=True, skip_evaluation=True, rank=rank,
+                             world_size=world, device="cuda")
+            t0 = time.perf_counter()
+            final = load_predictions(run_eval(cfg, scene_ds=scene_ds)["results_path"])["final"]
+            rows = list(zip(final.infos["scene_id"].tolist(), final.infos["view_id"].tolist()))
+            print(f"  run_eval rank {rank} of {world}: {len(set(rows))} frames, {len(final)} predictions in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            expected += sum(len(launch_phases(rows.count(f), icfg)) for f in dict.fromkeys(rows))
+            finals[rank, world] = final
+    launches = rt.visibility_kernel.launches
+    check(launches == expected, f"rank-sharded run_eval: {launches} launches, expected {expected}")
+    union = concatenate([finals[0, 2], finals[1, 2]])
+    whole = finals[0, 1]
+    same = all(union.infos[k].tolist() == whole.infos[k].tolist() for k in ("scene_id", "view_id", "label"))
+    deg, rel = poses_gap(union.poses, whole.poses)
+    print(f"  union of ranks 0 and 1 of 2 vs world 1: rows equal {same}; poses {deg:.3g} deg, {rel:.3g} of the "
+          f"distance; bit for bit {torch.equal(union.poses, whole.poses)}", flush=True)
+    check(same and deg < 0.1 and rel < 1e-4, "the ranks' union differs from world 1")
+    return launches
+
+
+def reference_state_dict(model, generator: torch.Generator) -> dict:
+    """A `checkpoint.pth.tar` state_dict in the reference MegaPose's key
+    names (`backbone.conv1`, `backbone.bn1`, `backbone.layerL.B.*`,
+    `views_logits_head`, BatchNorm's `num_batches_tracked`) for the zoo
+    `model`'s shapes, with values drawn from `generator`."""
+    where = [(L + 1, b) for L, n in enumerate((3, 4, 6, 3)) for b in range(n)]
+    sd = {}
+    for key, t in model.state_dict().items():
+        name = key.replace("views_logits_fc.", "views_logits_head.").replace("backbone.stem.", "backbone.conv1.")
+        name = name.replace("backbone.stem_bn.", "backbone.bn1.")
+        if name.startswith("backbone.blocks."):
+            i, rest = name[len("backbone.blocks."):].split(".", 1)
+            L, b = where[int(i)]
+            name = f"backbone.layer{L}.{b}.{rest}"
+        rnd = torch.randn(t.shape, generator=generator)
+        if name.endswith("running_var"):
+            value = torch.rand(t.shape, generator=generator) + 0.5
+        elif name.endswith("running_mean"):
+            value = 0.2 * rnd
+        elif t.ndim == 1 and "bn" in name:
+            value = 1 + 0.2 * rnd if name.endswith("weight") else 0.1 * rnd
+        elif name.startswith("pose_fc"):
+            value = 1e-3 * rnd if name.endswith("weight") else torch.tensor([1.0, 0, 0, 0, 1, 0, 0, 0, 1])
+        elif name.endswith("bias"):
+            value = torch.zeros(t.shape)
+        else:
+            value = (2.0 / t[0].numel()) ** 0.5 * rnd
+        sd[name] = value
+        if name.endswith("running_var"):
+            sd[name.replace("running_var", "num_batches_tracked")] = torch.tensor(0)
+    return sd
+
+
+def flax_from_reference(sd: dict) -> dict:
+    """The JAX package's converter (`interop/torch_convert.py`) in torch:
+    the reference state_dict as flax variables of numpy arrays (OIHW ->
+    HWIO, Linear [out, in] -> [in, out], BatchNorm statistics to
+    `batch_stats`), for `interop.from_jax`."""
+    params, stats = {"backbone": {}}, {"backbone": {}}
+    for key, t in sd.items():
+        parts, a = key.split("."), t.numpy()
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[0] in ("pose_fc", "views_logits_head"):
+            head = params.setdefault("pose_fc" if parts[0] == "pose_fc" else "views_logits_fc", {})
+            head["kernel" if parts[1] == "weight" else "bias"] = a.T if parts[1] == "weight" else a
+            continue
+        module = parts[1] if parts[1] in ("conv1", "bn1") else f"{parts[1]}_{parts[2]}"
+        sub = [] if parts[1] in ("conv1", "bn1") else [parts[3]]
+        leaf = parts[-1]
+        p_node = params["backbone"].setdefault(module, {})
+        s_node = stats["backbone"].setdefault(module, {})
+        for s in sub:
+            p_node, s_node = p_node.setdefault(s, {}), s_node.setdefault(s, {})
+        if leaf == "weight" and a.ndim == 4:
+            p_node["kernel"] = a.transpose(2, 3, 1, 0)
+        elif leaf in ("weight", "bias"):
+            p_node["scale" if leaf == "weight" else "bias"] = a
+        else:
+            s_node["mean" if leaf == "running_mean" else "var"] = a
+    return {"params": params, "batch_stats": stats}
+
+
+def zoo_card_vs_cpu() -> None:
+    """One zoo_resnet34-train refiner step in train mode (batch
+    statistics) on the card and on the CPU at the CPU tests' size, float32,
+    from the same weights, batch and draws: loss to 1e-5 relative; the
+    running statistics move; the card's step through `train_step`."""
+    objs = RigidObjectDataset([RigidObject(label="cube", mesh=mesh_io.make_cube(0.04)),
+                               RigidObject(label="sphere", mesh=mesh_io.make_uv_sphere(0.035, 8, 12))])
+    host_db = MeshDataBase.from_object_ds(objs, max_faces=256, n_points=128, n_sym=4)
+    dbs = {d: host_db.batched(align=32, device=d) for d in ("cpu", "cuda")}
+    cfg = dataclasses.replace(
+        make_refiner_cfg(TrainingConfig(backbone_str="zoo_resnet34-train", input_resize=(60, 80),
+                                        render_size=(48, 64), batch_size=2, n_points_loss=32,
+                                        compute_dtype="float32")),
+        n_rendered_views=1, multiview_type="front_1view", n_iterations=1)
+    batch = tt.synthetic_batch_fn(dbs["cpu"], 2, (60, 80), f=120.0, device="cpu")(torch.Generator().manual_seed(5))
+    draws = draw_forward_loss(cfg, 2, 128, torch.Generator().manual_seed(6))
+    losses, moved = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = tt.create_train_state(cfg, dev)
+        before = {n: b.clone() for n, b in state.model.named_buffers()}
+        loss, _ = forward_loss(state.model, cfg, batch.to(dev), dbs[dev], draws_to(draws, dev), cfg.n_iterations)
+        losses[dev] = loss.item()
+        moved[dev] = sum(int(not torch.equal(b, before[n])) for n, b in state.model.named_buffers())
+    state = tt.create_train_state(cfg, "cuda")
+    metrics = tt.train_step(state, cfg, batch.to("cuda"), dbs["cuda"], draws_to(draws, "cuda"), cfg.n_iterations)
+    n_buffers = len(list(state.model.named_buffers()))
+    gap = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"  zoo_resnet34-train step, card vs cpu: loss {losses['cuda']:.8g} / {losses['cpu']:.8g} (relative "
+          f"{gap:.3g}); running statistics moved {moved['cuda']} / {moved['cpu']} of {n_buffers}; train_step "
+          f"grad_norm {metrics['grad_norm']:.6g}", flush=True)
+    check(gap <= 1e-5 and moved["cuda"] == moved["cpu"] == n_buffers and np.isfinite(metrics["loss_total"]),
+          "zoo_resnet34-train step on the card differs from the CPU")
+
+
+def zoo_reference_weights(errors: list[float], shapes: dict) -> int:
+    """Seeded reference-layout zoo_resnet34 checkpoints (coarse and
+    refiner) saved as `checkpoint.pth.tar`, read by
+    `load_torch_pose_checkpoint` and served at full width (240x320, 576 /
+    K=5 / 5 iterations, bf16); the same weights through `from_jax` serve
+    the same poses; K1 at the zoo refiner's shape; a zoo_resnet34-train
+    step on the card against the CPU."""
+    from megapose6d_tpu_torch.interop.from_jax import state_dict_from_jax
+    from megapose6d_tpu_torch.interop.torch_convert import load_torch_pose_checkpoint
+    from megapose6d_tpu_torch.models.pose_predictor import PosePredictor, make_coarse_config, make_refiner_config
+
+    root = BUILD_DIR / "zoo"
+    root.mkdir(parents=True, exist_ok=True)
+    g = torch.Generator().manual_seed(0)
+    cfgs = {"coarse": make_coarse_config(backbone="zoo_resnet34", render_size=HW, compute_dtype="bfloat16"),
+            "refiner": make_refiner_config(backbone="zoo_resnet34", render_size=HW, compute_dtype="bfloat16")}
+    models, twins = {}, {}
+    for name, cfg in cfgs.items():
+        ref = reference_state_dict(PosePredictor(cfg), g)
+        torch.save({"state_dict": ref, "epoch": 0}, root / f"{name}_checkpoint.pth.tar")
+        models[name] = PosePredictor(cfg)
+        models[name].load_state_dict(load_torch_pose_checkpoint(root / f"{name}_checkpoint.pth.tar"))
+        twins[name] = PosePredictor(cfg)
+        twins[name].load_state_dict(state_dict_from_jax(flax_from_reference(ref)))
+        same = all(torch.equal(a, b) for a, b in zip(models[name].state_dict().values(),
+                                                      twins[name].state_dict().values()))
+        check(same, f"{name}: the reference checkpoint and from_jax give other weights")
+    _, db_kw = config_from_run_json(ROOT / "runs/coarse_dr/config.json")
+    mesh_db = scene_mesh_db(db_kw, "cuda")
+    icfg = InferenceConfig()
+    est = PoseEstimator(models["coarse"], models["refiner"], mesh_db, icfg, device="cuda")
+    est_jax = PoseEstimator(twins["coarse"], twins["refiner"], mesh_db, icfg, device="cuda")
+    requests = scene_requests(2)
+    rt.visibility_kernel.launches = 0  # the reference-weights path starts here
+    expected, outs = 0, []
+    for i, (obs, dets) in enumerate(requests):
+        outs.append(est.run_inference_pipeline(obs, dets))
+        tm = outs[-1][1]["timing"]
+        print(f"  zoo_resnet34 from checkpoint.pth.tar, request {i}{' (warm-up)' if i == 0 else ''}: "
+              f"coarse_s={tm['coarse']:.4f} refiner_s={tm['refiner']:.4f} scoring_s={tm['scoring']:.4f} "
+              f"total_s={tm['total']:.4f}", flush=True)
+        expected += len(launch_phases(len(dets), icfg))
+        check(bool(torch.isfinite(outs[-1][0].poses).all()), "zoo poses not finite")
+    launches = rt.visibility_kernel.launches  # read right after the path
+    check(launches == expected, f"the zoo path launched K1 {launches} times, expected {expected}")
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+        a = est.run_inference_pipeline(*requests[1])[0].poses
+        b = est_jax.run_inference_pipeline(*requests[1])[0].poses
+    deg, rel = poses_gap(a, b)
+    print(f"  checkpoint.pth.tar vs from_jax, same weights: poses {deg:.3g} deg, {rel:.3g} of the distance, "
+          f"bit for bit {torch.equal(a, b)}", flush=True)
+    check(deg < 0.1 and rel < 1e-4, "checkpoint.pth.tar and from_jax serve other poses")
+    obs, dets = requests[1]
+    phases = launch_phases(len(dets), icfg)
+    launches_r = capture_launches(est, obs, dets)
+    kernel_at("zoo refiner (4 views)", [v for v, p in zip(launches_r, phases) if p == "refiner"], errors, shapes)
+    zoo_card_vs_cpu()
+    return launches
+
+
+def phase_multi_device(errors: list[float]) -> tuple[dict[str, int], dict]:
+    """Phase 20: sharded inference, data-parallel and label-sharded
+    training, run_eval by rank, the reference's checkpoints."""
+    shapes: dict = {}
+    launches = {"sharded_inference": sharded_inference(errors, shapes)}
+    launches["dp_training"] = dp_training(errors, shapes)
+    launches["eval_by_rank"] = eval_by_rank()
+    launches["zoo"] = zoo_reference_weights(errors, shapes)
+    return launches, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2680,6 +3440,8 @@ def main() -> int:
         serve_launches = detector_request() + detector_f32_vs_jax_cpu() + detector_full_eval() + detector_demo()
     with Phase("dataset training"):
         dataset_launches, dataset_shapes = phase_dataset_training(errors)
+    with Phase("multi-device and reference weights"):
+        multi_launches, multi_shapes = phase_multi_device(errors)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
@@ -2687,6 +3449,7 @@ def main() -> int:
     timing["by_shape"].update(gen_shapes)
     timing["by_shape"].update(det_shapes)
     timing["by_shape"].update(dataset_shapes)
+    timing["by_shape"].update(multi_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
@@ -2694,13 +3457,14 @@ def main() -> int:
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
-        + serve_launches + dataset_launches,
+        + serve_launches + dataset_launches + sum(multi_launches.values()),
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
                              "production": prod_launches, "demo_finalize": final_launches,
                              "scene_gen": gen_launches, "detector": det_launches,
-                             "detector_serving": serve_launches, "train_datasets": dataset_launches},
+                             "detector_serving": serve_launches, "train_datasets": dataset_launches,
+                             **multi_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,
@@ -2713,4 +3477,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dp-worker"]:  # one rank of phase 20's data-parallel runs
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

@@ -32,6 +32,8 @@ from torch.utils.data import DataLoader, IterableDataset, get_worker_info
 
 from .pose_dataset import host_batch_to_torch
 
+WORKER_SEED_STRIDE = 1000003  # worker i's seed: seed + WORKER_SEED_STRIDE * (i + 1)
+
 
 def seed_host_rngs(seed: int) -> None:
     """Seed the global `random` and `np.random`, which the augmentations draw from."""
@@ -48,7 +50,7 @@ class _BatchStream(IterableDataset):
 
     def __iter__(self):
         info = get_worker_info()
-        seed = self.seed if info is None else self.seed + 1000003 * (info.id + 1)
+        seed = self.seed if info is None else self.seed + WORKER_SEED_STRIDE * (info.id + 1)
         seed_host_rngs(seed)
         for batch in self.factory(seed):
             yield host_batch_to_torch(batch)

@@ -51,6 +51,10 @@ class EvalConfig:
     max_faces: int = 4096
     load_depth: bool = False
 
+    # This process's share of the frames (`runner.shard_frames`).
+    rank: int = 0
+    world_size: int = 1
+
     device: str = "cuda"
 
 

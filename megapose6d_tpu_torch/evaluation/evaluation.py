@@ -166,8 +166,8 @@ def run_eval(cfg: EvalConfig, scene_ds=None, object_ds=None) -> Optional[dict]:
         if not cfg.detector_run:
             raise ValueError("detection_type='detector' needs detector_run")
         detector = load_detector(cfg.detector_run, cfg.detector_weights or None, device=cfg.device)
-    runner = PredictionRunner(scene_ds, estimator, n_frames=cfg.n_frames, detector=detector,
-                              detection_type=cfg.inference.detection_type)
+    runner = PredictionRunner(scene_ds, estimator, rank=cfg.rank, world_size=cfg.world_size, n_frames=cfg.n_frames,
+                              detector=detector, detection_type=cfg.inference.detection_type)
     logger.info("[%s] predicting %d frames", cfg.ds_name, len(runner.frame_ids))
     preds = runner.get_predictions()
     results_path = save_predictions(preds, save_dir / "results")

@@ -1,8 +1,10 @@
 """Prediction and evaluation runners.
 
 Counterpart of `PredictionRunner` and `EvaluationRunner` in
-`megapose6d_tpu/evaluation/runner.py`, in one process, on ground-truth
-boxes (`detection_type="gt"`) or on a detector's (`"detector"`).
+`megapose6d_tpu/evaluation/runner.py`, on ground-truth boxes
+(`detection_type="gt"`) or on a detector's (`"detector"`). A rank of
+several predicts its share of the frames (`shard_frames`); the caller
+merges the shares (`parallel.distributed.gather_collections`).
 """
 
 from __future__ import annotations
@@ -19,14 +21,24 @@ from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import make_detections
 
 
+def shard_frames(n_frames: int, rank: int, world_size: int) -> np.ndarray:
+    """Rank `rank`'s frames of `world_size`: the `np.array_split` of the
+    frame ids (the reference's `DistributedSceneSampler`)."""
+    return np.array_split(np.arange(n_frames), world_size)[rank]
+
+
 class PredictionRunner:
-    """The pipeline over a scene dataset's frames, on ground-truth boxes or
-    on `detector`'s. A frame without a detection has no prediction."""
+    """The pipeline over a scene dataset's frames (rank `rank`'s share of
+    them, then its first `n_frames`, as in the JAX package), on
+    ground-truth boxes or on `detector`'s. A frame without a detection has
+    no prediction."""
 
     def __init__(
         self,
         scene_ds: SceneDataset,
         estimator: PoseEstimator,
+        rank: int = 0,
+        world_size: int = 1,
         n_frames: int | None = None,
         detector=None,
         detection_type: str = "gt",
@@ -39,7 +51,8 @@ class PredictionRunner:
         self.estimator = estimator
         self.detector = detector
         self.detection_type = detection_type
-        self.frame_ids = np.arange(len(scene_ds) if n_frames is None else min(n_frames, len(scene_ds)))
+        ids = shard_frames(len(scene_ds), rank, world_size)
+        self.frame_ids = ids if n_frames is None else ids[:n_frames]
 
     def get_detections(self, obs: SceneObservation, observation: ObservationTensor) -> TensorCollection | None:
         """The frame's ground-truth boxes, or the detector's; None without any."""

@@ -119,11 +119,17 @@ def weight_source(run_dir: str | Path | None, weights: str | Path | None) -> Pat
 
 
 def read_weights(path: Path, from_jax) -> dict[str, torch.Tensor]:
-    """A module's state dict from an npz export (through `from_jax`) or the
-    `params` of a port checkpoint."""
+    """A module's state dict from an npz export (through `from_jax`), a
+    reference MegaPose `checkpoint.pth.tar` (`interop.torch_convert`), or
+    the `params` and `buffers` of a port checkpoint."""
     if path.suffix == ".npz":
         return from_jax(load_params_npz(path))
-    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+    if path.name.endswith(".pth.tar"):
+        from ..interop.torch_convert import load_torch_pose_checkpoint
+
+        return load_torch_pose_checkpoint(path)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    return {**saved["params"], **saved.get("buffers", {})}
 
 
 def build_model(

@@ -25,19 +25,36 @@ With the JAX package's options:
   - external initial poses (`coarse_estimation_type="external"`): the
     detections' `TCO_init` refined and rescored, the coarse stage skipped.
 
+  - the sharded mode (`device_mesh`, a list of devices, as
+    `parallel.mesh.make_mesh` gives): the coarse sweep (the probe and
+    children sweeps when pruned), the refiner and the rescore each split
+    their hypotheses over the list, as the JAX package's `shard_map` does
+    over its mesh axis. The hypotheses are padded with identity poses of
+    mesh 0 to `ceil(N / (n_dev * chunk)) * chunk` per device, with the
+    chunk `min(chunk, ceil(N / n_dev))`; each device holds a replica of
+    the models and mesh databases (one per distinct device); the results
+    are gathered on the first device, the estimator's. The fused mode is
+    off under a mesh.
+
 Detections are given, or come from the estimator's `detector`
 (`run_inference_pipeline(run_detector=True)`); in the fused mode the
 detector runs before the graph. The phased mode keeps the detections
 unpadded and the chunks as they fall (the last one shorter); every
-hypothesis is computed independently, so the results do not depend on the
-chunking. The sharded mode is not ported. A depth stage asked for without
-a depth refiner raises (the JAX package silently skips it).
+hypothesis is computed independently, so the results depend on the
+chunking or the sharding only through float32 rounding: the convolutions
+may sum in another order at another batch size, and a randomly
+initialised refiner amplifies such a last-bit difference over its
+iterations (ROADMAP Queue 3). At equal chunks the sharded mode repeats
+the unsharded launches. A depth stage asked for without a depth refiner
+raises (the JAX package silently skips it).
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import time
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -64,6 +81,29 @@ def _top_k(x: Tensor, k: int) -> Tensor:
 def _pad_rows(x: Tensor, n: int) -> Tensor:
     """`x` padded to `n` rows by repeating its last row (numpy's "edge")."""
     return torch.cat([x, x[-1:].expand((n - x.shape[0],) + x.shape[1:])]) if n > x.shape[0] else x[:n]
+
+
+@dataclasses.dataclass
+class _Replica:
+    """The models and mesh databases that one device of a mesh computes
+    with."""
+
+    device: torch.device
+    coarse_sweep: PosePredictor
+    coarse_rescore: PosePredictor
+    refiner: PosePredictor
+    mesh_db: BatchedMeshes
+    mesh_db_coarse: BatchedMeshes
+
+    def to(self, device: torch.device) -> "_Replica":
+        """A copy on `device`; the coarse twins keep sharing one copy of
+        the parameters."""
+        coarse = copy.deepcopy(self.coarse_sweep).to(device)
+        twin = lambda m: coarse.twin(compute_dtype=m.cfg.compute_dtype, render_at=m.cfg.render_at)  # noqa: E731
+        db = self.mesh_db._map(lambda x: x.to(device))
+        db_coarse = db if self.mesh_db_coarse is self.mesh_db else self.mesh_db_coarse._map(lambda x: x.to(device))
+        return _Replica(device, coarse, twin(self.coarse_rescore), copy.deepcopy(self.refiner).to(device), db,
+                        db_coarse)
 
 
 class _GraphedPipeline:
@@ -111,6 +151,8 @@ class PoseEstimator:
       mesh_db_coarse: a database of the same labels with fewer faces, for
         the coarse sweep and the rescore (default: `mesh_db`).
       detector: a `models.detector.Detector` for `run_detector=True`.
+      device_mesh: devices to split the hypotheses over (the sharded
+        mode); the first must be `device`. A device may repeat.
     """
 
     def __init__(
@@ -123,13 +165,12 @@ class PoseEstimator:
         depth_refiner: DepthRefiner | None = None,
         mesh_db_coarse: BatchedMeshes | None = None,
         detector=None,
+        device_mesh: Sequence[torch.device | str] | None = None,
     ):
         if cfg.run_depth_refiner and depth_refiner is None:
             raise ValueError("run_depth_refiner needs a depth_refiner")
         pin_f32()
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = self._normalize(device)
         self.coarse_model = coarse_model.to(self.device).eval()
         self.refiner_model = refiner_model.to(self.device).eval()
         self.detector = detector
@@ -159,6 +200,25 @@ class PoseEstimator:
             self.prune_child_valid = torch.as_tensor(valid, device=self.device)
         self.timing_: dict[str, float] = {}
         self._graphs: dict[tuple, _GraphedPipeline] = {}
+        self.device_mesh = None
+        if device_mesh is not None:
+            self.device_mesh = [self._normalize(d) for d in device_mesh]
+            if self.device_mesh[0] != self.device:
+                raise ValueError(f"the mesh's first device {self.device_mesh[0]} is not the estimator's {self.device}")
+            local = _Replica(self.device, self.coarse_model_sweep, self.coarse_model_rescore, self.refiner_model,
+                             self.mesh_db, self.mesh_db_coarse)
+            replicas = {self.device: local}
+            for d in self.device_mesh:
+                if d not in replicas:
+                    replicas[d] = local.to(d)
+            self._replicas = [replicas[d] for d in self.device_mesh]
+
+    @staticmethod
+    def _normalize(device: torch.device | str) -> torch.device:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return device
 
     def _clock(self) -> float:
         """Host time after the device has finished the work queued so far."""
@@ -208,8 +268,8 @@ class PoseEstimator:
         grid = self.so3_grid if grid is None else grid
         TCO_init = self.init_hypotheses(K, boxes, mesh_idx, grid)
         D, M = TCO_init.shape[:2]
-        logits = self._score(self.coarse_model_sweep, self.mesh_db_coarse, chunk, images, K,
-                             TCO_init.reshape(D * M, 4, 4), mesh_idx.repeat_interleave(M))
+        logits = self._scores("coarse_sweep", chunk, images, K, TCO_init.reshape(D * M, 4, 4),
+                              mesh_idx.repeat_interleave(M))
         return logits.reshape(D, M), TCO_init
 
     def prune_candidates(self, probe_logits: Tensor) -> tuple[Tensor, Tensor]:
@@ -237,30 +297,70 @@ class PoseEstimator:
             min(chunk, D * cand.shape[1]), images, K, boxes, mesh_idx, self.so3_grid[cand])
         return torch.where(valid, logits2, float("-inf")), TCO_init
 
-    def refine(
-        self, chunk: int, n_iterations: int, images: Tensor, K: Tensor, TCO: Tensor,
-        mesh_idx: Tensor,
-    ) -> tuple[Tensor, Tensor]:
-        """Run the refiner on `TCO [N, 4, 4]`, `chunk` hypotheses at a time.
-
-        Returns (TCO_refined `[N, 4, 4]`, trajectory `[n_iter, N, 4, 4]`)."""
+    @staticmethod
+    def _refine(refiner: PosePredictor, mesh_db: BatchedMeshes, chunk: int, n_iterations: int, images: Tensor,
+                K: Tensor, TCO: Tensor, mesh_idx: Tensor) -> tuple[Tensor, Tensor]:
         finals, trajs = [], []
         for s in range(0, TCO.shape[0], chunk):
             T = TCO[s : s + chunk]
-            meshes = self.mesh_db.select(mesh_idx[s : s + chunk])
+            meshes = mesh_db.select(mesh_idx[s : s + chunk])
             K_c = K.expand(T.shape[0], 3, 3)
             traj = []
             for _ in range(n_iterations):
-                T = self.refiner_model.refine_step(images, K_c, T, meshes)["TCO_output"]
+                T = refiner.refine_step(images, K_c, T, meshes)["TCO_output"]
                 traj.append(T)
             finals.append(T)
             trajs.append(torch.stack(traj))
         return torch.cat(finals), torch.cat(trajs, dim=1)
 
+    def _shards(self, chunk: int, TCO: Tensor, mesh_idx: Tensor) -> tuple[int, list]:
+        """The sharded mode's split of `N` hypotheses: the chunk
+        `min(chunk, ceil(N / n_dev))`, and per device of the mesh its
+        replica and its `ceil(N / (n_dev * chunk)) * chunk` poses and mesh
+        indices, padded with identity poses of mesh 0, on its device."""
+        n_dev, N = len(self._replicas), TCO.shape[0]
+        chunk = min(chunk, -(-N // n_dev))
+        per_dev = -(-N // (n_dev * chunk)) * chunk
+        n_pad = per_dev * n_dev - N
+        TCO = torch.cat([TCO, torch.eye(4, dtype=TCO.dtype, device=TCO.device).expand(n_pad, 4, 4)])
+        mesh_idx = torch.cat([mesh_idx, mesh_idx.new_zeros(n_pad)])
+        rows = [slice(i * per_dev, (i + 1) * per_dev) for i in range(n_dev)]
+        return chunk, [(rep, TCO[r].to(rep.device), mesh_idx[r].to(rep.device)) for rep, r in zip(self._replicas, rows)]
+
+    def _scores(self, model: str, chunk: int, images: Tensor, K: Tensor, TCO: Tensor, mesh_idx: Tensor) -> Tensor:
+        """Logits `[N]` of the coarse model `model` ("coarse_sweep" or
+        "coarse_rescore") on the coarse mesh database; in the sharded mode
+        split over the mesh and gathered on the first device."""
+        if self.device_mesh is None:
+            models = {"coarse_sweep": self.coarse_model_sweep, "coarse_rescore": self.coarse_model_rescore}
+            return self._score(models[model], self.mesh_db_coarse, chunk, images, K, TCO, mesh_idx)
+        chunk, shards = self._shards(chunk, TCO, mesh_idx)
+        out = [self._score(getattr(rep, model), rep.mesh_db_coarse, chunk, images.to(rep.device),
+                           K.to(rep.device), T, idx) for rep, T, idx in shards]
+        return torch.cat([o.to(self.device) for o in out])[: TCO.shape[0]]
+
+    def refine(
+        self, chunk: int, n_iterations: int, images: Tensor, K: Tensor, TCO: Tensor,
+        mesh_idx: Tensor,
+    ) -> tuple[Tensor, Tensor]:
+        """Run the refiner on `TCO [N, 4, 4]`, `chunk` hypotheses at a time
+        (in the sharded mode split over the mesh, gathered on the first
+        device).
+
+        Returns (TCO_refined `[N, 4, 4]`, trajectory `[n_iter, N, 4, 4]`)."""
+        if self.device_mesh is None:
+            return self._refine(self.refiner_model, self.mesh_db, chunk, n_iterations, images, K, TCO, mesh_idx)
+        N = TCO.shape[0]
+        chunk, shards = self._shards(chunk, TCO, mesh_idx)
+        out = [self._refine(rep.refiner, rep.mesh_db, chunk, n_iterations, images.to(rep.device),
+                            K.to(rep.device), T, idx) for rep, T, idx in shards]
+        return (torch.cat([f.to(self.device) for f, _ in out])[:N],
+                torch.cat([t.to(self.device) for _, t in out], dim=1)[:, :N])
+
     def rescore(self, chunk: int, images: Tensor, K: Tensor, TCO: Tensor, mesh_idx: Tensor) -> Tensor:
         """Coarse logits `[N]` of refined poses, with the rescore's model
         and the coarse mesh database."""
-        return self._score(self.coarse_model_rescore, self.mesh_db_coarse, chunk, images, K, TCO, mesh_idx)
+        return self._scores("coarse_rescore", chunk, images, K, TCO, mesh_idx)
 
     def pipeline(
         self, chunk_images: int, chunk_objects: int, n_iterations: int, top_k: int,
@@ -439,7 +539,7 @@ class PoseEstimator:
         images = observation.images.to(self.device, torch.float32)
         K = observation.K.to(self.device, torch.float32)
 
-        if cfg.fused_pipeline and not do_depth:
+        if cfg.fused_pipeline and not do_depth and self.device_mesh is None:
             # Static shapes: detections padded to max_detections.
             args, inputs = self.fused_inputs(images, K, boxes, mesh_idx, n_iter, top_k)
             out = self.fused(*args, *inputs)

@@ -241,12 +241,25 @@ class MeshDataBase:
     def from_object_ds(cls, ds: RigidObjectDataset, **kw) -> "MeshDataBase":
         return cls(ds, **kw)
 
-    def batched(self, align: int = 128, device: str | torch.device = "cuda") -> BatchedMeshes:
-        """Pack to padded tensors on `device`."""
-        labels = self.objects.labels
-        L = len(labels)
+    def pad_targets(self, align: int = 128) -> tuple[int, int]:
+        """The vertex and face counts `batched` pads to by default."""
         V = _round_up(max(m.n_vertices for m in self.meshes.values()), align)
         F = _round_up(min(self.max_faces, max(m.n_faces for m in self.meshes.values())), align)
+        return V, F
+
+    def batched(self, align: int = 128, device: str | torch.device = "cuda", n_vertices_pad: int | None = None,
+                n_faces_pad: int | None = None) -> BatchedMeshes:
+        """Pack to padded tensors on `device`. `n_vertices_pad` /
+        `n_faces_pad` force the pad targets, so that databases built apart
+        (the label shards of `sharded_db.ShardedMeshDB`) agree on shapes."""
+        labels = self.objects.labels
+        L = len(labels)
+        V, F = self.pad_targets(align)
+        V, F = n_vertices_pad or V, n_faces_pad or F
+        if any(m.n_vertices > V for m in self.meshes.values()):
+            raise ValueError(f"n_vertices_pad {V} is below a mesh's vertex count")
+        if any(m.n_faces > F for m in self.meshes.values()):
+            raise ValueError(f"n_faces_pad {F} is below a mesh's face count")
         P, S = self.n_points, self.n_sym
 
         verts = np.zeros((L, V, 3), np.float32)

@@ -2,9 +2,11 @@
 
 Counterpart of `megapose6d_tpu/models/backbones.py`: the GroupNorm
 `ResNet` (`BasicBlock`), the pre-activation `WideResNet`
-(`WideResNetBlock`) and, in inference form, `ZooWideResNet`
-(`ZooBasicBlockV2`), whose BatchNorm uses the running statistics carried
-across from flax's `batch_stats`. Parameters are float32; the forward pass
+(`WideResNetBlock`) and `ZooWideResNet` (`ZooBasicBlockV2`), the
+reference checkpoints' BatchNorm backbone: `zoo_resnet*` normalizes with
+the running statistics (carried across from flax's `batch_stats` or from
+a reference checkpoint), `zoo_resnet*-train` with the batch's while the
+module trains, updating the running ones as flax does. Parameters are float32; the forward pass
 computes in `compute_dtype` (bfloat16 for the committed runs), which a
 caller may override per call, and normalizes in float32. Details that
 follow flax and differ from torch's defaults: GroupNorm eps is 1e-6,
@@ -14,13 +16,17 @@ order.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 Tensor = torch.Tensor
 GN_EPS = 1e-6
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.99  # flax's: running = 0.99 * running + 0.01 * batch
 
 
 class GroupNorm(nn.Module):
@@ -37,20 +43,80 @@ class GroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm from running statistics, computed in float32 and
-    returned in the input's dtype."""
+class _RankMean(torch.autograd.Function):
+    """The mean over the ranks of `group` (all-reduce), whose gradient is
+    the mean of the ranks' gradients (the sum of every rank's loss
+    through it, over the ranks that average their gradients after)."""
 
-    def __init__(self, channels: int):
+    @staticmethod
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        ctx.group = group
+        return _all_reduce_mean(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        return _all_reduce_mean(grad.contiguous().clone(), ctx.group), None
+
+
+def _all_reduce_mean(x: Tensor, group) -> Tensor:
+    dist.all_reduce(x, group=group)
+    return x / dist.get_world_size(group)
+
+
+@contextlib.contextmanager
+def synced_batch_stats(model: nn.Module, group):
+    """Within the block, every `BatchNorm` of `model` that trains on batch
+    statistics takes them over the ranks of `group` (a process group; None
+    leaves each rank its own rows)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.group = None
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm computed in float32 and returned in the input's dtype.
+
+    With `batch_stats=True`, while the module trains, it normalizes with
+    the batch's statistics and updates the running ones as flax's
+    `BatchNorm(use_running_average=False)` does, not as torch's: the
+    biased variance `E[x^2] - E[x]^2` (clipped at 0), and
+    `running = 0.99 * running + 0.01 * batch`. Otherwise (and in eval
+    mode) it normalizes with the running statistics. With a process
+    group in `group` (`synced_batch_stats`), the batch is the ranks' rows
+    together: `E[x]` and `E[x^2]` are averaged over the ranks, as flax's
+    `BatchNorm(axis_name=...)` pmeans them (the ranks hold equal rows),
+    and their gradients too, so the running statistics stay equal on
+    every rank (the reference fine-tunes with SyncBN)."""
+
+    def __init__(self, channels: int, batch_stats: bool = False):
         super().__init__()
+        self.batch_stats = batch_stats
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: Tensor) -> Tensor:
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias,
-                         training=False, eps=BN_EPS)
+        xf = x.float()
+        if not (self.batch_stats and self.training):
+            y = F.batch_norm(xf, self.running_mean, self.running_var, self.weight, self.bias,
+                             training=False, eps=BN_EPS)
+            return y.to(x.dtype)
+        mean, mean2 = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        if self.group is not None:
+            mean, mean2 = _RankMean.apply(torch.stack([mean, mean2]), self.group)
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
 
@@ -203,12 +269,12 @@ class ZooBasicBlockV2(nn.Module):
     relu, 3x3 conv, BatchNorm, relu, 3x3 conv, plus the input (through a
     norm-free 1x1 conv of the activated input when the shape changes)."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1):
+    def __init__(self, cin: int, features: int, stride: int = 1, batch_stats: bool = False):
         super().__init__()
-        self.bn1 = BatchNorm(cin)
+        self.bn1 = BatchNorm(cin, batch_stats)
         self.downsample = Conv(cin, features, 1, stride) if cin != features or stride != 1 else None
         self.conv1 = Conv(cin, features, 3, stride, 1)
-        self.bn2 = BatchNorm(features)
+        self.bn2 = BatchNorm(features, batch_stats)
         self.conv2 = Conv(features, features, 3, 1, 1)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -219,9 +285,10 @@ class ZooBasicBlockV2(nn.Module):
 
 
 class ZooWideResNet(nn.Module):
-    """The reference checkpoints' backbone in inference form: a 5x5/2
-    BatchNorm stem, max pool, four pre-activation stages, global mean;
-    `[B, H, W, C]` -> `[B, 8 * width]` float32 (no Dense)."""
+    """The reference checkpoints' backbone: a 5x5/2 BatchNorm stem, max
+    pool, four pre-activation stages, global mean; `[B, H, W, C]` ->
+    `[B, 8 * width]` float32 (no Dense). `batch_stats=True` is the
+    trainable form (`zoo_resnet*-train`, see `BatchNorm`)."""
 
     def __init__(
         self,
@@ -229,16 +296,17 @@ class ZooWideResNet(nn.Module):
         stage_sizes=(3, 4, 6, 3),
         width: int = 64,
         compute_dtype: torch.dtype = torch.float32,
+        batch_stats: bool = False,
     ):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.stem = Conv(in_channels, width, 5, 2, 2)
-        self.stem_bn = BatchNorm(width)
+        self.stem_bn = BatchNorm(width, batch_stats)
         blocks, cin = [], width
         for i, n_blocks in enumerate(stage_sizes):
             features = width * 2**i
             for b in range(n_blocks):
-                blocks.append(ZooBasicBlockV2(cin, features, 2 if (i > 0 and b == 0) else 1))
+                blocks.append(ZooBasicBlockV2(cin, features, 2 if (i > 0 and b == 0) else 1, batch_stats))
                 cin = features
         self.blocks = nn.Sequential(*blocks)
 
@@ -258,6 +326,8 @@ _BACKBONES = {
     "wide_resnet34": ((3, 4, 6, 3), "wide"),
     "zoo_resnet18": ((2, 2, 2, 2), "zoo"),
     "zoo_resnet34": ((3, 4, 6, 3), "zoo"),
+    "zoo_resnet18-train": ((2, 2, 2, 2), "zoo-train"),
+    "zoo_resnet34-train": ((3, 4, 6, 3), "zoo-train"),
 }
 
 
@@ -268,15 +338,14 @@ def make_backbone(
     n_features: int = 512,
     compute_dtype: torch.dtype = torch.float32,
 ) -> nn.Module:
-    """Backbone registry (the JAX package's names; the zoo variants with
-    mutable BatchNorm statistics, `zoo_resnet*-train`, are not ported)."""
+    """Backbone registry, the JAX package's names."""
     if name not in _BACKBONES:
-        raise NotImplementedError(f"backbone {name!r} is not ported")
+        raise ValueError(f"unknown backbone: {name}")
     stages, kind = _BACKBONES[name]
     if kind == "wide":
         return WideResNet(in_channels, stages, n_features=n_features, compute_dtype=compute_dtype)
-    if kind == "zoo":
-        return ZooWideResNet(in_channels, stages, compute_dtype=compute_dtype)
+    if kind.startswith("zoo"):
+        return ZooWideResNet(in_channels, stages, compute_dtype=compute_dtype, batch_stats=kind == "zoo-train")
     return ResNet(
         in_channels, input_hw, stages, n_features=n_features,
         compute_dtype=compute_dtype, pool=kind,

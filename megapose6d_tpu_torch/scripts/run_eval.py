@@ -8,7 +8,9 @@
         save_dir=eval_out load_depth=true inference.n_pose_hypotheses=4 device=cpu
 
 Counterpart of `megapose6d_tpu/scripts/run_eval.py`, with its legacy
-aliases (dataset=, out_dir=, so3_grid_size=, ...).
+aliases (dataset=, out_dir=, so3_grid_size=, ...). `rank=r world_size=W`
+predicts rank r's share of the frames (`evaluation.runner.shard_frames`);
+give each rank its own `save_dir`.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Training: the optimizer and its schedule, the train step, synthetic
 batches rendered on the device, checkpoints and the loop.
 
-Counterpart of `megapose6d_tpu/training/train.py` on one device:
+Counterpart of `megapose6d_tpu/training/train.py`:
   - Adam (AdamW when `weight_decay > 0`) after clipping by the global
     norm, both in optax's arithmetic (`Adam`, `clip_by_global_norm`); the
     schedule sees the count of updates before the current one, so the
@@ -14,7 +14,23 @@ Counterpart of `megapose6d_tpu/training/train.py` on one device:
   - Checkpoints keep the JAX package's layout, `run_dir/config.json`,
     `checkpoints/epoch_N/` and `checkpoints/latest.txt`, with
     `torch.save` in place of orbax (`epoch_N/state.pt`).
-The JAX package's data-parallel step over a device mesh is not ported.
+  - Data parallelism is one process per device (`parallel.distributed`):
+    rank r of W takes rows [r b / W, (r + 1) b / W) of each step's global
+    batch of b and the same rows of its draws, and the gradients and
+    metrics are averaged over the ranks (one all-reduce of one flat
+    buffer, the counterpart of `pmean`) before the clip and Adam, so a
+    W-rank step is the 1-rank step on the same global batch, as the JAX
+    package's GSPMD step is its single-device step. The batch-statistics
+    BatchNorms of `zoo_resnet*-train` normalize over all the ranks' rows
+    (SyncBN). The model's methods are called directly, not through
+    `forward`, so DDP's reducer hooks would not fire: the step
+    all-reduces itself. Fed by a dataset, each rank has a loader of its
+    own (b / W samples a batch, a seed stream of its own), as the
+    reference's ranks do, so no rank decodes another's samples.
+  - The label-sharded step (the JAX package's `make_sharded_train_step`)
+    is the same step on a rank's own shard of a `meshes.sharded_db`
+    database, with local mesh indices and draws that carry the shard
+    index (`step_draws(..., shard=)`).
 """
 
 from __future__ import annotations
@@ -26,14 +42,18 @@ from pathlib import Path
 from typing import Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from ..interop.from_jax import state_dict_from_jax
 from ..meshes.mesh_db import BatchedMeshes
+from ..models.backbones import synced_batch_stats
 from ..models.pose_predictor import PosePredictor, PosePredictorConfig
 from ..ops import cropping, rasterizer_tiled
 from ..ops.camera import masked_boxes_from_uv, project_points_robust
 from ..ops.se3 import make_se3, rotmat_from_quat
 from ..ops.so3_grid import super_fibonacci_quats
+from ..parallel.distributed import reduce_dict
+from ..parallel.mesh import batch_sharding
 from .config import TrainingConfig, save_config
 from .forward_loss import BatchPoseData, draw_forward_loss, draws_to, forward_loss
 
@@ -45,11 +65,39 @@ DRAW_STREAM, BATCH_STREAM, VAL_DRAW_STREAM, VAL_BATCH_STREAM = 0, 1, 2, 3
 N_VAL_BATCHES = 2
 
 
-def step_generator(seed: int, stream: int, index: int) -> torch.Generator:
+def step_generator(seed: int, stream: int, index: int, shard: int = 0) -> torch.Generator:
     """A CPU generator for draw `index` (a step, or a validation batch) of
-    `stream`, a function of (seed, stream, index) only."""
-    return torch.Generator().manual_seed(((seed & 0xFFFFF) << 40) | ((stream & 0xFF) << 32)
-                                         | (index & 0xFFFFFFFF))
+    `stream`, a function of (seed, stream, index) only; `shard` (a label
+    shard's index) mixes in a further stream, as the JAX package's sharded
+    step folds its device's index into the key."""
+    s = ((seed & 0xFFFFF) << 40) | ((stream & 0xFF) << 32) | (index & 0xFFFFFFFF)
+    if shard:
+        s ^= (shard * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    return torch.Generator().manual_seed(s)
+
+
+def rank_rows(tree, rank: int, world: int):
+    """Rank `rank`'s rows of every tensor in `tree` (a tensor, a
+    `BatchPoseData` or a nested dict, None kept): the r-th of `world`
+    equal contiguous parts of the leading axis. A tensor of b * k rows,
+    laid out sample-major, gives the rows of the rank's samples."""
+    if world == 1 or tree is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: rank_rows(v, rank, world) for k, v in tree.items()}
+    if isinstance(tree, BatchPoseData):
+        return tree._map(lambda t: rank_rows(t, rank, world))
+    return tree[batch_sharding(tree.shape[0], world)[rank]]
+
+
+def all_reduce_mean(tensors: list[Tensor], group) -> list[Tensor]:
+    """`pmean` over the ranks of `group`: the tensors flattened into one
+    float32 buffer, all-reduced (sum) once, divided by the group's size
+    and cut back into their shapes."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    return [p.view_as(t) for p, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +210,14 @@ def create_train_state(cfg: TrainingConfig, device: str | torch.device = "cuda")
 
 
 def step_draws(cfg: TrainingConfig, batch: BatchPoseData, mesh_db: BatchedMeshes, stream: int,
-               index: int) -> dict:
-    """`forward_loss`'s draws for `batch`, draw `index` of `stream`, on
-    the DB's device."""
-    g = step_generator(cfg.seed, stream, index)
-    return draws_to(draw_forward_loss(cfg, batch.batch_size, mesh_db.points.shape[1], g), mesh_db.device)
+               index: int, shard: int = 0, rank: int = 0, world: int = 1) -> dict:
+    """`forward_loss`'s draws for `batch`, draw `index` of `stream` (of
+    label shard `shard`), on the DB's device. With `world > 1`, `batch`
+    is rank `rank`'s rows of a global batch `world` times its size, and
+    the draws are the global batch's, cut to the same rows."""
+    g = step_generator(cfg.seed, stream, index, shard)
+    draws = draw_forward_loss(cfg, batch.batch_size * world, mesh_db.points.shape[1], g)
+    return draws_to(rank_rows(draws, rank, world), mesh_db.device)
 
 
 def train_step(
@@ -176,12 +227,24 @@ def train_step(
     mesh_db: BatchedMeshes,
     draws: dict,
     n_iterations: int,
+    reduce_over=None,
 ) -> dict[str, float]:
     """forward_loss, backward, clip and Adam; the metrics with the
-    gradients' norm before clipping (`grad_norm`)."""
-    loss, metrics = forward_loss(state.model, cfg, batch, mesh_db, draws, n_iterations)
-    grads = torch.autograd.grad(loss, state.params)
-    metrics["grad_norm"] = state.apply_gradients(list(grads), cfg.clip_grad_norm)
+    gradients' norm before clipping (`grad_norm`). With `reduce_over` (a
+    process group), the gradients and metrics are first averaged over its
+    ranks, each of which holds its rows of the step's batch (data
+    parallel) or its own label shard's batch (label-sharded), and the
+    batch-statistics BatchNorms of `zoo_resnet*-train` normalize over all
+    the ranks' rows (`synced_batch_stats`)."""
+    with synced_batch_stats(state.model, reduce_over):
+        loss, metrics = forward_loss(state.model, cfg, batch, mesh_db, draws, n_iterations)
+        grads = list(torch.autograd.grad(loss, state.params))
+    if reduce_over is not None:
+        keys = sorted(metrics)
+        reduced = all_reduce_mean(grads + [metrics[k].reshape(1) for k in keys], reduce_over)
+        grads = reduced[: len(grads)]
+        metrics = {k: v[0] for k, v in zip(keys, reduced[len(grads):])}
+    metrics["grad_norm"] = state.apply_gradients(grads, cfg.clip_grad_norm)
     return {k: float(v) for k, v in metrics.items()}
 
 
@@ -249,7 +312,9 @@ class SyntheticBatches:
 
     @torch.no_grad()
     def make(self, draws: dict[str, Tensor]) -> BatchPoseData:
-        B = self.batch_size
+        """The batch of `draws` (of `batch_size` samples, or a rank's rows
+        of them)."""
+        B = draws["z"].shape[0]
         z = draws["z"]
         TCO = make_se3(rotmat_from_quat(self.quat_pool[draws["quat_idx"]]),
                        torch.cat([draws["xy"] * z, z], -1))
@@ -308,14 +373,16 @@ def synthetic_batch_fn(
 
 
 def save_checkpoint(run_dir: str | Path, state: TrainState, epoch: int) -> None:
-    """Parameters, Adam's state and the step in
-    `run_dir/checkpoints/epoch_<epoch>/state.pt`; `latest.txt` names it."""
+    """Parameters, buffers (BatchNorm's running statistics), Adam's state
+    and the step in `run_dir/checkpoints/epoch_<epoch>/state.pt`;
+    `latest.txt` names it."""
     path = Path(run_dir) / "checkpoints" / f"epoch_{epoch}"
     path.mkdir(parents=True, exist_ok=True)
     names = [n for n, _ in state.model.named_parameters()]
     cpu = lambda ts: {n: t.detach().cpu() for n, t in zip(names, ts)}
     torch.save({
         "params": cpu(state.params),
+        "buffers": {n: b.detach().cpu() for n, b in state.model.named_buffers()},
         "opt_state": {"count": state.opt_state["count"], "mu": cpu(state.opt_state["mu"]),
                       "nu": cpu(state.opt_state["nu"])},
         "step": state.step,
@@ -332,7 +399,7 @@ def load_checkpoint(run_dir: str | Path, state: TrainState, params_only: bool = 
     epoch = int((run_dir / "checkpoints" / "latest.txt").read_text())
     saved = torch.load(run_dir / "checkpoints" / f"epoch_{epoch}" / "state.pt", map_location="cpu",
                        weights_only=True)
-    state.model.load_state_dict(saved["params"])
+    state.model.load_state_dict({**saved["params"], **saved.get("buffers", {})})
     names = [n for n, _ in state.model.named_parameters()]
     if not params_only:
         for key in ("mu", "nu"):
@@ -392,6 +459,7 @@ def train(
     batches: Callable[[int], BatchPoseData] | Iterator[BatchPoseData],
     val_batches: Callable[[int, int], BatchPoseData] | None,
     log_fn: Callable[[dict], None],
+    reduce_over=None,
 ) -> TrainState:
     """Train on `batches` (see `batch_source`) on `mesh_db`'s device for
     `cfg.n_epochs` epochs of `epoch_size // batch_size` steps: per-epoch
@@ -403,10 +471,22 @@ def train(
     `save_epoch_interval` epochs and at the end. `resume_run_id` restores
     parameters, Adam and the step and continues at the saved epoch + 1;
     `pretrain_run_id` restores the weights only (a port run or an npz,
-    under `run_dir`)."""
+    under `run_dir`).
+
+    Data parallel with `reduce_over` (a process group of W ranks, each
+    with the same `cfg`): `batches` gives rank r its `batch_size / W`
+    samples of each step (its rows of the global batch, or its own
+    loader's batch), and the rank takes the same rows of the step's draws;
+    every rank restores a resumed run; the epoch's metrics go through
+    `reduce_dict`, and only rank 0 writes `config.json`, `log.txt` and
+    checkpoints."""
+    rank, world = (0, 1) if reduce_over is None else (dist.get_rank(reduce_over), dist.get_world_size(reduce_over))
+    if cfg.batch_size % world:
+        raise ValueError(f"batch_size {cfg.batch_size} does not split over {world} ranks")
     run_dir = Path(cfg.run_dir) / cfg.run_id
-    run_dir.mkdir(parents=True, exist_ok=True)
-    save_config(cfg, run_dir / "config.json")
+    if rank == 0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        save_config(cfg, run_dir / "config.json")
     state = create_train_state(cfg, device=mesh_db.device)
     start_epoch = 1
     if cfg.resume_run_id:
@@ -423,20 +503,26 @@ def train(
         t0 = time.monotonic()
         for _ in range(steps_per_epoch):
             batch = batch_at(state.step)
-            draws = step_draws(cfg, batch, mesh_db, DRAW_STREAM, state.step)
-            metrics = train_step(state, cfg, batch, mesh_db, draws, n_iter)
+            draws = step_draws(cfg, batch, mesh_db, DRAW_STREAM, state.step, rank=rank, world=world)
+            metrics = train_step(state, cfg, batch, mesh_db, draws, n_iter, reduce_over)
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
         log = {k: v / steps_per_epoch for k, v in sums.items()}
         log.update(epoch=epoch, n_iterations=n_iter, time_per_epoch=time.monotonic() - t0)
         if val_batches is not None and epoch % max(1, cfg.val_epoch_interval) == 0:
             val_losses = []
-            with torch.no_grad():
+            with torch.no_grad(), synced_batch_stats(state.model, reduce_over):
                 for i in range(N_VAL_BATCHES):
                     vb = val_batches(epoch, i)
-                    draws = step_draws(cfg, vb, mesh_db, VAL_DRAW_STREAM, (epoch << 8) + i)
+                    draws = step_draws(cfg, vb, mesh_db, VAL_DRAW_STREAM, (epoch << 8) + i, rank=rank,
+                                       world=world)
                     val_losses.append(float(forward_loss(state.model, cfg, vb, mesh_db, draws, n_iter)[0]))
             log["val_loss"] = sum(val_losses) / len(val_losses)
+        if world > 1:
+            reduced = reduce_dict(log, group=reduce_over)
+            log = {**{k: reduced[k] for k in log}, "epoch": epoch, "n_iterations": n_iter}
+        if rank != 0:
+            continue
         with open(run_dir / "log.txt", "a") as fh:
             fh.write(json.dumps(log) + "\n")
         log_fn(log)

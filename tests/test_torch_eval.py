@@ -309,6 +309,38 @@ def test_run_eval_end_to_end(tmp_path):
     assert run_eval(cfg)["summary"] == summary
 
 
+def test_run_eval_rank_shards_union_equals_world_1(tmp_path):
+    """`rank`/`world_size`: the frames split as the JAX package's
+    `shard_frames`, and on the first 2 synthdemo frames the union of the
+    two ranks' predictions is the world-1 run's (the same rows, poses bit
+    for bit on the CPU); `gather_collections` passes one process's
+    collection through."""
+    from megapose6d_tpu.evaluation.runner import shard_frames as j_shard_frames
+    from megapose6d_tpu_torch.evaluation.runner import shard_frames
+    from megapose6d_tpu_torch.parallel.distributed import gather_collections
+
+    for n, world in ((7, 2), (56, 3), (2, 2)):
+        for rank in range(world):
+            np.testing.assert_array_equal(shard_frames(n, rank, world), j_shard_frames(n, rank, world))
+    scene_ds = make_scene_dataset("synthdemo.bop19", load_depth=False, data_dir=str(DATA))
+    scene_ds.frame_index = scene_ds.frame_index.take(np.arange(2))
+    base = [f"data_dir={DATA}", "ds_name=synthdemo.bop19", "coarse_run=runs/coarse_dr", "refiner_run=runs/refiner_dr",
+            "device=cpu", "inference.SO3_grid_size=8", "inference.n_pose_hypotheses=1",
+            "inference.n_refiner_iterations=1", "inference.bsz_images=16", "skip_evaluation=true"]
+    finals = {}
+    for rank, world in ((0, 1), (0, 2), (1, 2)):
+        cfg = apply_eval_overrides(EvalConfig(), base + [f"save_dir={tmp_path / f'{rank}of{world}'}",
+                                                         f"rank={rank}", f"world_size={world}"])
+        finals[rank, world] = load_predictions(run_eval(cfg, scene_ds=scene_ds)["results_path"])["final"]
+    assert all(len(finals[r, 2]) for r in range(2))
+    union = concatenate([finals[0, 2], finals[1, 2]])
+    whole = finals[0, 1]
+    for k in ("scene_id", "view_id", "label"):
+        assert union.infos[k].tolist() == whole.infos[k].tolist(), k
+    assert torch.equal(union.poses, whole.poses)
+    assert gather_collections(whole) is whole
+
+
 def test_eval_overrides():
     cfg = apply_eval_overrides(EvalConfig(), ["inference.SO3_grid_size=72", "n_frames=3", "render_size=48,64",
                                               "save_dir=x", "skip_inference=1"])

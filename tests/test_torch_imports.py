@@ -64,6 +64,9 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.data.augmentations", "megapose6d_tpu_torch.data.pose_dataset",
         "megapose6d_tpu_torch.data.loader", "megapose6d_tpu_torch.data.object_datasets",
         "megapose6d_tpu_torch.data.modelnet",
+        "megapose6d_tpu_torch.parallel.distributed", "megapose6d_tpu_torch.parallel.mesh",
+        "megapose6d_tpu_torch.meshes.sharded_db", "megapose6d_tpu_torch.interop.torch_convert",
+        "megapose6d_tpu_torch.scripts.test_distributed",
     }
     assert expected <= set(out["modules"])
 
