@@ -163,7 +163,29 @@ Phases, each printing one line with its wall time:
      the ranks' union against world 1; seeded reference-layout
      zoo_resnet34 checkpoint.pth.tar files served at full width and
      through from_jax, K1 at the 4-view refiner's shape; a
-     zoo_resnet34-train step on the card against the CPU.
+     zoo_resnet34-train step on the card against the CPU;
+ 21. the last slice (about a minute): (a) the scan renderer at phase 4's
+     render calls (the coarse chunk B=576 and the refiner's B=20,
+     240x320, the textured synthdemo models) against itself on the CPU
+     (a few rows) and against K1's render of the same inputs, with its
+     working-set bound and measured peak; (b) phase 4's request with
+     `renderer="scan"` against the tiled run, float32 twins, with both
+     requests' seconds (the scan run launches no K1); (c)
+     `fused_pipeline_flops_estimate` of phase 4's request (fused, at
+     max_detections) and of phase 14's, each equal to
+     `fused_pipeline_cost_analysis` of one call, and the TFLOP/s a graph
+     replay implies; (d) `run_inference_on_example --run-inference
+     --vis-detections --vis-outputs` on an example directory built from a
+     committed frame (PNGs at the frame's size, the HTML); (e)
+     `demo_long_refiner` and `demo_long_coarse` at full width for a few
+     steps with an evaluation, a checkpoint and a resume,
+     `demo_synthetic_e2e`, `demo_finalize_pipeline refiner_dir=<the long
+     refiner's run>`; (f) `preprocess_meshes` of the synthdemo models,
+     whose reloaded database renders bit for bit as the one it was
+     written from, and `slim_run_dir` on a copy of the long refiner's run,
+     its poses bit for bit before and after; (g) `DeviceTimer` against the
+     host clock, `profiling.trace` holding K1's launch,
+     `resources.device_memory_stats`.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -1575,12 +1597,13 @@ def poses_close(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     return rot_deg(a, b).max().item(), (a[..., :3, 3] - b[..., :3, 3]).abs().max().item() * 1000
 
 
-def phase_production(errors: list[float]) -> tuple[int, dict]:
+def phase_production(errors: list[float]) -> tuple[int, dict, PoseEstimator, tuple]:
     """The JAX bench's headline request rebuilt in the port, fused through
     a CUDA graph; its K1 launches (per request: the graph's recorded
     launches, which every replay launches again), K1 at the new launch
     shapes, replay against an eager run, fused against phased, and one
-    request of each of the other options."""
+    request of each of the other options. Returns the launches, the shapes,
+    and the fused estimator with its request (phase 21 counts its FLOPs)."""
     from megapose6d_tpu_torch.inference.pose_estimator import _GraphedPipeline
 
     db, lod = bench_world()
@@ -1739,7 +1762,7 @@ def phase_production(errors: list[float]) -> tuple[int, dict]:
               and bool(torch.isfinite(e_poses.poses).all()), "external init")
         print(f"  external initial poses: timing {json.dumps({k: round(v, 4) for k, v in e_extra['timing'].items()})}",
               flush=True)
-    return launches, shapes
+    return launches, shapes, est, (obs, dets)
 
 
 # ---------------------------------------------------------------------------
@@ -3388,6 +3411,412 @@ def phase_multi_device(errors: list[float]) -> tuple[dict[str, int], dict]:
     return launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the scan renderer, the FLOPs count, visualization, the long
+# demos, mesh preprocessing and the utilities
+# ---------------------------------------------------------------------------
+
+P21 = BUILD_DIR / "phase21"
+
+
+def counted(fn, *args, **kw):
+    """(result, K1 launches) of one call: the count set to 0 just before
+    and read just after."""
+    rt.visibility_kernel.launches = 0
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, rt.visibility_kernel.launches
+
+
+def scan_inputs(model, images, K, TCO, meshes) -> tuple:
+    """The scan renderer's (args, kwargs) in one `score_views` /
+    `refine_step` of `model` (a `renderer="scan"` twin), recorded on the
+    way through."""
+    from megapose6d_tpu_torch.ops import rasterizer
+
+    render, rec = rasterizer.render_meshes, []
+
+    def record(*args, **kw):
+        rec.append((args, kw))
+        return render(*args, **kw)
+
+    rasterizer.render_meshes = record
+    try:
+        step = model.score_views if model.cfg.predict_rendered_views_logits else model.refine_step
+        step(images, K, TCO, meshes)
+    finally:
+        rasterizer.render_meshes = render
+    check(len(rec) == 1, f"{len(rec)} scan renders in one step")
+    return rec[0]
+
+
+def scan_vs(name: str, args: tuple, kw: dict, rows: list[int]) -> int:
+    """The scan renderer on the card at one render call's inputs: against
+    itself on the CPU (the rows `rows`), against K1's tiled render of the
+    same inputs (with the model's backface cull), and the working set. The
+    tiled render's K1 launches are returned."""
+    from megapose6d_tpu_torch.ops import rasterizer
+
+    B, (H, W) = args[0].shape[0], args[7]
+    chunk = kw.get("chunk", 64)
+    group = max(1, rasterizer.MAX_GROUP_ELEMS // (chunk * H * W))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card = rasterizer.render_meshes(*args, **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    idx = torch.as_tensor(rows)
+    def sub(x):  # the rows `rows` of a per-image tensor, on the CPU
+        return x[idx.to(x.device)].cpu() if torch.is_tensor(x) and x.dim() and x.shape[0] == B else x
+
+    t0 = time.perf_counter()
+    cpu = rasterizer.render_meshes(*(sub(a) for a in args), **{k: sub(v) for k, v in kw.items()})
+    cpu_s = time.perf_counter() - t0
+    a, b = (card.mask[idx.cuda()].cpu(), cpu.mask)
+    both = a & b
+    iou_cpu = (both.sum() / (a | b).sum().clamp_min(1)).item()
+    err_cpu = max((getattr(card, k)[idx.cuda()].cpu() - getattr(cpu, k)).abs()[both].max().item()
+                  for k in ("rgb", "depth", "normals"))
+    # Against K1: two-sided as the scan renderer is, and with the models'
+    # backface cull (which the scan renderer does not do) for the record.
+    tiled_kw = {k: v for k, v in kw.items() if k != "chunk"}
+    k1, stats = 0, {}
+    for cull in (False, True):
+        tiled, n = counted(rt.render_meshes_tiled, *args, chunk=rt.KERNEL_CHUNK, backface_cull=cull, **tiled_kw)
+        k1 += n
+        hit = card.mask & tiled.mask
+        stats[cull] = ((hit.sum() / (card.mask | tiled.mask).sum().clamp_min(1)).item(),
+                       ((card.rgb - tiled.rgb).abs().amax(-1) > 1e-4)[hit].float().mean().item(),
+                       (card.depth - tiled.depth).abs()[hit].max().item(),
+                       ((card.depth - tiled.depth).abs() > 1e-4)[hit].float().mean().item())
+    print(f"  scan {name} B={B} {H}x{W} chunk={chunk}: card {card_s:.3f} s; group {group} images, each "
+          f"[group, chunk, H*W] temporary {group * chunk * H * W * 4 / 2**20:.0f} MiB (bound "
+          f"{rasterizer.MAX_GROUP_ELEMS * 4 / 2**20:.0f} MiB), measured peak {peak / 2**30:.2f} GiB; vs CPU "
+          f"({len(rows)} rows, {cpu_s:.2f} s): mask IoU {iou_cpu:.6f}, max |err| on common pixels {err_cpu:.3g}; "
+          f"vs K1 two-sided: mask IoU {stats[False][0]:.5f}, share of common pixels with rgb off > 1e-4 "
+          f"{stats[False][1]:.5f}, max depth err {stats[False][2]:.3g} m, share off > 1e-4 m {stats[False][3]:.3g}; "
+          f"vs K1 with the models' backface cull: "
+          f"IoU {stats[True][0]:.5f}, rgb off {stats[True][1]:.5f}", flush=True)
+    check(iou_cpu >= 0.999 and err_cpu <= 1e-4, f"scan {name}: card and CPU differ")
+    check(stats[False][0] >= 0.999 and stats[False][1] <= 0.1, f"scan {name}: scan and tiled renders differ")
+    return k1
+
+
+def scan_renderer_parts(est, requests) -> dict[str, int]:
+    """(a) The scan renderer at phase 4's render calls (the coarse chunk of
+    576, the refiner's B=20), and (b) phase 4's request with
+    `renderer="scan"` against the tiled run, both in float32."""
+    obs, dets = requests[0]
+    images, K = obs.images.float(), obs.K.float()
+    idx = est.mesh_db.label_to_index(dets.labels)
+    launches = {}
+    with torch.inference_mode():
+        TCO_init = est.init_hypotheses(K, dets.bboxes.float(), idx, est.so3_grid)  # [D, 576, 4, 4]
+        n = est.cfg.bsz_images
+        coarse_scan = est.coarse_model.twin(renderer="scan")
+        c_in = scan_inputs(coarse_scan, images, K.expand(n, 3, 3), TCO_init[0, :n],
+                           est.mesh_db.select(idx[:1].expand(n)))
+        launches["scan_vs_tiled"] = scan_vs("coarse", *c_in, rows=[0])
+        refiner_scan = est.refiner_model.twin(renderer="scan")
+        m = min(est.cfg.bsz_objects, len(dets) * est.cfg.n_pose_hypotheses)
+        r_in = scan_inputs(refiner_scan, images, K.expand(m, 3, 3), TCO_init[0, :m],
+                           est.mesh_db.select(idx[:1].expand(m)))
+        launches["scan_vs_tiled"] += scan_vs("refiner", *r_in, rows=[r_in[0][0].shape[0] - 1])
+
+        # (b) The request through float32 twins with each renderer, both
+        # two-sided (the scan renderer has no backface cull).
+        icfg = est.cfg
+        runs, walls = {}, {}
+        for r in ("scan", "tiled"):
+            twin = PoseEstimator(*(m.twin(compute_dtype="float32", renderer=r, backface_cull=False)
+                                   for m in (est.coarse_model, est.refiner_model)), est.mesh_db, icfg, device="cuda")
+            t0 = time.perf_counter()
+            (runs[r], launches[f"request_{r}"]) = counted(twin.run_inference_pipeline, obs, dets)
+            walls[r] = time.perf_counter() - t0
+    check(launches["request_scan"] == 0, f"the scan request launched K1 {launches['request_scan']} times")
+    check(launches["request_tiled"] == len(launch_phases(len(dets), icfg)), "the tiled request's launches")
+    (ps, xs), (pt, xt) = runs["scan"], runs["tiled"]
+    same_top = torch.equal(xs["coarse"]["top_ids"], xt["coarse"]["top_ids"])
+    dlog = (xs["coarse"]["logits"] - xt["coarse"]["logits"]).abs()
+    # Every hypothesis's pose after each refiner iteration, scan against tiled.
+    gaps = [poses_close(a, b) for a, b in zip(xs["refiner"]["trajectory"], xt["refiner"]["trajectory"])]
+    deg, mm = poses_close(ps.poses, pt.poses)
+    print(f"  request renderer=scan: {walls['scan']:.3f} s, K1 launches {launches['request_scan']}; "
+          f"renderer=tiled: {walls['tiled']:.3f} s, K1 launches {launches['request_tiled']} (f32 two-sided twins, "
+          f"{len(dets)} detections, grid {icfg.SO3_grid_size}, K={icfg.n_pose_hypotheses}, "
+          f"{icfg.n_refiner_iterations} iterations); coarse logits: max diff {dlog.max().item():.3g}, "
+          f"median {dlog.median().item():.3g}; same top-K {same_top}; every hypothesis after iteration 1..n: "
+          f"{', '.join(f'{d:.3g} deg / {m:.3g} mm' for d, m in gaps)}; final top-1 poses: rot {deg:.3g} deg, "
+          f"trans {mm:.3g} mm", flush=True)
+    check(bool(torch.isfinite(ps.poses).all()), "scan poses not finite")
+    check(dlog.median().item() < 1e-3 and dlog.max().item() < 0.1 and same_top,
+          "scan and tiled coarse scores differ")
+    # Seeded weights amplify the renders' differences (texel edges) over the
+    # iterations (ROADMAP Queue 3): measured 0.005 deg / 0.04 mm after
+    # one, 0.311 deg / 1.84 mm after five; the rescore's near-tied seeded
+    # logits may then pick another of the K, so the top-1 gap is printed.
+    check(gaps[0][0] < 0.05 and gaps[0][1] < 0.2 and gaps[-1][0] < 1.0 and gaps[-1][1] < 5.0,
+          "scan and tiled refined poses differ")
+    del launches["scan_vs_tiled"]
+    return launches
+
+
+def replay_ms(est, obs, dets, reps: int = 3) -> float:
+    """Mean device time of a replay of the fused pipeline's graph (captured
+    at the first call), CUDA events."""
+    with torch.inference_mode():
+        args, inputs = padded_inputs(est, obs, dets)
+        est.fused(*args, *inputs)  # capture
+        return cuda_ms(lambda: est.fused(*args, *inputs), reps=reps, warmup=1)
+
+
+def flops_part(est, requests, prod_est, prod_request) -> int:
+    """(c) `fused_pipeline_flops_estimate` of phase 4's request (fused, at
+    max_detections) and phase 14's, each against
+    `fused_pipeline_cost_analysis` of one call, and the rate a replay
+    implies."""
+    smi = nvidia_smi()
+    fused4 = PoseEstimator(est.coarse_model, est.refiner_model, est.mesh_db,
+                           dataclasses.replace(est.cfg, fused_pipeline=True), device="cuda")
+    total = 0
+    for name, e, (obs, dets) in (("phase 4", fused4, requests[0]), ("phase 14", prod_est, prod_request)):
+        (estimate, cost), k1 = counted(lambda: (e.fused_pipeline_flops_estimate(obs),
+                                                 e.fused_pipeline_cost_analysis(obs, dets)))
+        total += k1
+        ms, k1r = counted(replay_ms, e, obs, dets)
+        total += k1r
+        rate = estimate["flops"] / (ms / 1e3) / 1e12
+        print(f"  FLOPs {name} (D={e.cfg.max_detections}, grid {e.cfg.SO3_grid_size}"
+              f"{f' pruned {e.cfg.SO3_prune_grid_size}/{e.cfg.SO3_prune_keep}' if e.cfg.SO3_prune_grid_size else ''}, "
+              f"K={e.cfg.n_pose_hypotheses}, {e.cfg.n_refiner_iterations} iterations): estimate "
+              f"{json.dumps(estimate)}; cost analysis of one call {cost['flops']} "
+              f"({json.dumps(cost['by_operator'])}); replay {ms:.3f} ms -> {rate:.2f} TFLOP/s on {smi}",
+              flush=True)
+        check(cost["flops"] == estimate["flops"] > 0, f"{name}: the estimate differs from the cost analysis")
+        check(estimate["flops"] == estimate["flops_coarse"] + estimate["flops_refine"] + estimate["flops_rescore"],
+              f"{name}: the parts do not sum")
+    return total
+
+
+def example_dir_from_frame() -> Path:
+    """An example directory (the tutorial's layout) from the committed
+    frame 0 of scene 000000 of runs/ar_baseline/synthdemo: its rgb, camera,
+    visible ground-truth boxes and the two textured models."""
+    d = P21 / "example"
+    if d.exists():
+        shutil.rmtree(d)
+    (d / "inputs").mkdir(parents=True)
+    scene = SCENE / "test" / "000000"
+    shutil.copy(scene / "rgb" / "000000.png", d / "image_rgb.png")
+    cam = json.loads((scene / "scene_camera.json").read_text())["0"]
+    (d / "camera_data.json").write_text(json.dumps({"K": np.reshape(cam["cam_K"], (3, 3)).tolist(),
+                                                    "resolution": list(HW)}))
+    gt = json.loads((scene / "scene_gt.json").read_text())["0"]
+    info = json.loads((scene / "scene_gt_info.json").read_text())["0"]
+    objs = [{"label": f"obj_{o['obj_id']:06d}", "bbox_modal": [i["bbox_visib"][0], i["bbox_visib"][1],
+                                                               i["bbox_visib"][0] + i["bbox_visib"][2],
+                                                               i["bbox_visib"][1] + i["bbox_visib"][3]]}
+            for o, i in zip(gt, info)]
+    (d / "inputs" / "object_data.json").write_text(json.dumps(objs))
+    for o in objs:
+        m = d / "meshes" / o["label"]
+        m.mkdir(parents=True, exist_ok=True)
+        for suffix in (".ply", ".png"):
+            shutil.copy(SCENE / "models" / f"{o['label']}{suffix}", m / f"{o['label']}{suffix}")
+    return d
+
+
+def visualization_part() -> int:
+    """(d) run_inference_on_example --run-inference --vis-detections
+    --vis-outputs on an example directory of a committed frame."""
+    from megapose6d_tpu_torch.scripts import run_inference_on_example
+
+    d = example_dir_from_frame()
+    t0 = time.perf_counter()
+    out, k1 = counted(run_inference_on_example.main, [str(d), "--run-inference", "--vis-detections",
+                                                       "--vis-outputs", "--so3-grid-size", "576"])
+    wall = time.perf_counter() - t0
+    pngs = {p: read_png(d / "visualizations" / p) for p in ("detections.png", "pose_overlay.png",
+                                                           "contour_overlay.png")}
+    html = (d / "outputs" / "scene.html").read_text()
+    poses = json.loads(out.read_text())
+    print(f"  run_inference_on_example --vis-*: {wall:.2f} s, K1 launches {k1}; "
+          f"{', '.join(f'{p} {v.shape}' for p, v in pngs.items())}; scene.html {len(html)} bytes, "
+          f"{len(poses)} poses", flush=True)
+    for p, v in pngs.items():
+        check(v.shape == HW + (3,) and v.dtype == np.uint8, f"{p}: {v.shape}")
+    frame = read_png(d / "image_rgb.png")[..., :3]
+    check(bool((pngs["detections.png"] != frame).any()) and bool((pngs["pose_overlay.png"] != frame).any()),
+          "the visualizations drew nothing")
+    check('id="scene-data"' in html and "pred/0_" in html, "scene.html lacks its payload")
+    check(k1 > 0 and len(poses) == 2, "the example run")
+    return k1
+
+
+def demos_part(est, requests) -> dict[str, int]:
+    """(e) demo_long_refiner and demo_long_coarse at full width for a few
+    steps with an evaluation, a checkpoint and a resume; demo_synthetic_e2e;
+    demo_finalize_pipeline on the long refiner's run; and (f) slimming that
+    run changes no pose."""
+    from megapose6d_tpu_torch.scripts import (demo_finalize_pipeline, demo_long_coarse, demo_long_refiner,
+                                              demo_synthetic_e2e, slim_run_dir)
+
+    if P21.exists():
+        for sub in ("long_refiner", "long_coarse", "e2e", "final", "slim"):
+            shutil.rmtree(P21 / sub, ignore_errors=True)
+    full = ["batch_size=32", "render=240,320", "backbone=resnet18-spatial"]
+    launches, walls = {}, {}
+    ref_dir = P21 / "long_refiner"
+    steps = [(ref_dir, demo_long_refiner, ["n_steps=3", "eval_every=2", "ckpt_every=2", "n_eval=8"]),
+             (ref_dir, demo_long_refiner, ["n_steps=4", "eval_every=2", "ckpt_every=2", "n_eval=8"]),
+             (P21 / "long_coarse", demo_long_coarse, ["n_steps=2", "eval_every=2", "grid=64,576", "n_eval=4"]),
+             (P21 / "long_coarse", demo_long_coarse, ["n_steps=3", "eval_every=2", "grid=64,576", "n_eval=4"])]
+    for i, (out, mod, extra) in enumerate(steps):
+        name = f"{mod.__name__.rsplit('.', 1)[1]}{' (resumed)' if i % 2 else ''}"
+        t0 = time.perf_counter()
+        rec, k1 = counted(mod.main, [f"out_dir={out}"] + full + extra)
+        walls[name] = time.perf_counter() - t0
+        launches["demo_long"] = launches.get("demo_long", 0) + k1
+        print(f"  {name}: {walls[name]:.2f} s, K1 launches {k1}; last record {json.dumps(rec)}", flush=True)
+    hist_r = json.loads((ref_dir / "history.json").read_text())
+    hist_c = json.loads((P21 / "long_coarse" / "history.json").read_text())
+    check([h["step"] for h in hist_r] == [2, 3, 4], f"long refiner history {[h['step'] for h in hist_r]}")
+    check([(h["step"], h["grid"]) for h in hist_c] == [(2, 64), (2, 576), (3, 64), (3, 576)], "long coarse history")
+    check((ref_dir / "checkpoints" / "latest.txt").read_text() == "4", "long refiner checkpoint")
+
+    t0 = time.perf_counter()
+    rep, k1 = counted(demo_synthetic_e2e.main, [f"out_dir={P21 / 'e2e'}", "n_steps=3", "coarse_steps=3",
+                                                "batch_size=32", "render=240,320", "input=240,320",
+                                                "n_eval=4", "so3=576"])
+    launches["demo_e2e"] = k1
+    print(f"  demo_synthetic_e2e (3 + 3 steps, 4 scenes, grid 576): {time.perf_counter() - t0:.2f} s, K1 launches "
+          f"{k1}; pipeline {json.dumps(rep['pipeline'])}", flush=True)
+    check(all(np.isfinite(v) for v in rep["pipeline"].values()), "demo_synthetic_e2e report")
+
+    t0 = time.perf_counter()
+    rep, k1 = counted(demo_finalize_pipeline.main, [f"refiner_dir={ref_dir}", f"out_dir={P21 / 'final'}",
+                                                    "coarse_steps=3", "so3=576", "n_eval=4", "batch_size=32"])
+    launches["demo_finalize_long"] = k1
+    print(f"  demo_finalize_pipeline refiner_dir=<long refiner run>: {time.perf_counter() - t0:.2f} s, K1 launches "
+          f"{k1}; refiner step {rep['refiner_checkpoint_step']}; pipeline {json.dumps(rep['pipeline'])}", flush=True)
+    check(rep["refiner_checkpoint_step"] == 4, "finalize did not read the long refiner's step")
+
+    # (f, second half) slim a copy of the run; the poses of a request do not move.
+    slim = P21 / "slim"
+    shutil.copytree(ref_dir, slim)
+    obs, dets = requests[0]
+    cfg = dataclasses.replace(est.cfg, SO3_grid_size=72)
+
+    def poses():
+        refiner = build_model(slim, None, None, device="cuda")
+        e = PoseEstimator(est.coarse_model, refiner, est.mesh_db, cfg, device="cuda")
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, benchmark=False):
+            return e.run_inference_pipeline(obs, dets)[0].poses
+
+    before, k1a = counted(poses)
+    kept = slim_run_dir.slim_run_dir(slim)
+    after, k1b = counted(poses)
+    launches["slim"] = k1a + k1b
+    left = sorted(p.name for p in (slim / "checkpoints").iterdir())
+    print(f"  slim_run_dir: kept {kept.name}, left {left}; poses before and after bit for bit "
+          f"{torch.equal(before, after)}; K1 launches {k1a + k1b}", flush=True)
+    check(left == ["epoch_4", "latest.txt"] and torch.equal(before, after), "slim_run_dir changed the run")
+    return launches
+
+
+def preprocess_part() -> int:
+    """(f) preprocess_meshes of the synthdemo models, read back with
+    load_batched_meshes: K1 renders of the reloaded database bit for bit
+    those of the database it was written from."""
+    from megapose6d_tpu_torch.meshes.mesh_db import load_batched_meshes
+    from megapose6d_tpu_torch.scripts import preprocess_meshes
+
+    P21.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    written = preprocess_meshes.main([f"source=dir:{SCENE / 'models'}", f"out={P21 / 'synthdemo.npz'}",
+                                      "max_faces=4096", "n_points=2000", "n_sym=32"])
+    prep_s = time.perf_counter() - t0
+    loaded = load_batched_meshes(P21 / "synthdemo.npz", device="cuda")
+    written = written._map(lambda x: x.cuda())
+    rng = np.random.RandomState(21)
+    TCO = torch.as_tensor(random_poses(rng, 32), device="cuda")
+    K = torch.as_tensor(scene_K(), device="cuda").expand(32, 3, 3)
+    idx = torch.as_tensor(rng.randint(0, len(loaded.labels), 32), device="cuda")
+
+    def render(db):
+        m = db.select(idx)
+        return rt.render_meshes_tiled(m.vertices, m.normals, m.colors, m.faces, m.face_valid, TCO, K, HW,
+                                      backface_cull=True, **m.texture_kw)
+
+    (a, b), k1 = counted(lambda: (render(loaded), render(written)))
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"  preprocess_meshes: {prep_s:.2f} s, {len(loaded.labels)} objects, V={loaded.vertices.shape[1]}, "
+          f"F={loaded.faces.shape[1]}, npz {(P21 / 'synthdemo.npz').stat().st_size / 1e6:.2f} MB; K1 renders of the "
+          f"reloaded database (B=32, {HW[0]}x{HW[1]}) bit for bit {same}; K1 launches {k1}", flush=True)
+    check(same and loaded.labels == written.labels and bool(a.mask.any()), "the reloaded database renders otherwise")
+    return k1
+
+
+def utils_part() -> int:
+    """(g) DeviceTimer against the host clock, profiling.trace holding K1's
+    launches, resources.device_memory_stats on the card."""
+    from megapose6d_tpu_torch.utils import profiling, resources
+    from megapose6d_tpu_torch.utils.timers import DeviceTimer
+
+    rng = np.random.RandomState(7)
+    mesh = mesh_io.make_uv_sphere(0.05, 64, 64)
+    B = 256
+    v = torch.as_tensor(mesh.vertices, device="cuda").expand(B, -1, -1)
+    n = torch.as_tensor(mesh.vertex_normals, device="cuda").expand(B, -1, -1)
+    c = torch.as_tensor(mesh.vertex_colors, device="cuda").expand(B, -1, -1)
+    f = torch.as_tensor(mesh.faces, device="cuda").expand(B, -1, -1)
+    fv = torch.ones(f.shape[:2], dtype=torch.bool, device="cuda")
+    TCO = torch.as_tensor(random_poses(rng, B), device="cuda")
+    K = torch.as_tensor(scene_K(), device="cuda").expand(B, 3, 3)
+    render = lambda: rt.render_meshes_tiled(v, n, c, f, fv, TCO, K, HW)  # noqa: E731
+    rt.visibility_kernel.launches = 0
+    render()
+    torch.cuda.synchronize()
+    timer = DeviceTimer().start()
+    t0 = time.perf_counter()
+    render()
+    dev_s = timer.end()
+    host_s = time.perf_counter() - t0
+    with profiling.trace(P21 / "trace") as prof:
+        with profiling.annotate("phase21/render"):
+            render()
+    trace = json.loads((P21 / "trace" / "trace.json").read_text())
+    k1_events = sum(1 for e in trace["traceEvents"]
+                    if e.get("cat") == "kernel" and "visibility_kernel" in e.get("name", ""))
+    regions = sum(1 for e in prof.key_averages() if e.key == "phase21/render")
+    stats = resources.device_memory_stats()
+    launches = rt.visibility_kernel.launches
+    print(f"  DeviceTimer {dev_s * 1e3:.3f} ms vs host clock {host_s * 1e3:.3f} ms around one synchronized render "
+          f"(B={B}, {HW[0]}x{HW[1]}); trace: {k1_events} K1 kernel events, annotated region {regions}; "
+          f"device_memory_stats {json.dumps(stats)}; host RSS {resources.host_memory_rss_mb():.0f} MiB; "
+          f"K1 launches {launches}", flush=True)
+    check(0 < dev_s <= host_s * 1.05 + 1e-4, "DeviceTimer disagrees with the host clock")
+    check(k1_events == 1 and regions >= 1, "the trace lacks K1's launch or the region")
+    check(stats["bytes_limit"] > 40e9 and 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"], str(stats))
+    return launches
+
+
+def phase_last_slice(est, requests, prod_est, prod_request) -> dict[str, int]:
+    """Phase 21: each part's K1 launches, by path."""
+    launches = scan_renderer_parts(est, requests)
+    launches["flops"] = flops_part(est, requests, prod_est, prod_request)
+    launches["vis"] = visualization_part()
+    launches.update(demos_part(est, requests))
+    launches["preprocess"] = preprocess_part()
+    launches["utils"] = utils_part()
+    print(f"  phase 21 K1 launches by path: {json.dumps(launches)}", flush=True)
+    check(all(v > 0 for k, v in launches.items() if k != "request_scan"),
+          f"a path of phase 21 launched no K1: {launches}")
+    return {f"p21_{k}": v for k, v in launches.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3429,7 +3858,7 @@ def main() -> int:
     with Phase("training"):
         train_launches, train_shapes = phase_training(errors)
     with Phase("production"):
-        prod_launches, prod_shapes = phase_production(errors)
+        prod_launches, prod_shapes, prod_est, prod_request = phase_production(errors)
     with Phase("demo finalize"):
         final_launches = phase_demo_finalize()
     with Phase("scene generation"):
@@ -3442,6 +3871,8 @@ def main() -> int:
         dataset_launches, dataset_shapes = phase_dataset_training(errors)
     with Phase("multi-device and reference weights"):
         multi_launches, multi_shapes = phase_multi_device(errors)
+    with Phase("scan renderer, FLOPs, visualization, long demos, preprocessing, utilities"):
+        last_launches = phase_last_slice(est, requests, prod_est, prod_request)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
@@ -3457,14 +3888,14 @@ def main() -> int:
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
-        + serve_launches + dataset_launches + sum(multi_launches.values()),
+        + serve_launches + dataset_launches + sum(multi_launches.values()) + sum(last_launches.values()),
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
                              "production": prod_launches, "demo_finalize": final_launches,
                              "scene_gen": gen_launches, "detector": det_launches,
                              "detector_serving": serve_launches, "train_datasets": dataset_launches,
-                             **multi_launches},
+                             **multi_launches, **last_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

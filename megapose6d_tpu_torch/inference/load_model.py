@@ -109,11 +109,14 @@ def run_checkpoint(run_dir: str | Path | None) -> Path | None:
 
 
 def weight_source(run_dir: str | Path | None, weights: str | Path | None) -> Path | None:
-    """The weight file of a model: `weights` (an npz, a `state.pt` or a
-    checkpoint directory holding one) if given, else the run's latest port
-    checkpoint, else None."""
+    """The weight file of a model: `weights` (an npz, a `state.pt`, a
+    checkpoint directory holding one, or a port run directory, whose latest
+    checkpoint it names) if given, else the run's latest port checkpoint,
+    else None."""
     if weights:
         path = Path(weights)
+        if (path / "checkpoints" / "latest.txt").exists():
+            return run_checkpoint(path)
         return path / "state.pt" if path.is_dir() else path
     return run_checkpoint(run_dir)
 

@@ -427,6 +427,105 @@ class PoseEstimator:
         return graph(*inputs)
 
     # ------------------------------------------------------------------
+    # FLOPs
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _count_flops(fn, *args) -> tuple[int, dict[str, int]]:
+        """FLOPs of one real call of `fn(*args)` as `FlopCounterMode` counts
+        them (matmuls and convolutions), and its per-operator totals."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+            fn(*args)
+        return counter.get_total_flops(), {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+
+    @staticmethod
+    def _chunks(n: int, chunk: int) -> list[tuple[int, int]]:
+        """(rows, trips) of the calls that `n` hypotheses take `chunk` at a
+        time: the full chunks, then the shorter last one."""
+        full, rest = divmod(n, chunk)
+        return [(chunk, full)] + ([(rest, 1)] if rest else [])
+
+    def fused_pipeline_cost_analysis(self, observation: ObservationTensor, detections: TensorCollection) -> dict:
+        """The FLOPs of one call of the fused pipeline on `observation`
+        and `detections` padded to `max_detections`: `pipeline`, the
+        function the fused mode captures, run once eagerly on the
+        estimator's device under `FlopCounterMode`, every chunk trip
+        counted. Returns `{"flops": total, "by_operator": {op: flops}}`.
+        Unlike XLA's cost analysis, which counts a loop's body once, it
+        counts every trip, so it equals `fused_pipeline_flops_estimate`."""
+        cfg = self.cfg
+        mesh_idx = self.mesh_db.label_to_index(detections.labels)
+        args, inputs = self.fused_inputs(
+            observation.images.to(self.device, torch.float32), observation.K.to(self.device, torch.float32),
+            detections.bboxes.to(self.device, torch.float32), mesh_idx, cfg.n_refiner_iterations,
+            cfg.n_pose_hypotheses)
+        total, by_op = self._count_flops(self.pipeline, *args, *inputs)
+        return {"flops": total, "by_operator": by_op}
+
+    def fused_pipeline_flops_estimate(self, observation: ObservationTensor) -> dict[str, int]:
+        """The model FLOPs of one fused pipeline call on one image at
+        `max_detections` detections, the MFU numerator of a benchmark.
+
+        Each distinct chunk sub-program (the hypotheses' initial poses of
+        a sweep, `score_views` at the sweep's chunk, or the probe and
+        children sweeps' when `SO3_prune_grid_size` is set, `refine_step`
+        at the object chunk, the rescore) is counted once with
+        `FlopCounterMode` over one real call on the estimator's device,
+        then multiplied by its trip count; the shorter last chunk is its
+        own sub-program. `FlopCounterMode` counts matmuls and convolutions
+        (XLA's count also takes elementwise ops and normalizations), and
+        K1, a ctypes launch, is opaque to it, as the Pallas call is to XLA.
+
+        Returns {"flops", "flops_coarse", "flops_refine",
+        "flops_rescore"}."""
+        cfg = self.cfg
+        D = cfg.max_detections
+        dev = self.device
+        images = observation.images[:1].to(dev, torch.float32)
+        K = observation.K[:1].to(dev, torch.float32)
+        H, W = images.shape[1:3]
+        boxes = torch.tensor([[W / 4, H / 4, 3 * W / 4, 3 * H / 4]], device=dev).expand(D, 4)
+        mesh_idx = torch.zeros(D, dtype=torch.long, device=dev)
+        cache: dict[tuple, int] = {}
+
+        def poses(n: int) -> Tensor:
+            T = torch.eye(4, device=dev).repeat(n, 1, 1)
+            T[:, 2, 3] = 0.5
+            return T
+
+        def score(model: PosePredictor, n: int) -> int:
+            key = ("score", id(model), n)
+            if key not in cache:
+                cache[key] = self._count_flops(model.score_views, images, K.expand(n, 3, 3), poses(n),
+                                               self.mesh_db_coarse.select(mesh_idx[:1].expand(n)))[0]
+            return cache[key]
+
+        def refine(n: int) -> int:
+            return self._count_flops(self.refiner_model.refine_step, images, K.expand(n, 3, 3), poses(n),
+                                     self.mesh_db.select(mesh_idx[:1].expand(n)))[0]
+
+        def sweep(grid: Tensor) -> int:
+            """Initial poses and scores of `D x M` hypotheses, `grid [M, 3,
+            3]` or `[D, M, 3, 3]`."""
+            n = D * grid.shape[-3]
+            f = self._count_flops(self.init_hypotheses, K, boxes, mesh_idx, grid)[0]
+            return f + sum(t * score(self.coarse_model_sweep, c) for c, t in self._chunks(n, min(cfg.bsz_images, n)))
+
+        if cfg.SO3_prune_grid_size:
+            n_children = min(cfg.SO3_prune_keep, self.so3_prune_grid.shape[0]) * self.prune_children.shape[1]
+            f_coarse = sweep(self.so3_prune_grid) + sweep(self.so3_grid[:1].expand(D, n_children, 3, 3))
+        else:
+            f_coarse = sweep(self.so3_grid)
+        N = D * cfg.n_pose_hypotheses
+        chunks = self._chunks(N, min(cfg.bsz_objects, N))
+        f_refine = cfg.n_refiner_iterations * sum(t * refine(c) for c, t in chunks)
+        f_rescore = sum(t * score(self.coarse_model_rescore, c) for c, t in chunks)
+        return {"flops": f_coarse + f_refine + f_rescore, "flops_coarse": f_coarse, "flops_refine": f_refine,
+                "flops_rescore": f_rescore}
+
+    # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 

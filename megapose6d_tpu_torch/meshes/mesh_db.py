@@ -312,3 +312,26 @@ class MeshDataBase:
             **{k: torch.as_tensor(v, device=device) for k, v in arrays.items()},
             labels=tuple(labels),
         )
+
+
+def save_batched_meshes(path: str | Path, batched: BatchedMeshes) -> None:
+    """A padded mesh database in one compressed npz, in the JAX package's
+    layout (`meshes/mesh_db.py save_batched_meshes`): one array per field,
+    the optional texture fields only when present, and `labels` as a
+    unicode array. Either package reads what the other wrote."""
+    arrays = {k: getattr(batched, k).cpu().numpy() for k in BatchedMeshes._TENSORS}
+    arrays.update({k: getattr(batched, k).cpu().numpy() for k in BatchedMeshes._OPTIONAL
+                   if getattr(batched, k) is not None})
+    np.savez_compressed(path, labels=np.asarray(batched.labels), **arrays)
+
+
+def load_batched_meshes(path: str | Path, device: str | torch.device = "cuda") -> BatchedMeshes:
+    """The database `save_batched_meshes` (of either package) wrote, on
+    `device`."""
+    with np.load(path, allow_pickle=False) as data:
+        t = lambda k: torch.as_tensor(data[k]).to(device)  # noqa: E731
+        return BatchedMeshes(
+            **{k: t(k) for k in BatchedMeshes._TENSORS},
+            **{k: t(k) if k in data else None for k in BatchedMeshes._OPTIONAL},
+            labels=tuple(str(label) for label in data["labels"]),
+        )

@@ -8,7 +8,9 @@ serves both roles, configured by flags:
 `refine_step` and `score_views` take NHWC tensors and run one
 crop -> render -> CNN (-> SE(3) update) pass; the caller loops.
 The render goes through the tiled rasterizer, whose visibility pass is
-the CUDA kernel on the GPU.
+the CUDA kernel on the GPU, or with `renderer="scan"` through the scan
+renderer (`ops/rasterizer.py`, plain torch, two-sided). Only the config
+picks the renderer, never the device.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from ..meshes.mesh_db import BatchedMeshes
-from ..ops import cropping, multiview, rasterizer_tiled
+from ..ops import cropping, multiview, rasterizer, rasterizer_tiled
 from ..ops.camera import get_K_crop_resize, get_K_resize, masked_boxes_from_uv, project_points_robust
 from ..ops.pose_init import pose_update_with_reference_point
 from ..ops.se3 import normalize_T, rotmat_from_ortho6d
@@ -57,6 +59,8 @@ class PosePredictorConfig:
     compute_dtype: str = "float32"
     crop_lamb: float = 1.4
     mv_crop_points: int = 200
+    renderer: str = "tiled"  # "tiled" (the CUDA kernel on the card) | "scan" (plain torch)
+    face_chunk: int = 64  # the scan renderer's face chunk
     tile_face_chunk: int = 16
     # How many hypotheses share one program of the JAX package's Pallas
     # kernel. It changes no pixel there, and has no effect here: the CUDA
@@ -139,9 +143,10 @@ class PosePredictor(nn.Module):
 
     def twin(self, **changes) -> "PosePredictor":
         """This model under a configuration with `changes` (`compute_dtype`,
-        `render_at`), sharing its parameter tensors: no copy, one
-        `state_dict`. Changes that would alter the parameters raise."""
-        allowed = {"compute_dtype", "render_at"}
+        `render_at`, `renderer`, `face_chunk`, `backface_cull`), sharing its
+        parameter tensors: no copy, one `state_dict`. Changes that would
+        alter the parameters raise."""
+        allowed = {"compute_dtype", "render_at", "renderer", "face_chunk", "backface_cull"}
         if not set(changes) <= allowed:
             raise ValueError(f"a twin may change only {sorted(allowed)}, not {sorted(set(changes) - allowed)}")
         twin = copy.copy(self)  # shares the _parameters, _buffers and _modules dicts
@@ -225,13 +230,18 @@ class PosePredictor(nn.Module):
             light_ambient, light_point = 1.0, 0.0
         else:
             light_ambient, light_point = 0.1, 0.4
-        out = rasterizer_tiled.render_meshes_tiled(
-            mesh_mv.vertices, mesh_mv.normals, mesh_mv.colors, mesh_mv.faces,
-            mesh_mv.face_valid, TCV_O.reshape(B * V, 4, 4), KV.reshape(B * V, 3, 3),
-            ras_hw, z_near=cfg.z_near, chunk=cfg.tile_face_chunk,
-            light_ambient=light_ambient, light_point=light_point,
-            backface_cull=cfg.backface_cull, **mesh_mv.texture_kw,
-        )
+        args = (mesh_mv.vertices, mesh_mv.normals, mesh_mv.colors, mesh_mv.faces, mesh_mv.face_valid,
+                TCV_O.reshape(B * V, 4, 4), KV.reshape(B * V, 3, 3), ras_hw)
+        light = dict(light_ambient=light_ambient, light_point=light_point)
+        if cfg.renderer == "tiled":
+            out = rasterizer_tiled.render_meshes_tiled(
+                *args, z_near=cfg.z_near, chunk=cfg.tile_face_chunk, backface_cull=cfg.backface_cull,
+                **light, **mesh_mv.texture_kw)
+        elif cfg.renderer == "scan":  # two-sided, as the JAX package's scan branch
+            out = rasterizer.render_meshes(*args, z_near=cfg.z_near, chunk=cfg.face_chunk, **light,
+                                           **mesh_mv.texture_kw)
+        else:
+            raise ValueError(f"unknown renderer {cfg.renderer!r}")
         chans = [out.rgb, out.normals] if cfg.render_normals else [out.rgb]
         if cfg.render_depth:
             chans.append(self.normalize_depth(out.depth[..., None], tCR.repeat_interleave(V, dim=0)))

@@ -49,10 +49,11 @@ def _rendezvous() -> tuple[str, int, int] | None:
 
 
 def local_device() -> torch.device:
-    """This rank's device: `cuda:LOCAL_RANK % device_count` on the card,
-    else the CPU."""
+    """This rank's card, `cuda:LOCAL_RANK % device_count`. Raises when no
+    CUDA card is visible: a rank never carries on on the CPU unasked."""
     if not torch.cuda.is_available():
-        return torch.device("cpu")
+        raise RuntimeError("local_device: no CUDA card is visible to this rank (torch.cuda.is_available() is "
+                           "False); run on the CPU by passing device=cpu explicitly")
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
 
 

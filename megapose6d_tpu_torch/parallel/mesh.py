@@ -16,13 +16,19 @@ from typing import Sequence
 import torch
 
 
-def make_mesh(n_devices: int | None = None) -> list[torch.device]:
-    """The first `n_devices` cards (all by default), or the CPU where
-    there is no card. Raises when fewer devices exist."""
-    if torch.cuda.is_available():
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    else:
+def make_mesh(n_devices: int | None = None, device_type: str = "cuda") -> list[torch.device]:
+    """The first `n_devices` devices of `device_type` (all by default):
+    the visible cards for "cuda", the one CPU device for "cpu". Raises when
+    fewer devices exist; never swaps one type for the other."""
+    if device_type == "cuda":
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [torch.device("cuda", i) for i in range(n)]
+    elif device_type == "cpu":
         devices = [torch.device("cpu")]
+    else:
+        raise ValueError(f"make_mesh: unknown device_type {device_type!r}")
+    if not devices:
+        raise ValueError("make_mesh: no CUDA card is visible; pass device_type='cpu' to build a CPU mesh")
     if n_devices is not None:
         if len(devices) < n_devices:
             raise ValueError(

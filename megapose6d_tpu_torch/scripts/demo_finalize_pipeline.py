@@ -16,7 +16,9 @@ the same arguments and the same `report.json` keys:
 The port cannot read orbax. `refiner_dir` and `coarse_dir` name npz
 exports of a JAX run's params instead (`python -m
 tests.test_torch_checkpoints export <run> <out.npz> <step>`; a name
-ending in `@<step>.npz` gives the step), so the JAX script's `epoch`,
+ending in `@<step>.npz` gives the step), or port run directories (of
+`demo_long_refiner` and `demo_long_coarse`: their latest checkpoint and
+its step), so the JAX script's `epoch`,
 `coarse_epoch` and `coarse2_epoch`, which pick an orbax step, have no
 counterpart here. An empty `refiner_dir` means weights from seed 1; an
 empty `coarse_dir` trains the scorer for `coarse_steps` on the port's
@@ -48,7 +50,7 @@ import numpy as np
 import torch
 
 from ..data.types import ObservationTensor
-from ..inference.load_model import build_model, npz_step
+from ..inference.load_model import build_model, npz_step, run_checkpoint
 from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import InferenceConfig, make_detections
 from ..meshes.mesh_db import BatchedMeshes
@@ -58,9 +60,8 @@ from ..ops.se3 import add_pose_noise
 from ..training import train as tt
 from ..training.config import TrainingConfig, load_config, make_coarse_cfg, make_refiner_cfg
 from ..training.forward_loss import BatchPoseData
-from ..utils import threefry
 from ..meshes.worlds import build_world
-from .demo_synthetic_e2e import pose_errors, train_model
+from .demo_synthetic_e2e import eval_draws, noise_draws, pose_errors, train_model
 
 logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
@@ -87,33 +88,20 @@ def parse_args(argv: list[str]) -> dict[str, str]:
     return args
 
 
+def weights_step(weights: str) -> int:
+    """The training step of `weights`: a port run's latest checkpoint's,
+    or the `@<step>` of an npz name (0 without one)."""
+    ckpt = run_checkpoint(weights) if weights and Path(weights).is_dir() else None
+    if ckpt is not None:
+        return int(torch.load(ckpt, map_location="cpu", weights_only=True)["step"])
+    return npz_step(weights)
+
+
 def make_model(cfg: TrainingConfig, weights: str, seed: int, device: torch.device) -> PosePredictor:
-    """The model of `cfg` with the npz `weights`, or weights from `seed`
-    when `weights` is empty."""
+    """The model of `cfg` with `weights` (an npz or a port run directory),
+    or weights from `seed` when `weights` is empty."""
     return build_model(None, weights or None, lambda render_size: PosePredictorConfig(**cfg.model_config_kwargs()),
                        seed=seed, device=device)
-
-
-def eval_draws(n_labels: int, batch_size: int) -> dict[str, Tensor]:
-    """The draws of the JAX package's `synthetic_batch_fn` at `PRNGKey(9999)`
-    (object, pool rotation, depth, lateral offset), for
-    `SyntheticBatches.make`."""
-    k1, k2, k3, k4 = threefry.split(threefry.PRNGKey(9999), 4)
-    B = batch_size
-    return {
-        "mesh_idx": torch.as_tensor(threefry.randint(k1, (B,), 0, n_labels), dtype=torch.long),
-        "quat_idx": torch.as_tensor(threefry.randint(k2, (B,), 0, 4096), dtype=torch.long),
-        "z": torch.as_tensor(threefry.uniform(k3, (B, 1), 0.35, 0.9)),
-        "xy": torch.as_tensor(threefry.uniform(k4, (B, 2), -0.05, 0.05)),
-    }
-
-
-def noise_draws(batch_size: int) -> tuple[Tensor, Tensor]:
-    """The standard normals of the JAX package's `add_pose_noise` at
-    `PRNGKey(7)`: (euler `[B, 3]`, translation `[B, 3]`)."""
-    kr, kt = threefry.split(threefry.PRNGKey(7))
-    return (torch.as_tensor(threefry.normal(kr, (batch_size, 3))),
-            torch.as_tensor(threefry.normal(kt, (batch_size, 3))))
 
 
 @dataclasses.dataclass
@@ -138,11 +126,11 @@ def build_models(args: dict[str, str], mesh_db: BatchedMeshes, input_res: tuple[
     ref_cfg = dataclasses.replace(make_refiner_cfg(base), n_rendered_views=2,
                                   multiview_type="front_1view", n_iterations=1)
     refiner = make_model(ref_cfg, args["refiner_dir"], 1, device)
-    logger.info("refiner weights @ step %d", npz_step(args["refiner_dir"]))
+    logger.info("refiner weights @ step %d", weights_step(args["refiner_dir"]))
     coarse_cfg = dataclasses.replace(make_coarse_cfg(base), n_hypotheses=4)
     if args["coarse_dir"]:
         coarse = make_model(coarse_cfg, args["coarse_dir"], 0, device)
-        logger.info("coarse weights @ step %d", npz_step(args["coarse_dir"]))
+        logger.info("coarse weights @ step %d", weights_step(args["coarse_dir"]))
     else:
         coarse = train_model(coarse_cfg, mesh_db, int(args["coarse_steps"]), input_res, "coarse")[0]
     coarse2 = None
@@ -150,7 +138,7 @@ def build_models(args: dict[str, str], mesh_db: BatchedMeshes, input_res: tuple[
         cfg2 = dataclasses.replace(load_config(Path(args["coarse2_dir"]) / "config.json"), compute_dtype=dtype)
         coarse2 = make_model(cfg2, args["coarse2_weights"], 2, device)
         logger.info("small coarse scorer %s @ step %d", tuple(cfg2.render_size), npz_step(args["coarse2_weights"]))
-    return Models(refiner, coarse, coarse2, npz_step(args["refiner_dir"]), npz_step(args["coarse2_weights"]))
+    return Models(refiner, coarse, coarse2, weights_step(args["refiner_dir"]), npz_step(args["coarse2_weights"]))
 
 
 def _median_mm(x) -> float:

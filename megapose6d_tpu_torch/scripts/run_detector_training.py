@@ -138,7 +138,7 @@ def save_state(path: Path, model: CenterNetDetector, opt_state: dict | None, ste
 def load_state(path: Path, model: CenterNetDetector, opt_state: dict | None) -> int:
     saved = torch.load(path / "state.pt", map_location="cpu", weights_only=True)
     model.load_state_dict(saved["params"])
-    if opt_state is not None:
+    if opt_state is not None and "opt_state" in saved:  # a slimmed checkpoint resumes with a fresh Adam
         names = [n for n, _ in model.named_parameters()]
         for key in ("mu", "nu"):
             for t, n in zip(opt_state[key], names):

@@ -17,10 +17,14 @@ drawn from a seed (a smoke test of the pipeline, no meaningful poses).
 `--depth` adds `image_depth.png` to the observation as its depth channel.
 
     python -m megapose6d_tpu_torch.scripts.run_inference_on_example <dir> \\
-        --run-inference [--depth] [--coarse-run RUN --coarse-weights NPZ ...] [--device cpu]
+        --run-inference [--depth] [--coarse-run RUN --coarse-weights NPZ ...] [--device cpu] \\
+        [--vis-detections] [--vis-outputs]
 
-`--vis-detections` and `--vis-outputs` need the visualization modules,
-which are not ported yet: they raise.
+`--vis-detections` writes `visualizations/detections.png` (the input boxes
+over the image); `--vis-outputs`, with `--run-inference`, writes
+`outputs/scene.html` (the HTML scene viewer with the camera and the
+estimated poses) and `visualizations/pose_overlay.png` and
+`contour_overlay.png` (the estimates rendered over the image).
 """
 
 from __future__ import annotations
@@ -80,6 +84,45 @@ def load_detections(example_dir: Path, device="cuda"):
     return make_detections([o.label for o in objs], np.stack([o.bbox_modal for o in objs]), device=device)
 
 
+def vis_detections(args) -> Path:
+    """`--vis-detections`: the input boxes over the rgb image."""
+    from ..visualization.plotter import plot_detections
+
+    example_dir = Path(args.example_dir)
+    observation = load_observation(example_dir, device=args.device)
+    out = example_dir / "visualizations" / "detections.png"
+    out.parent.mkdir(exist_ok=True)
+    plot_detections(observation.images[0, ..., :3], load_detections(example_dir, device=args.device), out_path=out)
+    logger.info("wrote %s", out)
+    return out
+
+
+def vis_outputs(example_dir: Path, observation: ObservationTensor, data, mesh_db) -> list[Path]:
+    """`--vis-outputs`: the scene viewer's HTML (camera and estimates) and
+    the pose and contour overlays."""
+    from ..visualization.plotter import plot_pose_overlay
+    from ..visualization.scene_viewer import SceneViewer
+
+    def mesh_for_label(label):
+        i = int(mesh_db.label_to_index([label])[0])
+        valid = mesh_db.face_valid[i].cpu().numpy()
+        return (mesh_db.vertices[i].cpu().numpy(), mesh_db.faces[i].cpu().numpy()[valid],
+                mesh_db.colors[i].cpu().numpy())
+
+    viewer = SceneViewer(title=f"{example_dir.name} estimates")
+    K = observation.K[0].cpu().numpy()
+    h, w = observation.images.shape[1:3]
+    viewer.add_camera("camera", K, (h, w), TWC=np.eye(4))
+    viewer.add_pose_estimates(data, mesh_for_label)
+    html = viewer.write_html(example_dir / "outputs" / "scene.html")
+    vis = example_dir / "visualizations"
+    vis.mkdir(exist_ok=True)
+    plot_pose_overlay(observation.images[0, ..., :3], mesh_db, list(data.labels), data.poses, K,
+                      out_path=vis / "pose_overlay.png", contour_out_path=vis / "contour_overlay.png")
+    logger.info("wrote %s, %s and %s", html, vis / "pose_overlay.png", vis / "contour_overlay.png")
+    return [html, vis / "pose_overlay.png", vis / "contour_overlay.png"]
+
+
 def run_inference(args) -> Path:
     example_dir = Path(args.example_dir)
     observation = load_observation(example_dir, load_depth=args.depth, device=args.device)
@@ -105,6 +148,8 @@ def run_inference(args) -> Path:
     out_path.parent.mkdir(exist_ok=True)
     object_data_to_json_path(out, out_path)
     logger.info("wrote %s", out_path)
+    if args.vis_outputs:
+        vis_outputs(example_dir, observation, data, mesh_db)
     return out_path
 
 
@@ -122,14 +167,17 @@ def main(argv=None):
     parser.add_argument("--n-pose-hypotheses", type=int, default=5)
     parser.add_argument("--bsz-images", type=int, default=64)
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--vis-outputs", action="store_true", help="not ported yet")
-    parser.add_argument("--vis-detections", action="store_true", help="not ported yet")
+    parser.add_argument("--vis-outputs", action="store_true",
+                        help="write outputs/scene.html and visualizations/pose_overlay.png, contour_overlay.png")
+    parser.add_argument("--vis-detections", action="store_true",
+                        help="write visualizations/detections.png (the input boxes over the image)")
     args = parser.parse_args(argv)
-    if args.vis_detections or args.vis_outputs:
-        raise NotImplementedError("not ported yet: --vis-detections, --vis-outputs (visualization)")
+    if args.vis_detections:
+        vis_detections(args)
     if args.run_inference:
         return run_inference(args)
-    parser.print_help()
+    if not args.vis_detections:
+        parser.print_help()
     return None
 
 

@@ -23,7 +23,8 @@ logger = logging.getLogger(__name__)
 def main() -> float:
     rank, world = init_distributed_mode()
     n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    logger.info("process %d/%d; device %s; cards visible: %d; backend %s", rank, world, local_device(), n_cards,
+    device = local_device() if n_cards else torch.device("cpu")  # gloo on the CPU names it
+    logger.info("process %d/%d; device %s; cards visible: %d; backend %s", rank, world, device, n_cards,
                 dist.get_backend() if dist.is_initialized() else "none")
     x = torch.arange(world, dtype=torch.float32)
     mine = torch.zeros(world, dtype=torch.float32)

@@ -48,7 +48,7 @@ from ..interop.from_jax import state_dict_from_jax
 from ..meshes.mesh_db import BatchedMeshes
 from ..models.backbones import synced_batch_stats
 from ..models.pose_predictor import PosePredictor, PosePredictorConfig
-from ..ops import cropping, rasterizer_tiled
+from ..ops import cropping, rasterizer, rasterizer_tiled
 from ..ops.camera import masked_boxes_from_uv, project_points_robust
 from ..ops.se3 import make_se3, rotmat_from_quat
 from ..ops.so3_grid import super_fibonacci_quats
@@ -265,15 +265,19 @@ def random_background(coarse: Tensor, fine: Tensor, gain: Tensor, resolution: tu
 
 class SyntheticBatches:
     """Random ground-truth scenes of the DB's objects, rendered through the
-    tiled renderer (the CUDA visibility kernel on the card); see
-    `synthetic_batch_fn`. `draw(generator)` makes a batch's draws on the
+    tiled renderer (the CUDA visibility kernel on the card) or the scan
+    renderer; see `synthetic_batch_fn`. `draw(generator)` makes a batch's draws on the
     CPU, `make(draws)` renders it from draws on the device, and a call
     does both."""
 
     z_range = (0.35, 0.9)  # depth of the object's centre, metres
 
     def __init__(self, mesh_db: BatchedMeshes, batch_size: int, input_res: tuple[int, int],
-                 f: float, domain_rand: bool, occlude: bool, device: str | torch.device):
+                 f: float, domain_rand: bool, occlude: bool, device: str | torch.device,
+                 renderer: str = "tiled", face_chunk: int = 64):
+        if renderer not in ("tiled", "scan"):
+            raise ValueError(f"unknown renderer {renderer!r}")
+        self.renderer, self.face_chunk = renderer, face_chunk
         self.mesh_db = mesh_db._map(lambda x: x.to(device))
         self.batch_size, self.input_res = batch_size, tuple(input_res)
         self.domain_rand, self.occlude = domain_rand, occlude
@@ -305,10 +309,10 @@ class SyntheticBatches:
     def _render(self, meshes: BatchedMeshes, TCO: Tensor, light: dict):
         H, W = self.input_res
         K = self.K.expand(TCO.shape[0], 3, 3)
-        return rasterizer_tiled.render_meshes_tiled(
-            meshes.vertices, meshes.normals, meshes.colors, meshes.faces, meshes.face_valid,
-            TCO, K, (H, W), backface_cull=True, **light, **meshes.texture_kw,
-        )
+        args = (meshes.vertices, meshes.normals, meshes.colors, meshes.faces, meshes.face_valid, TCO, K, (H, W))
+        if self.renderer == "scan":  # two-sided, as the JAX package's scan path
+            return rasterizer.render_meshes(*args, chunk=self.face_chunk, **light, **meshes.texture_kw)
+        return rasterizer_tiled.render_meshes_tiled(*args, backface_cull=True, **light, **meshes.texture_kw)
 
     @torch.no_grad()
     def make(self, draws: dict[str, Tensor]) -> BatchPoseData:
@@ -355,16 +359,22 @@ def synthetic_batch_fn(
     domain_rand: bool = False,
     occlude: bool = False,
     device: str | torch.device = "cuda",
+    face_chunk: int = 64,
+    renderer: str | None = None,
 ) -> SyntheticBatches:
     """`generator -> BatchPoseData`: random ground-truth scenes of the DB's
-    objects on `device`, rendered with backface culling, unlit, on black.
+    objects on `device`, rendered unlit on black by the tiled renderer with
+    backface culling, or with `renderer="scan"` by the scan renderer
+    (two-sided, `face_chunk` faces a step). `renderer=None` is "tiled" on
+    every device (the JAX package picks "scan" on a CPU).
 
     `domain_rand=True` draws each observation's ambient and point light and
     composites a procedural background behind the object. `occlude=True`
     renders a second random object beside and in front of the target and
     keeps its pixels where it is nearer; the pose and box stay the
     target's. Hypothesis renders stay unlit either way."""
-    return SyntheticBatches(mesh_db, batch_size, input_res, f, domain_rand, occlude, device)
+    return SyntheticBatches(mesh_db, batch_size, input_res, f, domain_rand, occlude, device,
+                            renderer or "tiled", face_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -394,14 +404,18 @@ def save_checkpoint(run_dir: str | Path, state: TrainState, epoch: int) -> None:
 def load_checkpoint(run_dir: str | Path, state: TrainState, params_only: bool = False) -> tuple[TrainState, int]:
     """Restore the checkpoint of `run_dir` that `latest.txt` names into
     `state`. `params_only=True` is the pretrain path: the weights only,
-    Adam and the step start afresh."""
+    Adam and the step start afresh. A checkpoint without Adam's state (one
+    `scripts/slim_run_dir` slimmed) restores the weights and the step, with
+    a fresh Adam, as the JAX package's params-and-step fallback does."""
     run_dir = Path(run_dir)
     epoch = int((run_dir / "checkpoints" / "latest.txt").read_text())
     saved = torch.load(run_dir / "checkpoints" / f"epoch_{epoch}" / "state.pt", map_location="cpu",
                        weights_only=True)
     state.model.load_state_dict({**saved["params"], **saved.get("buffers", {})})
     names = [n for n, _ in state.model.named_parameters()]
-    if not params_only:
+    if not params_only and "opt_state" not in saved:
+        state.step = int(saved["step"])
+    elif not params_only:
         for key in ("mu", "nu"):
             for t, n in zip(state.opt_state[key], names):
                 t.copy_(saved["opt_state"][key][n])

@@ -332,8 +332,9 @@ def test_run_inference_on_example_depth(example_dir):
     quat, trans = data[0]["TWO"]
     assert np.isfinite(quat).all() and np.isfinite(trans).all()
     np.testing.assert_allclose(np.linalg.norm(quat), 1.0, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        main([str(example_dir), "--vis-outputs", "--device", "cpu"])
+    # --vis-outputs draws the estimates of --run-inference; alone it writes nothing (as the JAX CLI).
+    assert main([str(example_dir), "--vis-outputs", "--device", "cpu"]) is None
+    assert not (example_dir / "visualizations").exists()
 
 
 def test_demo_world_mesh_db_matches_jax():

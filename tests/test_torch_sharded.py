@@ -12,6 +12,8 @@ helpers (sharded inference: `tests/test_torch_sharded_inference.py`).
   labels from the whole database (bit for bit, the plain visibility pass).
 - `parallel.mesh`: `make_mesh` raises past the devices there are,
   `batch_sharding` and `shard_batch` split the batch axis in order.
+- No device fallback: with no card, `make_mesh()` (device type "cuda")
+  and `distributed.local_device()` raise instead of returning the CPU.
 """
 
 import numpy as np
@@ -113,11 +115,22 @@ def test_sharded_render_selects_local_labels(dbs):
 
 
 def test_mesh_helpers():
-    assert make_mesh(1) == [torch.device("cpu")]
+    assert make_mesh(1, device_type="cpu") == [torch.device("cpu")]
     with pytest.raises(ValueError):
-        make_mesh(2)
+        make_mesh(2, device_type="cpu")
     assert batch_sharding(6, 3) == [slice(0, 2), slice(2, 4), slice(4, 6)]
     with pytest.raises(ValueError):
         batch_sharding(5, 2)
     parts = shard_batch(torch.arange(4.0), ["cpu", "cpu"])
     assert [p.tolist() for p in parts] == [[0.0, 1.0], [2.0, 3.0]]
+
+
+def test_no_cpu_fallback_without_a_card(monkeypatch):
+    from megapose6d_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        distributed.local_device()
+    for n in (None, 1):
+        with pytest.raises(ValueError, match="no CUDA card"):
+            make_mesh(n)
