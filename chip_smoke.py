@@ -17,11 +17,16 @@ Phases, each printing one line with its wall time:
      the same models on the CPU (plain phase B), in f32;
   6. kernel timing at the shapes of every render of one request (coarse
      sweep, refiner, rescore), each launch held bit for bit against the
-     plain twin; per phase the kernel's and the plain twin's times and the
-     bound, and the kernel's sum per request; at the coarse shape also the
-     store floor (the same tables with no active chunk) and the share of
-     face evaluations the kernel's cull leaves; per phase the active tiles
-     per image and the active chunks per tile;
+     plain twin at the split its shape takes and at split 1 (one block per
+     tile); per phase the kernel's and the plain twin's times and the
+     bound, the kernel's sum per request, and at both splits the
+     CUDA-event ms, the device's ms with the host ahead of it and the
+     host's share of a launch, with a sweep of the split at the launch of
+     the longest tile (every K1 shape of later phases prints the same
+     split line); at the coarse shape also the store floor (the same
+     tables with no active chunk) and the share of face evaluations the
+     kernel's cull leaves; per phase the active tiles per image and the
+     active chunks per tile;
   7. profile: one more request under torch.profiler: the device's busy
      share of the request's wall time and the kernels with the most device
      time;
@@ -31,8 +36,9 @@ Phases, each printing one line with its wall time:
      depth, every VSD distance map rendered through the kernel; the ARs
      held to the committed summary.json, the first frame's VSD launches
      held bit for bit against the plain twin, the kernel timed at the VSD
-     shape, beside its store floor, and its time per launch against the
-     chunks of the launch's longest tile;
+     shape, beside its store floor, and its time per launch (eager, and
+     the device's at the split and at split 1) against the chunks of the
+     launch's longest tile; the host's cost of issuing one launch, by part;
   9. eval run: the port's run_eval (gt detections, grid 576, K=4, 3
      refiner iterations, 2 detections, as the committed eval_config.json)
      on the first 8 frames with seeded weights, or on all 56 frames with
@@ -321,6 +327,30 @@ def host_ms(fn, reps: int) -> float:
     return dt / reps * 1e3
 
 
+def queued_ms(fn, reps: int) -> float:
+    """The device's time per call of `fn()` in ms: CUDA events around `reps`
+    calls that the host queues while a sleep kernel holds the device, so
+    that no call waits for the host to issue it. The sleep is lengthened
+    until it outlasts the issue."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        e0, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if e0.elapsed_time(start) > issue_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+
+
 def scene_K() -> np.ndarray:
     cam = json.loads((SCENE / "test/000000/scene_camera.json").read_text())
     return np.asarray(cam["0"]["cam_K"], np.float32).reshape(3, 3)
@@ -379,7 +409,7 @@ def phase_kernel_vs_plain(errors: list[float]) -> None:
                 torch.ones((B, m.n_faces), dtype=torch.bool, device="cuda"))
         TCO = torch.as_tensor(random_poses(rng, B), device="cuda")
         TCO, coefs, ids, n_act = rt.prepare_render(*args, TCO, K, HW)
-        vis = (coefs, ids, n_act, HW, 16)
+        vis = (coefs, ids, n_act, HW)
         out_k = rt.visibility_kernel(*vis)
         out_p = rt.visibility_plain(*vis)
         errors.append(compare_visibility(out_k, out_p))
@@ -515,7 +545,7 @@ def phase_cross_check(requests, db_kw) -> None:
           f"refined rot_err_deg={deg:.3g} trans_err_mm={mm:.3g}", flush=True)
 
 
-def work(coefs, ids, n_act, hw, chunk) -> tuple[int, int]:
+def work(coefs, ids, n_act, hw) -> tuple[int, int]:
     """(flops, bytes) of one launch: the plane evaluations of every face of
     every active chunk (2 multiplies and 2 adds per edge/1/z plane per
     face-pixel), and the bytes this launch's data needs, each read or
@@ -529,8 +559,8 @@ def work(coefs, ids, n_act, hw, chunk) -> tuple[int, int]:
     active = torch.arange(n_chunks, device=ids.device) < n_act[..., None]
     used = torch.zeros((B, n_chunks + 1), dtype=torch.bool, device=ids.device)
     used.scatter_(1, torch.where(active, ids.long(), n_chunks).reshape(B, -1), True)
-    n_coefs = int(used[:, :n_chunks].sum()) * chunk * (rt.COEF_W - 2)
-    flops = 4 * 4 * chunk * rt.TILE_H * rt.TILE_W * n_pairs
+    n_coefs = int(used[:, :n_chunks].sum()) * rt.FACE_CHUNK * (rt.COEF_W - 2)
+    flops = 4 * 4 * rt.FACE_CHUNK * rt.TILE_H * rt.TILE_W * n_pairs
     nbytes = n_act.numel() * 4 + n_pairs * 4 + n_coefs * 4 + B * H * W * (4 + 4 + 4 * 6)
     return flops, nbytes
 
@@ -549,7 +579,7 @@ def live_face_warps(coefs, ids, n_act, hw) -> tuple[int, int]:
     live = 0
     for s in range(0, coefs.shape[0], 16):
         live += int(rt.cull_plain(coefs[s : s + 16], ids[s : s + 16], n_act[s : s + 16], hw).sum())
-    return live, int(n_act.sum()) * rt.KERNEL_CHUNK * (rt.TILE_H // rt.WARP_ROWS)
+    return live, int(n_act.sum()) * rt.FACE_CHUNK * (rt.TILE_H // rt.WARP_ROWS)
 
 
 def tile_work(launches: list) -> dict:
@@ -572,14 +602,68 @@ def tile_work_line(key: str, launches: list) -> str:
             f"{np.mean(w['longest']):.2f} chunks")
 
 
+SWEEP = (1, 2, 3, 4, 6, 8, 12, 16)  # the splits swept at one launch of each shape
+
+
+def time_launch(vis, errors: list[float], sweep: bool = False) -> dict:
+    """K1 at one launch's inputs, at the split its shape takes
+    (`rt.split_for`) and at split 1 (one block per tile), each held bit for
+    bit against the plain twin: the CUDA-event ms of launches back to back
+    (`ms`, `s1_ms`: the later of host and device), the device's time per
+    launch with the host ahead of it (`device_ms`, `s1_device_ms`) and the
+    host's time to issue one launch (`host_ms`). With `sweep`, the device
+    ms at each split of `SWEEP` too, each held bit for bit."""
+    coefs, ids = vis[0], vis[1]
+    split = rt.split_for(coefs.shape[0] * ids.shape[1], ids.shape[2])
+    plain = rt.visibility_plain(*vis)
+    launch = lambda s=None: rt.visibility_kernel(*vis, split=s)  # noqa: E731
+    errors.append(compare_visibility(launch(), plain))
+    r = dict(split=split, ms=cuda_ms(launch, reps=20, warmup=3), device_ms=queued_ms(launch, 20),
+             host_ms=host_ms(launch, 20))
+    if split > 1:
+        errors.append(compare_visibility(launch(1), plain))
+        r.update(s1_ms=cuda_ms(lambda: launch(1), reps=20, warmup=3), s1_device_ms=queued_ms(lambda: launch(1), 20))
+    else:
+        r.update(s1_ms=r["ms"], s1_device_ms=r["device_ms"])
+    if sweep:
+        r["sweep_device_ms"] = {}
+        for s in SWEEP:
+            errors.append(compare_visibility(launch(s), plain))
+            r["sweep_device_ms"][s] = queued_ms(lambda: launch(s), 20)
+    return r
+
+
+def split_stats(stats: list[dict]) -> dict:
+    """Means over a group's launches of `time_launch`'s numbers, and the
+    host's share of the eager launch time."""
+    mean = lambda k: float(np.mean([x[k] for x in stats]))  # noqa: E731
+    g = {k: mean(k) for k in ("ms", "s1_ms", "device_ms", "s1_device_ms", "host_ms")}
+    g["split"] = sorted({x["split"] for x in stats})
+    g["host_share"] = g["host_ms"] / g["ms"]
+    sweeps = [x for x in stats if "sweep_device_ms" in x]
+    if sweeps:
+        g["sweep_device_ms"] = sweeps[0]["sweep_device_ms"]
+    return g
+
+
+def split_line(key: str, g: dict) -> str:
+    line = (f"  {key} split: S={'/'.join(map(str, g['split']))} kernel_ms={g['ms']:.4f} (S=1 {g['s1_ms']:.4f}); "
+            f"device_ms={g['device_ms']:.4f} (S=1 {g['s1_device_ms']:.4f}); host issue {g['host_ms']:.4f} ms "
+            f"a launch, host_share={g['host_share']:.3f}")
+    if "sweep_device_ms" in g:
+        line += "; device_ms by S (longest tile's launch): " + ", ".join(
+            f"{s}: {ms:.4f}" for s, ms in g["sweep_device_ms"].items())
+    return line
+
+
 def record_visibility_inputs(captured: list):
     """Route phase B through a recorder that keeps a copy of every launch's
     inputs and calls on to the kernel; returns the function to restore."""
     visibility = rt.visibility
 
-    def record(coefs, ids, n_act, hw, chunk):
-        captured.append((coefs.clone(), ids.clone(), n_act.clone(), tuple(hw), chunk))
-        return visibility(coefs, ids, n_act, hw, chunk)
+    def record(coefs, ids, n_act, hw):
+        captured.append((coefs.clone(), ids.clone(), n_act.clone(), tuple(hw)))
+        return visibility(coefs, ids, n_act, hw)
 
     rt.visibility = record
     return visibility
@@ -601,28 +685,33 @@ def phase_kernel_timing(est, requests, errors: list[float]) -> dict:
     """The kernel at the phase-B inputs of every render of one more
     request: the coarse sweep (576 hypotheses per detection), the refiner
     iterations and the rescoring. Each launch is held bit for bit against
-    the plain twin, and both are timed. Per phase and batch size: the means
+    the plain twin at the split its shape takes and at split 1, and timed
+    (`time_launch`), the plain twin too. Per phase and batch size: the means
     over its launches of the kernel's and the plain twin's times and of the
-    bound. At the first coarse launch also: the store floor (the same
-    tables with no active chunk: only the outputs' stores) and the share of
-    face evaluations that the kernel's cull leaves."""
+    bound, and a sweep of the split at its longest tile's launch. At the
+    first coarse launch also: the store floor (the same tables with no
+    active chunk: only the outputs' stores) and the share of face
+    evaluations that the kernel's cull leaves."""
     obs, dets = requests[-1]
+    phases = launch_phases(len(dets), est.cfg)
     with torch.inference_mode():
         launches = capture_launches(est, obs, dets)
-        per_launch, plain, works = [], [], []
-        for vis in launches:
-            errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
-            per_launch.append(cuda_ms(lambda: rt.visibility_kernel(*vis), reps=20, warmup=3))
+        check(len(launches) == len(phases), "captured launches")
+        groups: dict[str, list[int]] = {}
+        for i, (phase, vis) in enumerate(zip(phases, launches)):
+            groups.setdefault(f"{phase}_B{vis[0].shape[0]}", []).append(i)
+        longest = {max(idx, key=lambda i: int(launches[i][2].max())) for idx in groups.values()}
+        stats, plain, works = [], [], []
+        for i, vis in enumerate(launches):
+            stats.append(time_launch(vis, errors, sweep=i in longest))
             plain.append(cuda_ms(lambda: rt.visibility_plain(*vis), reps=1, warmup=0))
             works.append(work(*vis))
-        coarse = launches[0]
-        coefs, ids, n_act, hw, chunk = coarse
-        empty = (coefs, ids, torch.zeros_like(n_act), hw, chunk)
+        per_launch = [x["ms"] for x in stats]
+        coefs, ids, n_act, hw = launches[0]
+        empty = (coefs, ids, torch.zeros_like(n_act), hw)
         errors.append(compare_visibility(rt.visibility_kernel(*empty), rt.visibility_plain(*empty)))
         store_floor_ms = cuda_ms(lambda: rt.visibility_kernel(*empty), reps=20, warmup=3)
         live, pairs = live_face_warps(coefs, ids, n_act, hw)
-    phases = launch_phases(len(dets), est.cfg)
-    check(len(launches) == len(phases), "captured launches")
     bound_ms, bound_by = bound(*works[0])
     print(f"  coarse shapes: B={coefs.shape[0]} F={coefs.shape[1]} T={ids.shape[1]} "
           f"active_chunks={int(n_act.sum())} flops={works[0][0]:.4g} bytes={works[0][1]:.4g}", flush=True)
@@ -631,18 +720,16 @@ def phase_kernel_timing(est, requests, errors: list[float]) -> dict:
           f"{live * rt.WARP_ROWS * rt.TILE_W:.4g} face-pixel evaluations", flush=True)
 
     # Per phase and batch size: the mean over the request's launches.
-    groups: dict[str, list[int]] = {}
-    for i, (phase, vis) in enumerate(zip(phases, launches)):
-        groups.setdefault(f"{phase}_B{vis[0].shape[0]}", []).append(i)
     by_shape = {}
     for key, idx in groups.items():
         mean = lambda xs: sum(xs[i] for i in idx) / len(idx)
         g_ms, g_by = bound(mean([w[0] for w in works]), mean([w[1] for w in works]))
-        by_shape[key] = dict(launches=len(idx), ms=mean(per_launch), plain_ms=mean(plain),
-                             bound_ms=g_ms, bound_by=g_by)
+        by_shape[key] = dict(launches=len(idx), plain_ms=mean(plain), bound_ms=g_ms, bound_by=g_by,
+                             **split_stats([stats[i] for i in idx]))
         print(f"  {key}: launches_per_request={len(idx)} kernel_ms={mean(per_launch):.4f} "
               f"plain_ms={mean(plain):.3f} bound_ms={g_ms:.4f} ({g_by}); per launch (kernel / bound ms) "
               f"{', '.join(f'{per_launch[i]:.4f} / {bound(*works[i])[0]:.4f}' for i in idx)}", flush=True)
+        print(split_line(key, by_shape[key]), flush=True)
         print(tile_work_line(key, [launches[i] for i in idx]), flush=True)
     request_ms = sum(per_launch)
     print(f"  first coarse launch: kernel_ms={per_launch[0]:.4f} bound_ms={bound_ms:.4f} "
@@ -701,21 +788,21 @@ def phase_profile(est, requests) -> None:
         print(f"  device_ms={device_us(e) / 1e3:9.3f} calls={e.count:6d} {e.key[:90]}", flush=True)
 
 
-def shape_group(launches: list, errors: list[float]) -> tuple[dict, list[float]]:
-    """The kernel at a group of captured launches: each held bit for bit
-    against the plain twin and timed; the means of the kernel's time and
-    of the bound, the plain twin's time at the first launch, and the
-    kernel's time per launch."""
-    per_launch, works = [], []
-    for vis in launches:
-        errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
-        per_launch.append(cuda_ms(lambda: rt.visibility_kernel(*vis), reps=20, warmup=3))
-        works.append(work(*vis))
+def shape_group(key: str, launches: list, errors: list[float]) -> tuple[dict, list[float]]:
+    """The kernel at a group of captured launches of one shape, each timed
+    and held bit for bit at its split and at split 1 (`time_launch`, with a
+    sweep of the split at the launch of the longest tile); the means of
+    the kernel's times and of the bound, the plain twin's time at the first
+    launch, and `time_launch`'s numbers per launch. Prints the split line."""
+    longest = max(range(len(launches)), key=lambda i: int(launches[i][2].max()))
+    stats = [time_launch(vis, errors, sweep=i == longest) for i, vis in enumerate(launches)]
+    works = [work(*vis) for vis in launches]
     plain_ms = cuda_ms(lambda: rt.visibility_plain(*launches[0]), reps=1, warmup=0)
     n = len(launches)
     bound_ms, bound_by = bound(sum(w[0] for w in works) / n, sum(w[1] for w in works) / n)
-    return dict(launches=n, ms=sum(per_launch) / n, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by), per_launch
+    group = dict(launches=n, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, **split_stats(stats))
+    print(split_line(key, group), flush=True)
+    return group, stats
 
 
 def ar_tolerances(n: int) -> dict[str, float]:
@@ -766,26 +853,75 @@ def phase_eval_rescore(errors: list[float]) -> tuple[int, dict]:
         errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
     b = sizes.most_common(1)[0][0]
     same = [vis for vis in captured if vis[0].shape[0] == b]
-    group, per_launch = shape_group(same, errors)
+    group, stats = shape_group(f"vsd_B{b}", same, errors)
     print(f"  vsd_B{b}: launches={group['launches']} kernel_ms={group['ms']:.4f} "
           f"plain_ms={group['plain_ms']:.3f} bound_ms={group['bound_ms']:.4f} ({group['bound_by']}); "
           f"every launch of the group held bit for bit against the plain twin", flush=True)
     # What a launch at this shape waits for: its stores alone (no active
-    # chunk), the host's cost of issuing one launch, and the longest chain
-    # of chunks one block walks.
-    empty = [(c, i, torch.zeros_like(a), hw, ch) for c, i, a, hw, ch in same]
+    # chunk), the host's cost of issuing one launch and its parts, and the
+    # longest chain of chunks one block walks, with and without the split.
+    empty = [(c, i, torch.zeros_like(a), hw) for c, i, a, hw in same]
     floor = np.mean([cuda_ms(lambda: rt.visibility_kernel(*vis), reps=20, warmup=3) for vis in empty])
     issue = np.mean([host_ms(lambda: rt.visibility_kernel(*vis), reps=20) for vis in empty])
     print(tile_work_line(f"vsd_B{b}", same), flush=True)
     longest = np.asarray(tile_work(same)["longest"], np.float64)
-    slope, icpt = np.polyfit(longest, per_launch, 1)
-    r = np.corrcoef(longest, per_launch)[0, 1]
-    print(f"  vsd_B{b} store floor (no active chunk): kernel_ms={floor:.4f}, host issue per launch "
-          f"{issue:.4f} ms; kernel_ms against the longest "
-          f"tile's chunks over {len(same)} launches: {icpt:.4f} + {slope * 1e3:.3f} us per chunk (r={r:.3f}); "
-          f"longest {longest.min():.0f}-{longest.max():.0f} chunks, kernel_ms {min(per_launch):.4f}-"
-          f"{max(per_launch):.4f}", flush=True)
+    fits = []
+    for name, k in (("eager", "ms"), ("device", "device_ms"), ("device at S=1", "s1_device_ms")):
+        y = [x[k] for x in stats]
+        slope, icpt = np.polyfit(longest, y, 1)
+        fits.append(f"{name} {icpt:.4f} + {slope * 1e3:.3f} us per chunk (r={np.corrcoef(longest, y)[0, 1]:.3f}, "
+                    f"{min(y):.4f}-{max(y):.4f} ms)")
+    print(f"  vsd_B{b} store floor (no active chunk): kernel_ms={floor:.4f}, host issue per launch {issue:.4f} ms; "
+          f"ms against the longest tile's chunks ({longest.min():.0f}-{longest.max():.0f}) over {len(same)} "
+          f"launches: {'; '.join(fits)}", flush=True)
+    print(f"  host issue of one launch by part (us): {json.dumps(host_parts(same[0]))}", flush=True)
     return launches, {f"vsd_B{b}": group}
+
+
+def host_parts(vis, reps: int = 200) -> dict[str, float]:
+    """What issuing one K1 launch costs the host, in us a call (host clock
+    over `reps` calls, the device not waited for): the whole wrapper, then
+    its parts one by one: the checks' attribute reads, `split_for`, the
+    three output allocations, the current stream, the six pointers and the
+    ctypes call (kernel launch included) with the outputs given; beside
+    them, what the wrapper of earlier versions also did: a
+    `torch.cuda.device` context, `torch.cuda.current_stream()`, and
+    allocations through `torch.empty(..., device=)`."""
+    coefs, ids, n_act, (H, W) = vis
+    B, F, _ = coefs.shape
+    T, n_chunks = ids.shape[1:]
+    dev = coefs.device
+    out = rt.visibility_kernel(*vis)
+    raw = torch._C._cuda_getCurrentRawStream
+    ptrs = [x.data_ptr() for x in (coefs, ids, n_act, *out)]
+    launch = rt.visibility_kernel._launch
+    split = rt.split_for(B * T, n_chunks)
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    parts = {
+        "wrapper": lambda: rt.visibility_kernel(*vis),
+        "checks": lambda: (coefs.is_cuda, ids.device == dev, n_act.device == dev, coefs.dtype, ids.dtype,
+                           n_act.dtype, n_act.shape == (B, T), coefs.is_contiguous(), ids.is_contiguous(),
+                           n_act.is_contiguous()),
+        "split_for": lambda: rt.split_for(B * T, n_chunks),
+        "new_empty x3": lambda: (coefs.new_empty((B, H, W)), ids.new_empty((B, H, W)),
+                                 coefs.new_empty((B, H, W, rt.N_ATTR))),
+        "one new_empty and views": lambda: (lambda buf: (
+            buf[: 6 * B * H * W].view(B, H, W, rt.N_ATTR), buf[6 * B * H * W : 7 * B * H * W].view(B, H, W),
+            buf[7 * B * H * W :].view(torch.int32).view(B, H, W)))(coefs.new_empty(8 * B * H * W)),
+        "raw stream": lambda: raw(dev.index),
+        "data_ptr x6": lambda: [x.data_ptr() for x in (coefs, ids, n_act, *out)],
+        "ctypes call and launch": lambda: launch(*ptrs, B, F, T, n_chunks, H, W, split, dev.index, raw(dev.index)),
+        "earlier: torch.cuda.device context": device_context,
+        "earlier: current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "earlier: torch.empty x3": lambda: (torch.empty((B, H, W), dtype=torch.float32, device=dev),
+                                            torch.empty((B, H, W), dtype=torch.int32, device=dev),
+                                            torch.empty((B, H, W, rt.N_ATTR), dtype=torch.float32, device=dev)),
+    }
+    return {name: round(host_ms(fn, reps) * 1e3, 3) for name, fn in parts.items()}
 
 
 def instance_scores(final, scene_ds, mesh_db) -> np.ndarray:
@@ -1088,7 +1224,7 @@ def phase_depth_refiners(errors: list[float]) -> tuple[int, dict]:
     sizes = Counter(vis[0].shape[0] for vis in captured)
     shapes = {}
     for b_ in sorted(sizes):
-        group, per_launch = shape_group([vis for vis in captured if vis[0].shape[0] == b_], errors)
+        group, _ = shape_group(f"depth_refiner_B{b_}", [vis for vis in captured if vis[0].shape[0] == b_], errors)
         hw = captured[0][3]
         print(f"  depth_refiner_B{b_} ({hw[0]}x{hw[1]}): launches={group['launches']} kernel_ms={group['ms']:.4f} "
               f"plain_ms={group['plain_ms']:.3f} bound_ms={group['bound_ms']:.4f} ({group['bound_by']}); "
@@ -1396,8 +1532,8 @@ def train_kernel_shapes(state_r, state_c, cfg_r, cfg_c, db, synth, errors: list[
     check(len(captured) == 3, f"captured {len(captured)} launches")
     shapes = {}
     for key, vis, per_step in zip(("obs", "refiner", "coarse"), captured, (1, cfg_r.n_iterations, 1)):
-        g, per_launch = shape_group([vis], errors)
         key = f"train_{key}_B{vis[0].shape[0]}"
+        g, _ = shape_group(key, [vis], errors)
         shapes[key] = {**g, "launches": per_step}
         print(f"  {key}: launches_per_step={per_step} kernel_ms={g['ms']:.4f} plain_ms={g['plain_ms']:.3f} "
               f"bound_ms={g['bound_ms']:.4f} ({g['bound_by']}) max_abs_err={errors[-1]}", flush=True)
@@ -1672,9 +1808,9 @@ def phase_production(errors: list[float]) -> tuple[int, dict, PoseEstimator, tup
     for phase, n in expected.items():
         group = captured[i : i + n]
         i += n
-        g, _ = shape_group(group, errors)
         coefs, ids = group[0][0], group[0][1]
         key = f"prod_{phase}_B{coefs.shape[0]}_{group[0][3][0]}x{group[0][3][1]}_F{coefs.shape[1]}"
+        g, _ = shape_group(key, group, errors)
         shapes[key] = g
         print(f"  {key}: launches_per_request={n} kernel_ms={g['ms']:.4f} plain_ms={g['plain_ms']:.3f} "
               f"bound_ms={g['bound_ms']:.4f} ({g['bound_by']}) max_abs_err={max(errors[-n:])}", flush=True)
@@ -1741,8 +1877,8 @@ def phase_production(errors: list[float]) -> tuple[int, dict, PoseEstimator, tup
                     v_est.pipeline(*v_args, *v_inputs)
                 finally:
                     rt.visibility = restore
-                g2, _ = shape_group(rec[:1], errors)
                 key = f"prod_render_at_B{rec[0][0].shape[0]}_{rec[0][3][0]}x{rec[0][3][1]}_F{rec[0][0].shape[1]}"
+                g2, _ = shape_group(key, rec[:1], errors)
                 at_shape = sum((r[0].shape, r[3]) == (rec[0][0].shape, rec[0][3]) for r in rec)
                 shapes[key] = {**g2, "launches": at_shape}  # per request, at this shape
                 note = (f" weights {cd_w.name if cd_w else 'seeded'}; first sweep launch {key} "
@@ -1890,7 +2026,7 @@ def render_launches(render, keys) -> list:
 def kernel_at(name: str, launches: list, errors: list[float], shapes: dict) -> None:
     """K1 at a group of launches of one shape: bit for bit against the
     plain twin, timed beside the bound; recorded in `shapes`."""
-    shape, per = shape_group(launches, errors)
+    shape, _ = shape_group(name, launches, errors)
     shapes[name] = shape
     print(f"  K1 {name}: B={launches[0][0].shape[0]} HxW={launches[0][3]} F={launches[0][0].shape[1]}: "
           f"kernel_ms={shape['ms']:.4f} plain_ms={shape['plain_ms']:.3f} bound_ms={shape['bound_ms']:.4f} "
@@ -3484,7 +3620,7 @@ def scan_vs(name: str, args: tuple, kw: dict, rows: list[int]) -> int:
     tiled_kw = {k: v for k, v in kw.items() if k != "chunk"}
     k1, stats = 0, {}
     for cull in (False, True):
-        tiled, n = counted(rt.render_meshes_tiled, *args, chunk=rt.KERNEL_CHUNK, backface_cull=cull, **tiled_kw)
+        tiled, n = counted(rt.render_meshes_tiled, *args, backface_cull=cull, **tiled_kw)
         k1 += n
         hit = card.mask & tiled.mask
         stats[cull] = ((hit.sum() / (card.mask | tiled.mask).sum().clamp_min(1)).item(),

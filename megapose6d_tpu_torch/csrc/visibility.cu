@@ -58,11 +58,35 @@
 // chunk loop's latency come on top. Tensor cores do not fit: the product has
 // depth 3, and TF32 would change the bits. Writing only covered pixels, or
 // fusing phase C, would lower the bound; that waits for a later design.
+//
+// Small launches (a few images: the refiner, the rescore, VSD, the depth
+// refiners, the scene generator) are bound by neither: one block walks its
+// tile's whole chain of chunks alone, ~1.1-1.5 us a chunk, so the longest
+// tile (40-89 chunks at those shapes) sets the time while most SMs idle.
+// There the launch gives each tile a cluster of S blocks (S = 2..16, a
+// launch attribute the host picks from the launch's shape), and a tile
+// whose chain holds n >= S active chunks splits it: block s walks the
+// chunks [s*n/S, (s+1)*n/S) and keeps, per pixel, only the best 1/z and
+// its face id. A shorter chain, an empty tile's too, block 0 walks alone
+// and the others leave at once: a cluster's blocks wait for each other,
+// so a block with nothing to walk would only hold its place. Block 0 of the
+// cluster then reads the other blocks' partials from their shared memory
+// (distributed shared memory, no global scratch, no second launch), folds
+// them in block order with the walk's own rule (a strictly larger 1/z
+// replaces, so an earlier chunk keeps a tie), and evaluates the winner's 6
+// attribute planes once per pixel from the face's coefficients, rebased as
+// the staged planes are: the bits are those of the walk through all the
+// chunks. S = 1 is the kernel above. The next chunk's index is loaded one
+// chunk ahead of its coefficients, so the loop does not wait on the
+// dependent pair of loads.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,13 +102,15 @@ constexpr int kWarps = kTileH / kRows;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRebaseH = 32;  // the TPU kernel's tile: planes are rebased
 constexpr int kRebaseW = 128;  // to the origin of the cell holding a pixel
-constexpr int kItems = kChunk * kNPlanes;  // planes staged per chunk
-constexpr int kItemsPerThread = (kItems + kThreads - 1) / kThreads;
+constexpr int kMaxSplit = 16;  // blocks a tile's chain splits over, at most
+constexpr int kPortableSplit = 8;  // larger clusters are non-portable
 static_assert(kRebaseH % kTileH == 0 && kRebaseW % kTileW == 0,
               "a block must lie in one rebasing cell");
 static_assert(kTileW == 32 && 2 * kChunk == 32,
               "a warp spans a tile row; the cull's ballot holds two "
               "footprint rows of a chunk");
+static_assert(2 * kTileH * kTileW <= kTileH * kTileW * kNAttr,
+              "a block's partials fit in its attribute staging");
 
 // One chunk's planes, rebased. Plane e of the test planes (e0, e1, e2, 1/z)
 // of face j is (a[j][e], b[j][e], c[j][e]); attribute plane k is
@@ -104,6 +130,12 @@ __device__ __forceinline__ float lane_of(const float4& q, int e) {
 __device__ __forceinline__ float plane_au(float au, float b, float c,
                                           float v) {
   return __fadd_rn(__fadd_rn(au, __fmul_rn(b, v)), c);
+}
+
+// c rebased to the cell origin (col0, row0): (c + a*col0) + b*row0.
+__device__ __forceinline__ float rebase(float a, float b, float c,
+                                        float col0, float row0) {
+  return __fadd_rn(__fadd_rn(c, __fmul_rn(a, col0)), __fmul_rn(b, row0));
 }
 
 // Bit j set: face j of the staged chunk covers no pixel of the warp's
@@ -145,21 +177,36 @@ __device__ __forceinline__ unsigned cull_mask(const Staged& s, int lane,
   return ~skip & ((1u << kChunk) - 1);
 }
 
+// kSplit = false: one block per (image, tile), launched plainly. kSplit =
+// true: a cluster of `split` blocks per (image, tile), block s of the
+// cluster (blockIdx.x % split) walking the s-th part of the tile's chain
+// when the chain has `split` chunks or more; a shorter chain (an empty
+// tile's too) block 0 walks alone, and the others leave at once (no block
+// of such a cluster reads another's shared memory or waits at a cluster
+// barrier). It stages the test planes only and evaluates the winners'
+// attribute planes once, after the walk.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads)
     visibility_kernel(const float* __restrict__ coefs,
                       const int* __restrict__ chunk_ids,
                       const int* __restrict__ n_active,
                       float* __restrict__ invz_out, int* __restrict__ fid_out,
                       float* __restrict__ attr_out, int F, int T,
-                      int n_chunks, int H, int W, int n_tw) {
+                      int n_chunks, int H, int W, int n_tw, int split) {
+  constexpr int kStaged = kSplit ? kNTest : kNPlanes;  // planes of a face
+  constexpr int kItems = kChunk * kStaged;  // planes staged per chunk
+  constexpr int kItemsPerThread = (kItems + kThreads - 1) / kThreads;
   __shared__ Staged s;
   // The winners' attributes of the warp's pixels, row by row as they lie
-  // in the output: pixel (r, lane) at s_attr[warp][r][6 * lane + k].
+  // in the output: pixel (r, lane) at s_attr[warp][r][6 * lane + k]. A split
+  // block first keeps its partials here (see below).
   __shared__ __align__(16) float s_attr[kWarps][kRows][kTileW * kNAttr];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int img = blockIdx.x / T;
-  const int t = blockIdx.x % T;
+  const int rank = kSplit ? static_cast<int>(blockIdx.x % split) : 0;
+  const int tile = kSplit ? static_cast<int>(blockIdx.x / split) : blockIdx.x;
+  const int img = tile / T;
+  const int t = tile % T;
   const int row0 = (t / n_tw) * kTileH;  // the block's pixel origin
   const int col0 = (t % n_tw) * kTileW;
   const int reb_row0 = row0 / kRebaseH * kRebaseH;  // its 32x128 cell
@@ -178,6 +225,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < kRows; ++r) pv[r] = static_cast<float>(v0 + r);
 
+  // This block's part [lo, hi) of the tile's active chunks. Chunk indices
+  // are loaded one chunk ahead of the chunk whose planes are fetched.
+  const long long bt = static_cast<long long>(img) * T + t;
+  const int* ids = chunk_ids + bt * n_chunks;
+  const int na = n_active[bt];
+  const bool parts = kSplit && na >= split;
+  if (kSplit && !parts && rank != 0) return;
+  const int lo = parts ? rank * na / split : 0;
+  const int hi = parts ? (rank + 1) * na / split : na;
+
   float best[kRows];
   int best_fid[kRows];
   float2* my_attr[kRows];  // this thread's 6 attributes of row r
@@ -186,18 +243,17 @@ __global__ void __launch_bounds__(kThreads)
     best[r] = -CUDART_INF_F;
     best_fid[r] = -1;
     my_attr[r] = reinterpret_cast<float2*>(&s_attr[warp][r][lane * kNAttr]);
+    if constexpr (!kSplit) {
 #pragma unroll
-    for (int k = 0; k < kNAttr / 2; ++k) my_attr[r][k] = make_float2(0.f, 0.f);
+      for (int k = 0; k < kNAttr / 2; ++k)
+        my_attr[r][k] = make_float2(0.f, 0.f);
+    }
   }
-
-  // The tile's chunk count and first chunk are loaded side by side.
-  const long long bt = static_cast<long long>(img) * T + t;
-  const int* ids = chunk_ids + bt * n_chunks;
-  const int na = n_active[bt];
-  const int ci0 = n_chunks > 0 ? ids[0] : 0;
+  int ci_next = lo < hi ? __ldg(ids + lo) : 0;
+  int ci_after = lo + 1 < hi ? __ldg(ids + lo + 1) : 0;
   const float* img_coefs = coefs + static_cast<long long>(img) * F * kCoefW;
 
-  // Item k of a chunk is plane k % kNPlanes of face k / kNPlanes; a thread
+  // Item k of a chunk is plane k % kStaged of face k / kStaged; a thread
   // fetches the (a, b, c) of its items of the next chunk ahead of time.
   float pre[kItemsPerThread][3];
   auto fetch = [&](int ci) {
@@ -206,26 +262,27 @@ __global__ void __launch_bounds__(kThreads)
     for (int m = 0; m < kItemsPerThread; ++m) {
       const int k = threadIdx.x + m * kThreads;
       if (k < kItems) {
-        const float* q = src + (k / kNPlanes) * kCoefW + 3 * (k % kNPlanes);
+        const float* q = src + (k / kStaged) * kCoefW + 3 * (k % kStaged);
         pre[m][0] = __ldg(q);
         pre[m][1] = __ldg(q + 1);
         pre[m][2] = __ldg(q + 2);
       }
     }
   };
-  if (na > 0) fetch(ci0);
+  if (lo < hi) fetch(ci_next);
 
-  for (int i = 0; i < na; ++i) {
-    const int ci = ids[i];
+  for (int i = lo; i < hi; ++i) {
+    const int ci = ci_next;
+    ci_next = ci_after;
+    if (i + 2 < hi) ci_after = __ldg(ids + i + 2);
     __syncthreads();  // the previous chunk is no longer read
 #pragma unroll
     for (int m = 0; m < kItemsPerThread; ++m) {
       const int k = threadIdx.x + m * kThreads;
       if (k < kItems) {
-        const int j = k / kNPlanes, p = k % kNPlanes;
+        const int j = k / kStaged, p = k % kStaged;
         const float a = pre[m][0], b = pre[m][1];
-        const float c = __fadd_rn(__fadd_rn(pre[m][2], __fmul_rn(a, fcol0)),
-                                  __fmul_rn(b, frow0));
+        const float c = rebase(a, b, pre[m][2], fcol0, frow0);
         if (p < kNTest) {
           reinterpret_cast<float*>(&s.a[j])[p] = a;
           reinterpret_cast<float*>(&s.b[j])[p] = b;
@@ -236,7 +293,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();
-    if (i + 1 < na) fetch(ids[i + 1]);
+    if (i + 1 < hi) fetch(ci_next);
 
     float c_best[kRows];
     int c_j[kRows];
@@ -275,16 +332,74 @@ __global__ void __launch_bounds__(kThreads)
       if (!c_nan[r] && c_best[r] > best[r]) {  // strict: earlier chunks win
         best[r] = c_best[r];
         best_fid[r] = ci * kChunk + c_j[r];
-        float v[kNAttr];
+        if constexpr (!kSplit) {
+          float v[kNAttr];
+#pragma unroll
+          for (int k = 0; k < kNAttr; ++k) {
+            const float4 P = s.attr[c_j[r]][k];
+            v[k] = plane_au(__fmul_rn(P.x, pu), P.y, P.z, pv[r]);
+          }
+#pragma unroll
+          for (int k = 0; k < kNAttr / 2; ++k)
+            my_attr[r][k] = make_float2(v[2 * k], v[2 * k + 1]);
+        }
+      }
+    }
+  }
+
+  if (parts) {
+    // Partials of pixel p = row * 32 + column at s_pbest[p], s_pfid[p]. The
+    // attribute staging is free until block 0 evaluates the winners, and
+    // block 0 reads only the other blocks' partials.
+    const cg::cluster_group cluster = cg::this_cluster();
+    float* s_pbest = &s_attr[0][0][0];
+    int* s_pfid = reinterpret_cast<int*>(s_pbest + kTileH * kTileW);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int p = (warp * kRows + r) * kTileW + lane;
+      s_pbest[p] = best[r];
+      s_pfid[p] = best_fid[r];
+    }
+    cluster.sync();  // every part's partials are written
+    if (rank == 0) {
+      // In block order, so that an earlier part keeps a tie.
+      for (int q = 1; q < split; ++q) {
+        const float* qb = cluster.map_shared_rank(s_pbest, q);
+        const int* qf = cluster.map_shared_rank(s_pfid, q);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int p = (warp * kRows + r) * kTileW + lane;
+          const float b = qb[p];
+          if (b > best[r]) {
+            best[r] = b;
+            best_fid[r] = qf[p];
+          }
+        }
+      }
+    }
+    cluster.sync();  // no block leaves while block 0 reads its partials
+    if (rank != 0) return;
+  }
+  if constexpr (kSplit) {
+    // The winner's 6 attribute planes, from its row of coefficients.
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float v[kNAttr];
+      if (best_fid[r] >= 0) {
+        const float* q = img_coefs + static_cast<long long>(best_fid[r]) * kCoefW + 3 * kNTest;
 #pragma unroll
         for (int k = 0; k < kNAttr; ++k) {
-          const float4 P = s.attr[c_j[r]][k];
-          v[k] = plane_au(__fmul_rn(P.x, pu), P.y, P.z, pv[r]);
+          const float a = __ldg(q + 3 * k), b = __ldg(q + 3 * k + 1);
+          const float c = rebase(a, b, __ldg(q + 3 * k + 2), fcol0, frow0);
+          v[k] = plane_au(__fmul_rn(a, pu), b, c, pv[r]);
         }
+      } else {
 #pragma unroll
-        for (int k = 0; k < kNAttr / 2; ++k)
-          my_attr[r][k] = make_float2(v[2 * k], v[2 * k + 1]);
+        for (int k = 0; k < kNAttr; ++k) v[k] = 0.f;
       }
+#pragma unroll
+      for (int k = 0; k < kNAttr / 2; ++k)
+        my_attr[r][k] = make_float2(v[2 * k], v[2 * k + 1]);
     }
   }
 
@@ -325,22 +440,50 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// coefs [B, F, 32] f32, chunk_ids [B, T, n_chunks] i32, n_active [B, T] i32,
-// T the row-major 16x32 tiles of H x W, chunk 16 (any other is refused);
-// outputs invz [B, H, W] f32, fid [B, H, W] i32, attr [B, H, W, 6] f32.
+// Launches on `stream` of CUDA device `device`; returns cudaGetLastError()
+// (0 on success). coefs [B, F, 32] f32, chunk_ids [B, T, n_chunks] i32,
+// n_active [B, T] i32, T the row-major 16x32 tiles of H x W, F = 16 *
+// n_chunks; outputs invz [B, H, W] f32, fid [B, H, W] i32, attr [B, H, W,
+// 6] f32. `split` (1..16) blocks walk each tile's chain; 1 is the plain
+// launch of one block per tile.
 extern "C" int visibility_launch(const float* coefs, const int* chunk_ids,
                                  const int* n_active, float* invz, int* fid,
                                  float* attr, int B, int F, int T,
-                                 int n_chunks, int H, int W, int chunk,
-                                 void* stream) {
-  if (chunk != kChunk) return cudaErrorInvalidValue;
+                                 int n_chunks, int H, int W, int split,
+                                 int device, void* stream) {
   const int n_tw = (W + kTileW - 1) / kTileW;
-  const long long n_blocks = static_cast<long long>(B) * T;
-  if (n_blocks <= 0 || n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  visibility_kernel<<<static_cast<unsigned>(n_blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      coefs, chunk_ids, n_active, invz, fid, attr, F, T, n_chunks, H, W,
-      n_tw);
-  return static_cast<int>(cudaGetLastError());
+  const long long n_blocks = static_cast<long long>(B) * T * split;
+  if (F != n_chunks * kChunk || split < 1 || split > kMaxSplit ||
+      n_blocks <= 0 || n_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  int current = device;
+  cudaGetDevice(&current);
+  if (current != device) cudaSetDevice(device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split == 1) {
+    visibility_kernel<false><<<static_cast<unsigned>(n_blocks), kThreads, 0, s>>>(
+        coefs, chunk_ids, n_active, invz, fid, attr, F, T, n_chunks, H, W,
+        n_tw, 1);
+  } else {
+    if (split > kPortableSplit)
+      cudaFuncSetAttribute(visibility_kernel<true>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(n_blocks));
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = s;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = split;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    cudaLaunchKernelEx(&cfg, visibility_kernel<true>, coefs, chunk_ids,
+                       n_active, invz, fid, attr, F, T, n_chunks, H, W, n_tw,
+                       split);
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (current != device) cudaSetDevice(current);
+  return err;
 }

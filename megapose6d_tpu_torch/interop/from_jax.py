@@ -172,7 +172,7 @@ def config_from_run_json(path: str | Path) -> tuple[PosePredictorConfig, dict[st
         depth_normalization_type=d.get("depth_normalization_type", "none"),
         compute_dtype=d["compute_dtype"],
         tile_hyp_pack=d.get("tile_hyp_pack", 1),
-        **{k: d[k] for k in ("renderer", "face_chunk") if k in d},
+        **{k: d[k] for k in ("renderer", "face_chunk", "tile_face_chunk") if k in d},
     )
     db = {k: int(d[k]) for k in ("max_faces", "n_points_mesh", "n_sym")}
     return cfg, db

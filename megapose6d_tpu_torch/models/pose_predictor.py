@@ -61,7 +61,9 @@ class PosePredictorConfig:
     mv_crop_points: int = 200
     renderer: str = "tiled"  # "tiled" (the CUDA kernel on the card) | "scan" (plain torch)
     face_chunk: int = 64  # the scan renderer's face chunk
-    tile_face_chunk: int = 16
+    # The tiled renderer's faces per chunk: `rasterizer_tiled.FACE_CHUNK`,
+    # the only value taken. Kept so that configs that carry it load.
+    tile_face_chunk: int = rasterizer_tiled.FACE_CHUNK
     # How many hypotheses share one program of the JAX package's Pallas
     # kernel. It changes no pixel there, and has no effect here: the CUDA
     # kernel's blocks are tiles of one image. Read so that run configs
@@ -69,6 +71,11 @@ class PosePredictorConfig:
     tile_hyp_pack: int = 1
     backface_cull: bool = True  # meshes from MeshDataBase are winding-normalized
     z_near: float = 0.01
+
+    def __post_init__(self):
+        if self.tile_face_chunk != rasterizer_tiled.FACE_CHUNK:
+            raise ValueError(f"tile_face_chunk {self.tile_face_chunk}: the tiled renderer takes chunks of "
+                             f"{rasterizer_tiled.FACE_CHUNK} faces only")
 
     @property
     def n_inputs(self) -> int:
@@ -235,8 +242,7 @@ class PosePredictor(nn.Module):
         light = dict(light_ambient=light_ambient, light_point=light_point)
         if cfg.renderer == "tiled":
             out = rasterizer_tiled.render_meshes_tiled(
-                *args, z_near=cfg.z_near, chunk=cfg.tile_face_chunk, backface_cull=cfg.backface_cull,
-                **light, **mesh_mv.texture_kw)
+                *args, z_near=cfg.z_near, backface_cull=cfg.backface_cull, **light, **mesh_mv.texture_kw)
         elif cfg.renderer == "scan":  # two-sided, as the JAX package's scan branch
             out = rasterizer.render_meshes(*args, z_near=cfg.z_near, chunk=cfg.face_chunk, **light,
                                            **mesh_mv.texture_kw)

@@ -16,8 +16,10 @@ Counterpart of `megapose6d_tpu/ops/rasterizer_tiled.py`:
 
 The TPU kernel's hypothesis packing and 8192-face segments exist for TPU
 VMEM; here a tile is one CUDA block of 16x32 pixels (`TILE_H`, `TILE_W`,
-fixed in `csrc/visibility.cu` too), the kernel takes chunks of
-`KERNEL_CHUNK` faces, and any face count renders in one launch. Plane
+fixed in `csrc/visibility.cu` too), or a cluster of up to `MAX_SPLIT`
+blocks that split its chain of chunks when a launch has few tiles (small
+batches), chunks hold `FACE_CHUNK` faces (a constant of phase A, the plain
+twin and the kernel alike), and any face count renders in one launch. Plane
 constants are still rebased to the origin of the TPU kernel's 32x128 tile
 that holds the pixel (`REBASE_HW`), so every pixel sees the TPU kernel's
 arithmetic. The outputs do not depend on the batch or the face count.
@@ -36,8 +38,13 @@ Tensor = torch.Tensor
 
 TILE_H = 16  # one CUDA block per tile
 TILE_W = 32
-KERNEL_CHUNK = 16  # faces per chunk, a constant of the CUDA kernel
+FACE_CHUNK = 16  # faces per chunk, a constant of the CUDA kernel
 WARP_ROWS = 4  # each of the kernel's warps owns 4 rows x 32 columns of a tile
+MAX_SPLIT = 16  # blocks (a thread block cluster) that may share a tile's chain
+# (most tiles, blocks per tile) of a launch, in order; more tiles take one
+# block a tile. From sweeps of the split at the main path's launch shapes on
+# an H100 (PERF.md §6).
+SPLIT_BY_TILES = ((150, 16), (600, 8), (6000, 3))
 REBASE_HW = (32, 128)  # the TPU kernel's tile; a tile lies in one such cell
 N_ATTR = 6  # r, g, b, nx, ny, nz
 COEF_W = 32  # 9 edge + 3 invz + 18 attr + 2 pad
@@ -116,7 +123,6 @@ def prepare(
     faces: Tensor,
     face_valid: Tensor,
     resolution: tuple[int, int],
-    chunk: int,
     z_near: float,
     backface_cull: bool = False,
 ) -> tuple[Tensor, Tensor, Tensor]:
@@ -127,9 +133,9 @@ def prepare(
     n_th = -(-H // TILE_H)
     n_tw = -(-W // TILE_W)
     B, F = faces.shape[:2]
-    if F % chunk:
-        raise ValueError(f"face count {F} is not a multiple of chunk {chunk}")
-    n_chunks = F // chunk
+    if F % FACE_CHUNK:
+        raise ValueError(f"face count {F} is not a multiple of the chunk, {FACE_CHUNK}")
+    n_chunks = F // FACE_CHUNK
     dev = screen.device
 
     packed, bbox, valid, zmin = _face_coefs(
@@ -145,12 +151,12 @@ def prepare(
     over_y = (bbox[:, None, :, 1] < ty0 + TILE_H) & (bbox[:, None, :, 3] >= ty0)
     over_x = (bbox[:, None, :, 0] < tx0 + TILE_W) & (bbox[:, None, :, 2] >= tx0)
     overlap = over_y[:, :, None] & over_x[:, None] & valid[:, None, None]  # [B, th, tw, F]
-    chunk_mask = overlap.reshape(B, n_th * n_tw, n_chunks, chunk).any(-1)
+    chunk_mask = overlap.reshape(B, n_th * n_tw, n_chunks, FACE_CHUNK).any(-1)
 
     # Active chunks nearest first, so the z-buffer fills early and later
     # chunks rarely win; inactive chunks sort to the back.
     zmin_face = torch.where(valid, zmin, torch.full_like(zmin, float("inf")))
-    chunk_z = zmin_face.reshape(B, n_chunks, chunk).amin(-1)  # [B, n_chunks]
+    chunk_z = zmin_face.reshape(B, n_chunks, FACE_CHUNK).amin(-1)  # [B, n_chunks]
     key = torch.where(chunk_mask, chunk_z[:, None, :], torch.full_like(chunk_z[:, None, :], float("inf")))
     ids = torch.argsort(key, dim=-1, stable=True)
     n_active = chunk_mask.sum(dim=-1)
@@ -169,21 +175,33 @@ def visibility_plain(
     chunk_ids: Tensor,
     n_active: Tensor,
     resolution: tuple[int, int],
-    chunk: int,
+    split: int = 1,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Phase B in plain torch, the same arithmetic as the CUDA kernel.
+
+    Each tile's chain of `n` active chunks is walked in parts, as the
+    kernel's split launch walks it: a chain of `split` chunks or more is cut
+    into `split`, part `s` taking the chunks `[s*n // split,
+    (s+1)*n // split)`, a shorter one is one part. A part keeps per pixel
+    the best 1/z and its face id (a chunk's nearest covering face, ties to
+    the largest id, a NaN voiding the chunk, replaces only a strictly
+    smaller 1/z). The parts fold in order by the same strict rule, which is
+    the walk through the whole chain, and the winner's 6 attribute planes
+    are evaluated once. So every `split` gives the same bits.
 
     Returns invz `[B, H, W]` f32 (-inf background), face id `[B, H, W]`
     i32 (-1 background) and attributes/z `[B, H, W, 6]` f32. Images go
     through in slices that keep each temporary near 2**27 floats."""
     B, F, _ = coefs.shape
-    T = chunk_ids.shape[1]
+    T, n_chunks = chunk_ids.shape[1:]
+    if n_chunks * FACE_CHUNK != F:
+        raise ValueError(f"chunk lists of {n_chunks} chunks do not cover {F} faces in chunks of {FACE_CHUNK}")
     P = TILE_H * TILE_W
-    step = max(1, 2**27 // (T * chunk * 4 * P))
+    step = max(1, 2**27 // (T * FACE_CHUNK * 4 * P))
     if B > step:
         parts = [
             visibility_plain(coefs[s : s + step], chunk_ids[s : s + step], n_active[s : s + step],
-                             resolution, chunk)
+                             resolution, split)
             for s in range(0, B, step)
         ]
         return tuple(torch.cat(p) for p in zip(*parts))
@@ -201,34 +219,41 @@ def visibility_plain(
 
     best = torch.full((B, T, P), float("-inf"), device=dev)
     fid = torch.full((B, T, P), -1, dtype=torch.int32, device=dev)
-    attr = torch.zeros((B, T, P, N_ATTR), device=dev)
-    coefs_c = coefs.reshape(B, F // chunk, chunk, COEF_W)
-    j_ids = torch.arange(chunk, device=dev)[None, :, None]
-    n_max = int(n_active.max()) if n_active.numel() else 0
-    for i in range(n_max):
-        # Only the (image, tile) pairs whose i-th chunk is active: M of them.
-        bi, ti = torch.nonzero(i < n_active, as_tuple=True)
-        ci = chunk_ids[bi, ti, i].long()  # [M]
-        cf = coefs_c[bi, ci]  # [M, chunk, 32]
-        c0, r0 = col0[ti, None, None, None], row0[ti, None, None, None]
-        # Edge and 1/z planes of every face at every pixel: [M, chunk, 4, P].
-        a, b, c = cf[..., 0:12:3, None], cf[..., 1:12:3, None], cf[..., 2:12:3, None]
-        c = c + a * c0 + b * r0
-        val = a * pu[ti, None, None] + b * pv[ti, None, None] + c
-        inside = (val[:, :, 0] >= 0) & (val[:, :, 1] >= 0) & (val[:, :, 2] >= 0)
-        cand = torch.where(inside, val[:, :, 3], float("-inf"))  # [M, chunk, P]
-        c_best = cand.amax(dim=1)  # NaN propagates and voids the chunk
-        c_j = torch.where(cand >= c_best[:, None], j_ids, -1).amax(dim=1)  # [M, P]
-        better = c_best > best[bi, ti]
-        best[bi, ti] = torch.where(better, c_best, best[bi, ti])
-        fid[bi, ti] = torch.where(better, (ci[:, None] * chunk + c_j).int(), fid[bi, ti])
-        # The winner's 6 attribute planes at each pixel: [M, P, 6].
-        row = torch.gather(cf, 1, c_j.clamp_min(0)[..., None].expand(-1, -1, COEF_W))
-        a, b, c = row[..., 12:30:3], row[..., 13:30:3], row[..., 14:30:3]
-        c = c + a * c0[..., 0] + b * r0[..., 0]
-        win_attr = a * pu[ti, :, None] + b * pv[ti, :, None] + c
-        attr[bi, ti] = torch.where(better[..., None], win_attr, attr[bi, ti])
+    coefs_c = coefs.reshape(B, F // FACE_CHUNK, FACE_CHUNK, COEF_W)
+    j_ids = torch.arange(FACE_CHUNK, device=dev)[None, :, None]
+    n_act = n_active.long()
+    n_parts = torch.where(n_act >= split, split, 1)  # [B, T]
+    for part in range(split):
+        lo, hi = part * n_act // n_parts, (part + 1) * n_act // n_parts  # [B, T]
+        hi = torch.where(part < n_parts, hi, lo)
+        p_best, p_fid = torch.full_like(best, float("-inf")), torch.full_like(fid, -1)
+        n_max = int((hi - lo).max()) if n_act.numel() else 0
+        for i in range(n_max):
+            # Only the (image, tile) pairs whose part has an i-th chunk: M of them.
+            bi, ti = torch.nonzero(i < hi - lo, as_tuple=True)
+            ci = chunk_ids[bi, ti, lo[bi, ti] + i].long()  # [M]
+            cf = coefs_c[bi, ci]  # [M, chunk, 32]
+            c0, r0 = col0[ti, None, None, None], row0[ti, None, None, None]
+            # Edge and 1/z planes of every face at every pixel: [M, chunk, 4, P].
+            a, b, c = cf[..., 0:12:3, None], cf[..., 1:12:3, None], cf[..., 2:12:3, None]
+            c = c + a * c0 + b * r0
+            val = a * pu[ti, None, None] + b * pv[ti, None, None] + c
+            inside = (val[:, :, 0] >= 0) & (val[:, :, 1] >= 0) & (val[:, :, 2] >= 0)
+            cand = torch.where(inside, val[:, :, 3], float("-inf"))  # [M, chunk, P]
+            c_best = cand.amax(dim=1)  # NaN propagates and voids the chunk
+            c_j = torch.where(cand >= c_best[:, None], j_ids, -1).amax(dim=1)  # [M, P]
+            better = c_best > p_best[bi, ti]
+            p_best[bi, ti] = torch.where(better, c_best, p_best[bi, ti])
+            p_fid[bi, ti] = torch.where(better, (ci[:, None] * FACE_CHUNK + c_j).int(), p_fid[bi, ti])
+        better = p_best > best  # strict: an earlier part keeps a tie
+        best, fid = torch.where(better, p_best, best), torch.where(better, p_fid, fid)
 
+    # The winner's 6 attribute planes at each pixel: [B, T, P, 6].
+    row = coefs[torch.arange(B, device=dev)[:, None, None], fid.clamp_min(0).long(), 12:30]
+    a, b, c = row[..., 0::3], row[..., 1::3], row[..., 2::3]
+    c = c + a * col0[:, None, None] + b * row0[:, None, None]
+    attr = a * pu[..., None] + b * pv[..., None] + c
+    attr = torch.where((fid >= 0)[..., None], attr, 0.0)
     return (
         _tiles_to_image(best[:, :, :, None], n_th, n_tw, H, W)[..., 0],
         _tiles_to_image(fid[:, :, :, None], n_th, n_tw, H, W)[..., 0],
@@ -245,7 +270,7 @@ def cull_plain(
     """The CUDA kernel's per-warp face cull (`cull_mask` in
     `csrc/visibility.cu`), the same arithmetic in torch.
 
-    Returns `[B, T, n, KERNEL_CHUNK, TILE_H // WARP_ROWS]` bool, with `n`
+    Returns `[B, T, n, FACE_CHUNK, TILE_H // WARP_ROWS]` bool, with `n`
     the largest `n_active`: True where warp `w` of tile `t` evaluates face
     `j` of the tile's `i`-th chunk, False where the kernel skips it
     (and past `n_active`). A face is skipped when one of its edge planes,
@@ -269,7 +294,7 @@ def cull_plain(
     u_hi = u_lo + (TILE_W - 1)
     v_lo = fp((tile_row0 - row0)[:, None] + warps)
     v_hi = v_lo + (WARP_ROWS - 1)
-    cf = coefs.reshape(B, F // KERNEL_CHUNK, KERNEL_CHUNK, COEF_W)
+    cf = coefs.reshape(B, F // FACE_CHUNK, FACE_CHUNK, COEF_W)
     cf = cf[torch.arange(B, device=dev)[:, None, None], chunk_ids[:, :, :n].long()]  # [B, T, n, 16, 32]
     a, b, c = cf[..., 0:9:3], cf[..., 1:9:3], cf[..., 2:9:3]  # the edge planes
     c = c + a * col0.float()[None, :, None, None, None] + b * row0.float()[None, :, None, None, None]
@@ -280,6 +305,18 @@ def cull_plain(
             below = below & (a * u + b * v + c < 0)
     active = torch.arange(n, device=dev) < n_active[..., None]  # [B, T, n]
     return ~below.any(-1) & active[..., None, None]
+
+
+def split_for(n_tiles: int, n_chunks: int) -> int:
+    """Blocks per tile (a cluster) of a launch over `n_tiles` (image, tile)
+    pairs of `n_chunks` chunks each, by `SPLIT_BY_TILES`, at most
+    `n_chunks`. From the shapes alone, so that no launch waits for the
+    device (a CUDA graph captures it as it is). The kernel splits only the
+    chains of at least that many active chunks; one block walks the others."""
+    for most, split in SPLIT_BY_TILES:
+        if n_tiles <= most:
+            return max(1, min(split, n_chunks))
+    return 1
 
 
 class _VisibilityKernel:
@@ -293,6 +330,7 @@ class _VisibilityKernel:
         self.launches = 0
         self.build_report = ""
         self._lib = None
+        self._launch = None
         self._lock = threading.Lock()
 
     def library(self) -> ctypes.CDLL:
@@ -302,39 +340,42 @@ class _VisibilityKernel:
 
                 lib, self.build_report = build_library(self.source)
                 fn = lib.visibility_launch
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-                self._lib = lib
+                self._lib, self._launch = lib, fn
         return self._lib
 
-    def __call__(self, coefs, chunk_ids, n_active, resolution, chunk):
+    def __call__(self, coefs, chunk_ids, n_active, resolution, split=None):
+        """Launch on the current stream of `coefs`' device; `split` blocks
+        per tile (default `split_for` of the shapes). No host sync."""
         H, W = resolution
         B, F, cw = coefs.shape
         T, n_chunks = chunk_ids.shape[1:]
-        if cw != COEF_W or coefs.dtype != torch.float32:
-            raise ValueError(f"coefs must be [B, F, {COEF_W}] float32")
-        if chunk_ids.dtype != torch.int32 or n_active.dtype != torch.int32:
-            raise ValueError("chunk_ids and n_active must be int32")
-        if chunk_ids.shape[0] != B or tuple(n_active.shape) != (B, T):
+        dev = coefs.device
+        if not (coefs.is_cuda and chunk_ids.device == dev and n_active.device == dev):
+            raise ValueError("inputs must be tensors on one CUDA device")
+        if (cw != COEF_W or coefs.dtype != torch.float32 or chunk_ids.dtype != torch.int32
+                or n_active.dtype != torch.int32):
+            raise ValueError(f"coefs must be [B, F, {COEF_W}] float32, chunk_ids and n_active int32")
+        if chunk_ids.shape[0] != B or n_active.shape != (B, T):
             raise ValueError("chunk_ids/n_active do not match coefs")
-        if T != -(-H // TILE_H) * -(-W // TILE_W) or n_chunks * chunk != F:
-            raise ValueError("tile or chunk layout does not match the inputs")
-        if chunk != KERNEL_CHUNK:
-            raise ValueError(f"the kernel takes chunks of {KERNEL_CHUNK} faces, not {chunk}")
-        for x in (coefs, chunk_ids, n_active):
-            if not x.is_cuda or not x.is_contiguous() or x.device != coefs.device:
-                raise ValueError("inputs must be contiguous tensors on one CUDA device")
-        lib = self.library()
-        invz = torch.empty((B, H, W), dtype=torch.float32, device=coefs.device)
-        fid = torch.empty((B, H, W), dtype=torch.int32, device=coefs.device)
-        attr = torch.empty((B, H, W, N_ATTR), dtype=torch.float32, device=coefs.device)
-        with torch.cuda.device(coefs.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.visibility_launch(
-                coefs.data_ptr(), chunk_ids.data_ptr(), n_active.data_ptr(),
-                invz.data_ptr(), fid.data_ptr(), attr.data_ptr(),
-                B, F, T, n_chunks, H, W, chunk, stream,
-            )
+        if T != -(-H // TILE_H) * -(-W // TILE_W) or n_chunks * FACE_CHUNK != F:
+            raise ValueError(f"tile or chunk layout does not match the inputs (chunks of {FACE_CHUNK} faces)")
+        if not (coefs.is_contiguous() and chunk_ids.is_contiguous() and n_active.is_contiguous()):
+            raise ValueError("inputs must be contiguous")
+        split = split_for(B * T, n_chunks) if split is None else split
+        if not 1 <= split <= MAX_SPLIT:
+            raise ValueError(f"split {split} is not in [1, {MAX_SPLIT}]")
+        if self._launch is None:
+            self.library()
+        invz = coefs.new_empty((B, H, W))
+        fid = chunk_ids.new_empty((B, H, W))
+        attr = coefs.new_empty((B, H, W, N_ATTR))
+        err = self._launch(
+            coefs.data_ptr(), chunk_ids.data_ptr(), n_active.data_ptr(),
+            invz.data_ptr(), fid.data_ptr(), attr.data_ptr(),
+            B, F, T, n_chunks, H, W, split, dev.index, torch._C._cuda_getCurrentRawStream(dev.index),
+        )
         if err != 0:
             raise RuntimeError(f"visibility kernel launch failed: CUDA error {err}")
         self.launches += 1
@@ -349,13 +390,12 @@ def visibility(
     chunk_ids: Tensor,
     n_active: Tensor,
     resolution: tuple[int, int],
-    chunk: int,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """Phase B: the CUDA kernel for CUDA tensors, `visibility_plain` for
     CPU tensors. Never falls back from one to the other."""
     if coefs.is_cuda:
-        return visibility_kernel(coefs, chunk_ids, n_active, resolution, chunk)
-    return visibility_plain(coefs, chunk_ids, n_active, resolution, chunk)
+        return visibility_kernel(coefs, chunk_ids, n_active, resolution)
+    return visibility_plain(coefs, chunk_ids, n_active, resolution)
 
 
 def prepare_render(
@@ -368,25 +408,23 @@ def prepare_render(
     K: Tensor,
     resolution: tuple[int, int],
     z_near: float = 0.01,
-    chunk: int = 16,
     backface_cull: bool = False,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Everything before phase B: non-finite poses replaced by the
-    identity (their faces invalid), projection, face padding to the chunk,
-    phase A. Returns (TCO, coefs, chunk_ids, n_active)."""
+    identity (their faces invalid), projection, face padding to a multiple
+    of `FACE_CHUNK`, phase A. Returns (TCO, coefs, chunk_ids, n_active)."""
     F = faces.shape[1]
     eye = torch.eye(4, dtype=TCO.dtype, device=TCO.device)
     finite = torch.isfinite(TCO).all(dim=-1).all(dim=-1)
     TCO = torch.where(finite[:, None, None], TCO, eye)
     screen = project_to_screen(vertices, TCO, K)
     face_valid = face_valid & finite[:, None]
-    if F % chunk:
-        pad = chunk - F % chunk
+    if F % FACE_CHUNK:
+        pad = FACE_CHUNK - F % FACE_CHUNK
         faces = torch.nn.functional.pad(faces, (0, 0, 0, pad))
         face_valid = torch.nn.functional.pad(face_valid, (0, pad))
     return (TCO,) + prepare(
-        screen, normals, colors, faces, face_valid, resolution, chunk, z_near,
-        backface_cull=backface_cull,
+        screen, normals, colors, faces, face_valid, resolution, z_near, backface_cull=backface_cull,
     )
 
 
@@ -437,7 +475,6 @@ def render_meshes_tiled(
     K: Tensor,
     resolution: tuple[int, int],
     z_near: float = 0.01,
-    chunk: int = 16,
     light_ambient: float | Tensor = 0.1,
     light_point: float | Tensor = 0.4,
     backface_cull: bool = False,
@@ -457,8 +494,7 @@ def render_meshes_tiled(
         uvs = textures = has_tex = None  # textured only with all three
     colors = apply_uv_as_colors(colors, uvs, has_tex)
     TCO, coefs, chunk_ids, n_active = prepare_render(
-        vertices, normals, colors, faces, face_valid, TCO, K, resolution, z_near, chunk,
-        backface_cull,
+        vertices, normals, colors, faces, face_valid, TCO, K, resolution, z_near, backface_cull,
     )
-    invz, fid, attrs = visibility(coefs, chunk_ids, n_active, resolution, chunk)
+    invz, fid, attrs = visibility(coefs, chunk_ids, n_active, resolution)
     return shade(invz, fid, attrs, TCO, light_ambient, light_point, textures, has_tex)

@@ -100,7 +100,7 @@ def test_kernel_equals_plain_at_production_shapes(cuda, hw, faces):
     _, coefs, ids, n_act = rt.prepare_render(
         m.vertices, m.normals, m.colors, m.faces, m.face_valid, torch.as_tensor(TCO, device=cuda),
         torch.as_tensor(K, device=cuda), hw, backface_cull=True)
-    vis = (coefs, ids, n_act, hw, 16)
+    vis = (coefs, ids, n_act, hw)
     out_k, out_p = rt.visibility_kernel(*vis), rt.visibility_plain(*vis)
     assert (out_k[1] >= 0).any()
     for a, b in zip(out_k, out_p):

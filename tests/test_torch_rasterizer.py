@@ -131,7 +131,7 @@ def test_phase_a_matches_jax(rng):
     j = jax.vmap(lambda s_, n_, c_, f_, fv_: jrt._prepare_single(
         s_, n_, c_, f_, fv_, (H, W), 16, 0.01, backface_cull=True))(
         *map(jnp.asarray, (screen, n, c, f, fv)))
-    t = trt.prepare(*map(torch.as_tensor, (screen, n, c, f, fv)), (H, W), 16, 0.01,
+    t = trt.prepare(*map(torch.as_tensor, (screen, n, c, f, fv)), (H, W), 0.01,
                     backface_cull=True)
     np.testing.assert_allclose(np.asarray(j[0]), t[0].numpy(), rtol=1e-5, atol=1e-3)
     j_ids, j_n = np.asarray(j[1]), np.asarray(j[2])
@@ -163,8 +163,8 @@ def test_phase_b_plain_matches_pallas_interpret(rng):
     invz_j, fid_j, attr_j = jrt._run_visibility(*j, 1, chunk=16, interpret=True)
     n_th, n_tw = 3, 1
     to_img = lambda x: np.asarray(jrt._tiles_to_image(x, n_th, n_tw, H, W, 32))
-    t = trt.prepare(*map(torch.as_tensor, (screen, n, c, f, fv)), (H, W), 16, 0.01)
-    invz, fid, attr = trt.visibility_plain(*t, (H, W), 16)
+    t = trt.prepare(*map(torch.as_tensor, (screen, n, c, f, fv)), (H, W), 0.01)
+    invz, fid, attr = trt.visibility_plain(*t, (H, W))
     np.testing.assert_array_equal(to_img(fid_j), fid.numpy())
     assert (fid.numpy() >= 0).any()
     np.testing.assert_allclose(to_img(invz_j), invz.numpy(), rtol=1e-6)
@@ -179,7 +179,7 @@ def test_outputs_do_not_depend_on_batch_or_face_count(rng, F_pad):
     with invalid faces changes nothing."""
     screen, n, c, f, fv = sphere_screen(rng, 3)
     vis = lambda *a: trt.visibility_plain(
-        *trt.prepare(*map(torch.as_tensor, a), (H, W), 16, 0.01), (H, W), 16)
+        *trt.prepare(*map(torch.as_tensor, a), (H, W), 0.01), (H, W))
     ref = vis(screen, n, c, f, fv)
     if F_pad:
         f = np.pad(f, ((0, 0), (0, F_pad - f.shape[1]), (0, 0)))
@@ -201,11 +201,11 @@ def test_kernel_wrapper_refuses_cpu_and_bad_layouts():
     ids = torch.zeros((1, T, 1), dtype=torch.int32)
     n_act = torch.zeros((1, T), dtype=torch.int32)
     with pytest.raises(ValueError):
-        trt.visibility_kernel(coefs, ids, n_act, (H, W), 16)  # CPU tensors
+        trt.visibility_kernel(coefs, ids, n_act, (H, W))  # CPU tensors
     with pytest.raises(ValueError):
-        trt.visibility_kernel(coefs, ids[:, :12], n_act[:, :12], (H, W), 16)  # tile count
+        trt.visibility_kernel(coefs, ids[:, :12], n_act[:, :12], (H, W))  # tile count
     before = trt.visibility_kernel.launches
-    trt.visibility(coefs, ids, n_act, (H, W), 16)  # CPU: the plain twin
+    trt.visibility(coefs, ids, n_act, (H, W))  # CPU: the plain twin
     assert trt.visibility_kernel.launches == before
 
 

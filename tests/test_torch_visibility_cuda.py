@@ -54,7 +54,7 @@ def assert_identical(a, b):
 @pytest.mark.parametrize("hw,B", [((240, 320), 7), ((50, 70), 3), ((96, 128), 1)])
 def test_kernel_equals_plain(cuda, hw, B):
     mesh = mesh_io.make_uv_sphere(0.05, 20, 30)
-    vis = tables(cuda, B, hw, mesh) + (hw, 16)
+    vis = tables(cuda, B, hw, mesh) + (hw,)
     before = rt.visibility_kernel.launches
     out = rt.visibility(*vis)
     torch.cuda.synchronize()
@@ -69,7 +69,7 @@ def test_kernel_equals_plain_above_the_segment_cap(cuda):
     launch over all faces, bit-identical to the plain twin."""
     mesh = mesh_io.make_uv_sphere(0.05, 116, 148)
     assert mesh.n_faces > 4 * 8192
-    vis = tables(cuda, 3, (240, 320), mesh, seed=4) + ((240, 320), 16)
+    vis = tables(cuda, 3, (240, 320), mesh, seed=4) + ((240, 320),)
     before = rt.visibility_kernel.launches
     out = rt.visibility(*vis)
     torch.cuda.synchronize()
@@ -83,7 +83,7 @@ def test_kernel_empty_tiles_and_nan_planes(cuda):
     coefs, ids, n_act = tables(cuda, 2, (64, 64), mesh)
     n_act[1] = 0  # nothing active in image 1
     coefs[0, :16, 9:12] = float("nan")  # NaN 1/z planes void the chunk where it covers
-    vis = (coefs, ids, n_act, (64, 64), 16)
+    vis = (coefs, ids, n_act, (64, 64))
     out = rt.visibility_kernel(*vis)
     assert_identical(out, rt.visibility_plain(*vis))
     assert (out[1][1] == -1).all()
@@ -92,14 +92,16 @@ def test_kernel_empty_tiles_and_nan_planes(cuda):
 def test_kernel_refuses_bad_inputs(cuda):
     coefs, ids, n_act = tables(cuda, 1, (64, 64), mesh_io.make_cube(0.05))
     with pytest.raises(ValueError):
-        rt.visibility_kernel(coefs.double(), ids, n_act, (64, 64), 16)
+        rt.visibility_kernel(coefs.double(), ids, n_act, (64, 64))
     with pytest.raises(ValueError):
-        rt.visibility_kernel(coefs, ids, n_act, (64, 96), 16)  # tables of another tiling
+        rt.visibility_kernel(coefs, ids, n_act, (64, 96))  # tables of another tiling
     with pytest.raises(ValueError):
-        rt.visibility_kernel(coefs.cpu(), ids, n_act, (64, 64), 16)
+        rt.visibility_kernel(coefs.cpu(), ids, n_act, (64, 64))
+    with pytest.raises(ValueError):
+        rt.visibility_kernel(coefs, ids, n_act, (64, 64), split=rt.MAX_SPLIT + 1)
 
 
-def screen_tables(device, tri_uv, hw, seed=0, chunk=16):
+def screen_tables(device, tri_uv, hw, seed=0):
     """Phase A tables of triangles given in pixel coordinates, `tri_uv`
     `[B, F, 3, 2]`, at random depths in [1, 2]."""
     rng = np.random.RandomState(seed)
@@ -111,7 +113,7 @@ def screen_tables(device, tri_uv, hw, seed=0, chunk=16):
     faces = np.tile(np.arange(F * 3, dtype=np.int32).reshape(1, F, 3), (B, 1, 1))
     t = lambda a: torch.as_tensor(a, device=device)
     valid = torch.ones((B, F), dtype=torch.bool, device=device)
-    return rt.prepare(t(screen), t(normals), t(colors), t(faces), valid, hw, chunk, 0.01)
+    return rt.prepare(t(screen), t(normals), t(colors), t(faces), valid, hw, 0.01)
 
 
 def test_kernel_equals_plain_on_slivers(cuda):
@@ -126,7 +128,7 @@ def test_kernel_equals_plain_on_slivers(cuda):
     width = 10.0 ** rng.uniform(-3, np.log10(0.5), size=(B, F, 1))
     p1 = p0 + d * length
     p2 = p1 + np.concatenate([-d[..., 1:], d[..., :1]], -1) * width
-    vis = screen_tables(cuda, np.stack([p0, p1, p2], 2), hw) + (hw, 16)
+    vis = screen_tables(cuda, np.stack([p0, p1, p2], 2), hw) + (hw,)
     out = rt.visibility_kernel(*vis)
     assert (out[1] >= 0).sum() > 1000
     assert_identical(out, rt.visibility_plain(*vis))
@@ -148,7 +150,7 @@ def test_kernel_equals_plain_on_footprint_borders(cuda):
     y0, y1 = np.sort(rng.choice(ys, size=(2, B, F // 4)), 0)
     a, b, c, d = (np.stack(p, -1) for p in ((x0, y0), (x1, y0), (x1, y1), (x0, y1)))
     tri[:, : F // 2] = np.concatenate([np.stack([a, b, c], 2), np.stack([a, c, d], 2)], 1)
-    vis = screen_tables(cuda, tri, hw, seed=3) + (hw, 16)
+    vis = screen_tables(cuda, tri, hw, seed=3) + (hw,)
     out = rt.visibility_kernel(*vis)
     assert (out[1] >= 0).sum() > 1000
     assert_identical(out, rt.visibility_plain(*vis))
@@ -160,7 +162,7 @@ def test_kernel_equals_plain_across_rebasing_cells(cuda):
     rows 31 and 32)."""
     mesh = mesh_io.make_uv_sphere(0.05, 20, 30)
     hw = (96, 256)
-    vis = tables(cuda, 5, hw, mesh, center=(127.5, 31.5)) + (hw, 16)
+    vis = tables(cuda, 5, hw, mesh, center=(127.5, 31.5)) + (hw,)
     out = rt.visibility_kernel(*vis)
     fid = out[1]
     assert (fid[:, :32, :128] >= 0).any() and (fid[:, 32:, 128:] >= 0).any()
@@ -168,13 +170,41 @@ def test_kernel_equals_plain_across_rebasing_cells(cuda):
 
 
 def test_kernel_refuses_other_chunks(cuda):
-    """The kernel is built for chunks of 16 faces: tables of another chunk
-    are refused, never rendered another way."""
+    """The chunk is 16 faces everywhere: tables whose face count is not a
+    multiple of it, or whose chunk lists count chunks of another size, are
+    refused, never rendered another way."""
     tri = np.random.RandomState(4).uniform(0, 64, size=(1, 64, 3, 2))
-    vis = screen_tables(cuda, tri, (64, 64), chunk=8) + ((64, 64), 8)
+    coefs, ids, n_act = screen_tables(cuda, tri, (64, 64))
     before = rt.visibility_kernel.launches
     with pytest.raises(ValueError):
-        rt.visibility_kernel(*vis)
+        rt.visibility_kernel(coefs[:, :56].contiguous(), ids, n_act, (64, 64))  # 56 faces
     with pytest.raises(ValueError):
-        rt.visibility(*vis)
+        rt.visibility(coefs, torch.cat([ids, ids], -1), n_act, (64, 64))  # chunks of 8
     assert rt.visibility_kernel.launches == before
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 7, 8, 16])
+@pytest.mark.parametrize("hw,B", [((120, 160), 2), ((240, 320), 2)])
+def test_kernel_split_equals_plain(cuda, hw, B, split):
+    """Each tile's chain split over a cluster of `split` blocks (forced
+    here; a launch picks it with `split_for`): bit for bit the plain twin,
+    which walks the chain whole, also with ties of 1/z across parts (two
+    copies of each face, one chunk apart), NaN chunks and empty tiles."""
+    mesh = mesh_io.make_uv_sphere(0.05, 40, 60)
+    coefs, ids, n_act = tables(cuda, B, hw, mesh, seed=split)
+    vis = (coefs, ids, n_act, hw)
+    before = rt.visibility_kernel.launches
+    assert_identical(rt.visibility_kernel(*vis, split=split), rt.visibility_plain(*vis))
+    assert rt.visibility_kernel.launches == before + 1
+    # Every face twice, the copies in neighbouring chunks of one list.
+    F = coefs.shape[1]
+    twin = torch.stack([coefs.reshape(B, -1, 16, 32)] * 2, 2).reshape(B, 2 * F, 32).contiguous()
+    twin_ids = torch.stack([2 * ids, 2 * ids + 1], -1).reshape(B, ids.shape[1], -1).contiguous()
+    twin_vis = (twin, twin_ids, 2 * n_act, hw)
+    assert_identical(rt.visibility_kernel(*twin_vis, split=split), rt.visibility_plain(*twin_vis))
+    nan = coefs.clone()
+    nan[:, 16:32, 9:12] = float("nan")
+    n_empty = n_act.clone()
+    n_empty[:, ::3] = 0
+    odd = (nan, ids, n_empty, hw)
+    assert_identical(rt.visibility_kernel(*odd, split=split), rt.visibility_plain(*odd))
