@@ -191,7 +191,23 @@ Phases, each printing one line with its wall time:
      written from, and `slim_run_dir` on a copy of the long refiner's run,
      its poses bit for bit before and after; (g) `DeviceTimer` against the
      host clock, `profiling.trace` holding K1's launch,
-     `resources.device_memory_stats`.
+     `resources.device_memory_stats`;
+ 22. JPEG and TIFF frames: every committed fixture of
+     tests/data/torch_images (JPEGs of every sampling, progressive,
+     arithmetic coded, restarts, EXIF, Adobe RGB; TIFFs of every
+     compression, both byte orders, 8 and 16 bits, tiles) decoded by
+     this machine's route (which
+     must be the port's own jpeg.cc, not libjpeg) alone and in a batch of
+     4 threads, each against hashes.json (made from PIL's decode); host ms
+     per frame at 240x320 and 480x640 and the batch rate;
+     run_training train_datasets=synthdemo.bop19 at phase 19's refiner
+     width (4 loader workers, 5 steps) on a copy of runs/ar_dr/synthdemo
+     under build/ whose frames are the committed JPEG copies (quality 95,
+     4:2:0), and on one scene of committed grey TIFFs (ITODD's gray/
+     layout), K1's launches counted and the losses finite; the loader's
+     rate on the PNG frames, on their JPEG copies, and on these with the
+     committed JPEGs as backgrounds; K1 at each format's refiner launch
+     bit for bit and timed.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 """
@@ -199,6 +215,7 @@ The line before the last is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import re
 import shutil
@@ -3953,6 +3970,171 @@ def phase_last_slice(est, requests, prod_est, prod_request) -> dict[str, int]:
     return {f"p21_{k}": v for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: JPEG and TIFF frames
+# ---------------------------------------------------------------------------
+
+IMAGES = ROOT / "tests/data/torch_images"  # the committed fixtures and hashes.json
+FORMAT_RUNS = BUILD_DIR / "format_runs"
+
+
+def array_hash(a: np.ndarray) -> str:
+    """SHA-256 of an array's dtype (native order), shape and bytes: the hash
+    `tests/torch_image_fixtures.array_hash` wrote into hashes.json (kept
+    here too: on the card's machine `tests` may name another package)."""
+    a = np.ascontiguousarray(a, a.dtype.newbyteorder("="))
+    return hashlib.sha256(f"{a.dtype.name}{list(a.shape)}".encode() + a.tobytes()).hexdigest()
+
+
+def decode_fixtures() -> None:
+    """Every committed JPEG and TIFF fixture through this machine's route,
+    alone and in a batch of 4 threads, against its hash; host ms per frame."""
+    from megapose6d_tpu_torch import native
+
+    route = native.decoder()
+    print(f"  image decoder: {route}; {nvidia_smi()}", flush=True)
+    check(not native.available() and route.endswith("jpeg.cc"),
+          f"JPEGs here go through {route!r}, not jpeg.cc (libjpeg was found)")
+    hashes = json.loads((IMAGES / "hashes.json").read_text())
+    datas = {rel: (IMAGES / rel).read_bytes() for rel in hashes}
+    bad = [rel for rel, d in datas.items() if array_hash(native.decode_image(d)) != hashes[rel]]
+    batch = native.decode_batch(list(datas.values()), n_threads=4)
+    bad += [f"{rel} (batch)" for rel, a in zip(datas, batch) if array_hash(a) != hashes[rel]]
+    n_jpeg = sum(rel.endswith(".jpg") for rel in datas)
+    print(f"  {len(datas)} fixtures ({n_jpeg} JPEG, {len(datas) - n_jpeg} TIFF), alone and in a batch of 4 threads, "
+          f"against hashes.json: {len(bad)} differ {bad[:5]}", flush=True)
+    check(not bad, f"fixtures decode to other arrays than PIL's: {bad}")
+    frame = datas["bop/synthdemo_jpg/test/000000/rgb/000000.jpg"]
+    big = datas["jpeg/420_q95_480x640.jpg"]
+    grey = datas["bop/itodd_gray/test/000000/gray/000000.tif"]
+    bop = [d for rel, d in datas.items() if rel.startswith("bop/synthdemo_jpg/")]
+    ms = {name: host_ms(lambda d=d: native.decode_image(d), reps)
+          for name, d, reps in (("jpeg_240x320", frame, 200), ("jpeg_480x640", big, 100), ("tiff_240x320", grey, 100))}
+    t0 = time.perf_counter()
+    for _ in range(5):
+        native.decode_batch(bop, n_threads=4)
+    rate = 5 * len(bop) / (time.perf_counter() - t0)
+    print(f"  host ms per frame (this machine's CPU): 240x320 JPEG q95 4:2:0 {ms['jpeg_240x320']:.3f}, 480x640 JPEG "
+          f"q95 4:2:0 {ms['jpeg_480x640']:.3f}, 240x320 grey Deflate TIFF {ms['tiff_240x320']:.3f}; decode_batch of "
+          f"{len(bop)} 240x320 JPEGs in 4 threads: {rate:.1f} frames/s", flush=True)
+
+
+def bop_copy(frames: str) -> Path:
+    """runs/ar_dr/synthdemo under build/, its rgb/*.png replaced: "jpg" by
+    the committed JPEG copies (every scene, quality 95, 4:2:0, as BOP's
+    train_pbr), "tif" by the committed grey TIFFs in gray/ (scene 000000,
+    as ITODD). Returns the data_dir holding synthdemo/."""
+    root = BUILD_DIR / f"bop_{frames}"
+    shutil.rmtree(root, ignore_errors=True)
+    src = EVAL_DATA / "synthdemo"
+    shutil.copytree(src / "models", root / "synthdemo/models")
+    for scene in sorted((src / "test").iterdir()):
+        if frames == "tif" and scene.name != "000000":
+            continue
+        out = root / "synthdemo/test" / scene.name
+        shutil.copytree(scene, out, ignore=shutil.ignore_patterns("rgb"))
+        if frames == "jpg":
+            shutil.copytree(IMAGES / "bop/synthdemo_jpg/test" / scene.name / "rgb", out / "rgb")
+        else:
+            shutil.copytree(IMAGES / "bop/itodd_gray/test" / scene.name / "gray", out / "gray")
+    return root
+
+
+def format_args(data_dir: Path, run_id: str, n_steps: int) -> list[str]:
+    """Phase 19's refiner arguments (runs/refiner_dr's width, 4 loader
+    workers) on the BOP copy at `data_dir`."""
+    return [f"data_dir={data_dir}" if a.startswith("data_dir=") else f"run_dir={FORMAT_RUNS}"
+            if a.startswith("run_dir=") else a for a in dataset_args("refiner_dr", run_id, 4, f"n_epochs={n_steps}")]
+
+
+def format_loader_rates(jpg: Path, labels: list[str], cfg) -> None:
+    """Batches/s of the 4-worker loader, each started alike and timed over
+    24 batches after 12 of warm-up: on the committed PNG frames, on their
+    JPEG copies, and on the JPEG copies with the committed JPEGs as
+    backgrounds (PoseDataset's apply_background_augmentation)."""
+    from megapose6d_tpu_torch.data.loader import ParallelBatchLoader, PoseBatchFactory
+
+    backgrounds = tuple(str(p) for p in sorted((IMAGES / "jpeg").glob("*.jpg")))
+    for name, root, bg in (("PNG frames", EVAL_DATA, ()), ("JPEG frames", jpg, ()),
+                           ("JPEG frames + JPEG backgrounds", jpg, backgrounds)):
+        factory = PoseBatchFactory(dataset_names=("synthdemo.bop19",), labels=tuple(labels),
+                                   batch_size=cfg.batch_size, resize=tuple(cfg.input_resize), min_area=cfg.min_area,
+                                   data_dir=str(root), background_paths=bg)
+        loader = ParallelBatchLoader(factory, n_workers=4, seed=cfg.seed, pin_memory=True)
+        try:
+            t0 = time.perf_counter()
+            next(loader)
+            first = time.perf_counter() - t0
+            loader_rate(loader, 12)
+            rate = loader_rate(loader, 24)
+        finally:
+            loader.close()
+        print(f"  loader alone, {name}, 240x320, batch {cfg.batch_size}, 4 workers: {rate:.3f} batches/s "
+              f"({rate * cfg.batch_size:.1f} samples/s; first batch after {first:.2f} s)", flush=True)
+
+
+def format_kernel_shapes(roots: dict[str, Path], errors: list[float], shapes: dict) -> None:
+    """K1 at the refiner's launch on one batch of each format (2 views x 32
+    samples), bit for bit against the plain twin and timed."""
+    for frames, root in roots.items():
+        cfg = run_training.make_config("refiner", False, run_overrides("refiner_dr") + [
+            "train_datasets=synthdemo.bop19", "n_dataloader_workers=0"])
+        db = run_training.dataset_mesh_db(cfg, "synthdemo.bop19", str(root), "cuda")
+        loader = run_training.dataset_loader(cfg, list(db.labels), str(root), "cuda")
+        batch = next(loader).to("cuda")
+        loader.close()
+        state = tt.create_train_state(cfg, "cuda")
+        draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1],
+                                           torch.Generator().manual_seed(14)), "cuda")
+        captured: list = []
+        restore = record_visibility_inputs(captured)
+        try:
+            with torch.no_grad():
+                forward_loss(state.model, cfg, batch, db, draws, cfg.n_iterations)
+        finally:
+            rt.visibility = restore
+        check(len(captured) == cfg.n_iterations, f"captured {len(captured)} launches, expected {cfg.n_iterations}")
+        kernel_at(f"train_{frames}_refiner_B{captured[0][0].shape[0]}", captured, errors, shapes)
+
+
+def phase_image_formats(errors: list[float]) -> tuple[int, dict]:
+    """Phase 22: the fixtures decoded; run_training train_datasets= at
+    phase 19's refiner width on the synthdemo set with JPEG frames (5
+    steps) and on one scene of grey TIFF frames (5), K1's launches counted;
+    the loader's rate on PNG frames, JPEG frames and JPEG backgrounds; K1
+    at each format's launch."""
+    decode_fixtures()
+    roots = {"jpg": bop_copy("jpg"), "tif": bop_copy("tif")}
+    shutil.rmtree(FORMAT_RUNS, ignore_errors=True)
+    rt.visibility_kernel.launches = 0  # the JPEG and TIFF training path starts here
+    times, states = {}, {}
+    for frames, root in roots.items():
+        t0 = time.perf_counter()
+        states[frames] = run_training.main(format_args(root, f"refiner_{frames}", 5))
+        times[frames] = time.perf_counter() - t0
+    launches = rt.visibility_kernel.launches  # read right after the path
+    cfg = load_config(FORMAT_RUNS / "refiner_jpg" / "config.json")
+    check(cfg.backbone_str == "resnet18-spatial" and cfg.batch_size == 32 and cfg.compute_dtype == "bfloat16"
+          and tuple(cfg.input_resize) == HW and cfg.n_dataloader_workers == 4, f"not at phase 19's width: {cfg}")
+    expected = 2 * 5 * cfg.n_iterations  # refiner steps render no observation
+    print(f"  kernel launches on the JPEG and TIFF training path: {launches} (expected {expected})", flush=True)
+    check(launches == expected, "the JPEG and TIFF training path did not launch K1 as expected")
+    for frames, state in states.items():
+        log = read_log(FORMAT_RUNS / f"refiner_{frames}")
+        check(state.step == 5 and len(log) == 5 and all(np.isfinite(v) for l in log for v in l.values()),
+              f"{frames}: steps or metrics")
+        keys = [k for k in log[0] if k.startswith(("loss_total", "grad"))]
+        print(f"  refiner on {'JPEG frames (56)' if frames == 'jpg' else 'grey TIFF frames (4, ITODD layout)'}: "
+              f"{len(log)} steps in {times[frames]:.2f} s (first {log[0]['time_per_epoch']:.2f} s with the workers' "
+              f"start, later mean {np.mean([l['time_per_epoch'] for l in log[2:]]):.4f} s); first / last "
+              + " ".join(f"{k}={log[0][k]:.4g}/{log[-1][k]:.4g}" for k in keys), flush=True)
+    db = run_training.dataset_mesh_db(cfg, "synthdemo.bop19", str(roots["jpg"]), "cpu")
+    format_loader_rates(roots["jpg"], list(db.labels), cfg)
+    shapes: dict = {}
+    format_kernel_shapes(roots, errors, shapes)
+    return launches, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4009,6 +4191,8 @@ def main() -> int:
         multi_launches, multi_shapes = phase_multi_device(errors)
     with Phase("scan renderer, FLOPs, visualization, long demos, preprocessing, utilities"):
         last_launches = phase_last_slice(est, requests, prod_est, prod_request)
+    with Phase("JPEG and TIFF frames"):
+        format_launches, format_shapes = phase_image_formats(errors)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
@@ -4017,6 +4201,7 @@ def main() -> int:
     timing["by_shape"].update(det_shapes)
     timing["by_shape"].update(dataset_shapes)
     timing["by_shape"].update(multi_shapes)
+    timing["by_shape"].update(format_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
@@ -4024,14 +4209,15 @@ def main() -> int:
         "replaces": "megapose6d_tpu/ops/rasterizer_tiled.py:225",
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
-        + serve_launches + dataset_launches + sum(multi_launches.values()) + sum(last_launches.values()),
+        + serve_launches + dataset_launches + sum(multi_launches.values()) + sum(last_launches.values())
+        + format_launches,
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
                              "production": prod_launches, "demo_finalize": final_launches,
                              "scene_gen": gen_launches, "detector": det_launches,
                              "detector_serving": serve_launches, "train_datasets": dataset_launches,
-                             **multi_launches, **last_launches},
+                             **multi_launches, **last_launches, "train_jpeg_tiff": format_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

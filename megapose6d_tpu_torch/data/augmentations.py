@@ -285,8 +285,7 @@ class ReplaceBackgroundTransform(SceneObservationTransform):
 
 
 class VOCBackgroundAugmentation(ReplaceBackgroundTransform):
-    """Backgrounds from Pascal VOC's `JPEGImages/*.jpg` (JPEG needs the
-    native decoder)."""
+    """Backgrounds from Pascal VOC's `JPEGImages/*.jpg`."""
 
     def __init__(self, voc_root: str | Path):
         super().__init__(sorted(Path(voc_root).glob("JPEGImages/*.jpg")))

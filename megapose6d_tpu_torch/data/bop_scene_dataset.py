@@ -5,10 +5,11 @@ directory layout (scene_camera.json, scene_gt.json, scene_gt_info.json,
 rgb/, depth/, mask_visib/), converts mm to m, and yields
 `SceneObservation`s with ground-truth poses and visible/full boxes.
 Images are decoded by `native.decode_image`: libpng and libjpeg where the
-native library builds, else the port's PNG reader (`utils/png.py`, the
-same arrays; a JPEG then raises). Labels follow `label_format`
+native library builds, else the port's PNG reader (`utils/png.py`) and JPEG
+decoder (`native/jpeg.cc`), the same arrays. Labels follow `label_format`
 (`obj_{label}` by default, `tless-{label}` and so on for the BOP
-challenge datasets). The `train_pbr` splits keep their rgb as JPEG.
+challenge datasets). The `train_pbr` splits keep their rgb as JPEG; ITODD
+keeps grey TIFFs in `gray/` (`utils/tiff.py`), repeated to three channels.
 
 See https://github.com/thodan/bop_toolkit/blob/master/docs/bop_datasets_format.md
 """
@@ -71,7 +72,7 @@ class BOPDataset(SceneDataset):
         if not rgb_path.exists():
             rgb_path = rgb_path.with_suffix(".jpg")
         if not rgb_path.exists():  # ITODD's grey TIFFs
-            raise NotImplementedError(f"{scene_dir}/gray/{view_id:06d}.tif: TIFF images are not read by the port")
+            rgb_path = scene_dir / "gray" / f"{view_id:06d}.tif"
         rgb = _imread(rgb_path)
         if rgb.ndim == 2:
             rgb = np.repeat(rgb[..., None], 3, axis=-1)
@@ -114,7 +115,7 @@ class BOPDataset(SceneDataset):
 
 
 def _imread(path: Path) -> np.ndarray:
-    """A PNG or JPEG file through `native.decode_image`."""
+    """A PNG, JPEG or TIFF file through `native.decode_image`."""
     return native.decode_image(Path(path).read_bytes())
 
 

@@ -193,6 +193,13 @@ def make_object_dataset(name: str, data_dir: str | Path | None = None):
     raise ValueError(f"unknown object dataset: {name}")
 
 
+def make_urdf_dataset(name: str, data_dir: str | Path | None = None):
+    """The meshes of `<data_dir or LOCAL_DATA_DIR>/urdfs/<name>`, as a flat
+    mesh directory."""
+    root = (Path(data_dir) if data_dir else config.LOCAL_DATA_DIR) / "urdfs"
+    return make_directory_object_dataset(root / name)
+
+
 def get_obj_ds_info(ds_name: str) -> tuple[str, str]:
     """(object dataset, URDF dataset) names of a scene dataset name."""
     ds = ds_name.split(".")[0]

@@ -79,11 +79,11 @@ class ParallelBatchLoader:
         if self._iter is None:
             kw = {}
             if self.n_workers > 0:
-                # Build the native decoder here, so the workers load it
-                # instead of each compiling it.
+                # Build the native decoders here, so the workers load them
+                # instead of each compiling them.
                 from .. import native
 
-                native.available()
+                native.decoder()
                 kw = dict(multiprocessing_context="forkserver")
             loader = DataLoader(_BatchStream(self.factory, self.seed), batch_size=None, num_workers=self.n_workers,
                                 pin_memory=self.pin_memory, **kw)
@@ -118,11 +118,14 @@ class ParallelBatchLoader:
 class PoseBatchFactory:
     """Picklable `worker_seed -> Iterator[BatchPoseData]` over named scene
     datasets: each worker opens its own readers (tar handles are not
-    shared), then decodes, augments, samples and collates."""
+    shared), then decodes, augments, samples and collates. With
+    `background_paths` (image files, such as Pascal VOC's JPEGs) a third of
+    the observations get a background from them, as the JAX package's
+    `PoseDataset(apply_background_augmentation=True)`."""
 
     def __init__(self, dataset_names: tuple[str, ...], labels: tuple[str, ...], batch_size: int,
                  resize: tuple[int, int], input_depth: bool = False, min_area: float | None = None,
-                 data_dir: str | None = None):
+                 data_dir: str | None = None, background_paths: tuple[str, ...] = ()):
         self.dataset_names = tuple(dataset_names)
         self.labels = tuple(labels)
         self.batch_size = int(batch_size)
@@ -130,6 +133,7 @@ class PoseBatchFactory:
         self.input_depth = bool(input_depth)
         self.min_area = min_area
         self.data_dir = data_dir
+        self.background_paths = tuple(background_paths)
 
     def __call__(self, worker_seed: int):
         from .datasets_cfg import make_scene_dataset
@@ -144,7 +148,8 @@ class PoseBatchFactory:
         obs_iter = iter(IterableMultiSceneDataset(scene_iters, seed=worker_seed))
         pose_ds = PoseDataset(
             None, resize=self.resize, apply_depth_augmentation=self.input_depth, depth_supported=self.input_depth, min_area=self.min_area,
-            keep_labels_set=set(self.labels),
+            keep_labels_set=set(self.labels), apply_background_augmentation=bool(self.background_paths),
+            background_image_paths=self.background_paths,
         )
         return pose_ds.iter_batches(obs_iter, self.batch_size, {l: i for i, l in enumerate(self.labels)})
 

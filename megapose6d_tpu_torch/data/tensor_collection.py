@@ -21,7 +21,8 @@ class TensorCollection:
 
     `TensorCollection(labels, **tensors)` makes a collection whose only
     column is `label`; `TensorCollection(infos={...}, **tensors)` one with
-    the given columns (which include `label`)."""
+    the given columns (a camera collection has `batch_im_id` and no
+    `label`)."""
 
     def __init__(
         self,
@@ -32,18 +33,19 @@ class TensorCollection:
     ):
         cols = {} if labels is None else {"label": labels}
         cols.update(infos or {})
-        if "label" not in cols:
-            raise ValueError("a collection needs a label column")
+        if not cols:
+            raise ValueError("a collection needs an info column")
         self.infos: dict[str, np.ndarray] = {k: np.asarray(v) for k, v in cols.items()}
-        self.infos["label"] = self.infos["label"].astype(object)
-        n = len(self.infos["label"])
+        if "label" in self.infos:
+            self.infos["label"] = self.infos["label"].astype(object)
+        n = len(next(iter(self.infos.values())))
         for name, col in self.infos.items():
             if len(col) != n:
-                raise ValueError(f"info column {name} has {len(col)} rows, labels have {n}")
+                raise ValueError(f"info column {name} has {len(col)} rows, the first has {n}")
         self.tensors: dict[str, torch.Tensor] = {}
         for name, t in tensors.items():
             if len(t) != n:
-                raise ValueError(f"{name} has {len(t)} rows, labels have {n}")
+                raise ValueError(f"{name} has {len(t)} rows, the infos have {n}")
             self.tensors[name] = t
 
     @property
@@ -57,7 +59,7 @@ class TensorCollection:
         raise AttributeError(name)
 
     def __len__(self) -> int:
-        return len(self.infos["label"])
+        return len(next(iter(self.infos.values())))
 
     def __getitem__(self, ids) -> "TensorCollection":
         ids = np.asarray(torch.as_tensor(ids).cpu())

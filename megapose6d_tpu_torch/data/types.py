@@ -78,18 +78,23 @@ def object_data_to_json_path(objects: list[ObjectData], path: str | Path) -> Non
 @dataclasses.dataclass
 class CameraData:
     """A frame's camera; `TWC` is its pose in the world (None: the world is
-    the camera's frame, as in BOP)."""
+    the camera's frame, as in BOP), `TWC_init` a first guess of it."""
 
     K: np.ndarray | None = None  # [3, 3]
     resolution: tuple[int, int] | None = None  # (h, w)
     TWC: np.ndarray | None = None  # [4, 4]
+    camera_id: str | None = None
+    TWC_init: np.ndarray | None = None  # [4, 4]
 
     def to_json(self) -> str:
         d: dict = {}
-        if self.TWC is not None:
-            d["TWC"] = _pose_to_list(self.TWC)
+        for k in ("TWC", "TWC_init"):
+            if getattr(self, k) is not None:
+                d[k] = _pose_to_list(getattr(self, k))
         if self.K is not None:
             d["K"] = np.asarray(self.K).tolist()
+        if self.camera_id is not None:
+            d["camera_id"] = self.camera_id
         if self.resolution is not None:
             d["resolution"] = list(self.resolution)
         return json.dumps(d)
@@ -98,10 +103,12 @@ class CameraData:
     def from_json(data_str: str) -> "CameraData":
         d = json.loads(data_str)
         data = CameraData()
-        if "TWC" in d:
-            data.TWC = _pose_from_list(d["TWC"])
+        for k in ("TWC", "TWC_init"):
+            if k in d:
+                setattr(data, k, _pose_from_list(d[k]))
         if "K" in d:
             data.K = np.array(d["K"], dtype=np.float64)
+        data.camera_id = d.get("camera_id")
         if "resolution" in d:
             data.resolution = (int(d["resolution"][0]), int(d["resolution"][1]))
         return data

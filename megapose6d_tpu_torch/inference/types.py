@@ -53,3 +53,49 @@ def make_detections(
         "instance_id": np.arange(n, dtype=np.int64),
     }
     return TensorCollection(infos=infos, bboxes=bboxes)
+
+
+def filter_detections(detections: TensorCollection, labels: Sequence[str] | None = None,
+                      one_instance_per_class: bool = False) -> TensorCollection:
+    """The detections whose label is in `labels` (all when None) and, with
+    `one_instance_per_class`, only the highest-scoring of each label, in
+    their order."""
+    keep = np.ones(len(detections), bool)
+    if labels is not None:
+        keep &= np.isin(detections.infos["label"], list(labels))
+    out = detections[np.nonzero(keep)[0]]
+    if one_instance_per_class and len(out):
+        seen: set[str] = set()
+        sel = []
+        for i in np.argsort(-out.infos["score"]):
+            if out.infos["label"][i] not in seen:
+                seen.add(out.infos["label"][i])
+                sel.append(i)
+        out = out[np.asarray(sorted(sel), np.int64)]
+    return out
+
+
+def add_instance_id(detections: TensorCollection) -> TensorCollection:
+    """`instance_id`: each detection's rank among the earlier detections of
+    its (`batch_im_id`, `label`)."""
+    seen: dict[tuple, int] = {}
+    ids = np.empty(len(detections), np.int64)
+    for i, key in enumerate(zip(detections.infos["batch_im_id"], detections.infos["label"])):
+        ids[i] = seen.get(key, 0)
+        seen[key] = ids[i] + 1
+    return TensorCollection(infos={**detections.infos, "instance_id": ids}, **detections.tensors)
+
+
+def make_cameras(camera_datas, device: str | torch.device = "cuda") -> TensorCollection:
+    """`CameraData`s -> infos `batch_im_id` + `K [N, 3, 3]` float32."""
+    K = np.stack([np.asarray(c.K, np.float32) for c in camera_datas])
+    return TensorCollection(infos={"batch_im_id": np.arange(len(camera_datas), dtype=np.int64)},
+                            K=torch.as_tensor(K, device=device))
+
+
+def make_pose_estimates(labels: Sequence[str], poses, extra_infos: dict | None = None,
+                        device: str | torch.device = "cuda") -> TensorCollection:
+    """Infos `label` (+ `extra_infos` columns) + `poses [N, 4, 4]` float32."""
+    n = len(labels)
+    poses = torch.as_tensor(np.asarray(poses, np.float32).reshape(n, 4, 4), device=device)
+    return TensorCollection(infos={"label": list(labels), **(extra_infos or {})}, poses=poses)

@@ -6,21 +6,27 @@ copies of its sources:
     in a thread pool;
   - `meshproc.cc`: vertex-clustering decimation, the whole binary search
     on the cell size in one call;
-and one of its own, `unfilter.cc`: PNG row unfiltering, for `utils/png.py`
-where libpng is missing (it needs only a compiler).
+and three of its own, which need only a compiler:
+  - `unfilter.cc`: PNG row unfiltering, for `utils/png.py`;
+  - `jpeg.cc`: a JPEG decoder equal bit for bit to libjpeg-turbo's default
+    output (baseline, extended and progressive, Huffman or arithmetic
+    coded, 8-bit, grey or 3 components), a batch in threads;
+  - `tiff.cc`: TIFF's LZW and PackBits strips, for `utils/tiff.py`.
 Each is compiled with `g++` at first use into `build/` at the repository
 root (named by the hash of its source and flags; the JAX package's
-libraries are never loaded), then bound with ctypes. Without a compiler,
-or without libpng and libjpeg, `available()` / `meshproc_available()` are
-False: PNGs are then decoded by `utils/png.py` (`decode_image` routes
-them there, with the same arrays, unfiltered by `unfilter.cc` when it
-builds, else by numpy), a JPEG raises, and
+libraries are never loaded), then bound with ctypes. Without libpng and
+libjpeg `available()` is False: PNGs are then decoded by `utils/png.py`
+(`decode_image` routes them there, with the same arrays, unfiltered by
+`unfilter.cc` when it builds, else by numpy) and JPEGs by `jpeg.cc` (without
+a compiler a JPEG raises with the compiler's message). TIFFs always go
+through `utils/tiff.py`. Without `meshproc`,
 `meshes/io.simplify_vertex_clustering` runs its numpy twin.
 
     available() -> bool
-    decoder() -> "native", "png.py + unfilter.cc" or "png.py"
+    decoder() -> "native", "png.py + unfilter.cc, jpeg.cc", ... or "png.py"
     decode_image(data: bytes) -> np.ndarray   # [H, W, C] u8, [H, W] u8 or u16
     decode_batch(list[bytes], n_threads=0) -> list[np.ndarray]
+    decode_jpeg(data: bytes) -> np.ndarray     # always jpeg.cc
     meshproc_available() -> bool
     simplify_mesh(verts, faces, colors, target_faces) -> (verts, faces, colors | None)
 """
@@ -38,6 +44,7 @@ from pathlib import Path
 import numpy as np
 
 from ..ops._nvcc import BUILD_DIR
+from ..utils import tiff as tiff_py
 from ..utils.png import decode_png
 from ..utils.png import unfilter as png_unfilter
 
@@ -45,13 +52,15 @@ logger = logging.getLogger(__name__)
 
 _DIR = Path(__file__).resolve().parent
 _FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
-_LIBS = {"decode": ("-lpng", "-ljpeg", "-lz", "-lpthread"), "meshproc": (), "unfilter": ()}
+_LIBS = {"decode": ("-lpng", "-ljpeg", "-lz", "-lpthread"), "meshproc": (), "unfilter": (), "jpeg": ("-lpthread",),
+         "tiff": ()}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL | None] = {}
 
 u8p = ctypes.POINTER(ctypes.c_ubyte)
 i32p = ctypes.POINTER(ctypes.c_int)
 f32p = ctypes.POINTER(ctypes.c_float)
+_MSG = 256  # bytes of a jpeg.cc error message
 
 
 def _build(name: str) -> Path | None:
@@ -84,7 +93,23 @@ def _build(name: str) -> Path | None:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    if name == "unfilter":
+    if name == "jpeg":
+        lib.mp_jpeg_info.argtypes = [u8p, ctypes.c_long, i32p, i32p, i32p, ctypes.c_char_p, ctypes.c_int]
+        lib.mp_jpeg_info.restype = ctypes.c_int
+        lib.mp_jpeg_decode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, i32p, i32p, i32p, ctypes.c_char_p,
+                                       ctypes.c_int]
+        lib.mp_jpeg_decode.restype = ctypes.c_int
+        lib.mp_jpeg_decode_batch.argtypes = [
+            ctypes.c_int, ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_long), ctypes.POINTER(u8p),
+            ctypes.POINTER(ctypes.c_long), i32p, i32p, i32p, i32p, ctypes.c_int,
+        ]
+        lib.mp_jpeg_decode_batch.restype = ctypes.c_int
+    elif name == "tiff":
+        lib.mp_tiff_lzw.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long]
+        lib.mp_tiff_lzw.restype = ctypes.c_long
+        lib.mp_tiff_packbits.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long]
+        lib.mp_tiff_packbits.restype = ctypes.c_long
+    elif name == "unfilter":
         lib.mp_png_unfilter.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
         lib.mp_png_unfilter.restype = ctypes.c_int
     elif name == "decode":
@@ -117,7 +142,7 @@ def _load(name: str) -> ctypes.CDLL | None:
                     lib = None
             _libs[name] = lib
             if name == "decode" and lib is None:
-                logger.info("no native image decoder: PNG through utils/png.py, JPEG refused")
+                logger.info("no native image decoder: PNG through utils/png.py, JPEG through jpeg.cc")
         return _libs[name]
 
 
@@ -127,11 +152,15 @@ def available() -> bool:
 
 
 def decoder() -> str:
-    """Which decoder `decode_image` uses: "native" (libpng, libjpeg), else
-    "png.py + unfilter.cc" or "png.py" (no JPEG either way)."""
+    """Which decoders `decode_image` uses for PNG and JPEG: "native"
+    (libpng, libjpeg), else "png.py + unfilter.cc, jpeg.cc", "png.py,
+    jpeg.cc" or "png.py" (no JPEG). Loads every decoder library, so that a
+    parent process builds them once for its workers."""
+    _load("tiff")
     if available():
         return "native"
-    return "png.py + unfilter.cc" if _load("unfilter") is not None else "png.py"
+    route = "png.py + unfilter.cc" if _load("unfilter") is not None else "png.py"
+    return route + (", jpeg.cc" if _load("jpeg") is not None else "")
 
 
 def unfilter(filtered: np.ndarray, ftype: np.ndarray) -> np.ndarray:
@@ -170,15 +199,26 @@ def _info(lib: ctypes.CDLL, src, n: int) -> tuple[int, int, int, int, int]:
     return h.value, w.value, c.value, bd.value, cap
 
 
+def _is_tiff(data) -> bool:
+    return bytes(data[:4]) in (b"II*\0", b"MM\0*")
+
+
+def _is_jpeg(data) -> bool:
+    return bytes(data[:2]) == b"\xff\xd8"
+
+
 def decode_image(data: bytes) -> np.ndarray:
-    """Decode one PNG or JPEG: uint8 `[H, W, C]` / `[H, W]`, or uint16
-    `[H, W]` for 16-bit PNG. Without the native library PNGs go through
-    `utils/png.py` and a JPEG raises."""
+    """Decode one PNG, JPEG or TIFF: uint8 `[H, W, C]` / `[H, W]`, or uint16
+    `[H, W]` for 16-bit grey. Without the native library PNGs go through
+    `utils/png.py` and JPEGs through `jpeg.cc`; TIFFs always go through
+    `utils/tiff.py`."""
+    if _is_tiff(data):
+        return decode_tiff(data)
     lib = _load("decode")
     if lib is None:
-        if bytes(data[:4]).startswith(b"\x89PNG"):
-            return decode_png(data, unfilter)
-        raise RuntimeError("JPEG images need the native decoder (g++ with libjpeg), which did not build")
+        if _is_jpeg(data):
+            return decode_jpeg(data)
+        return decode_png(data, unfilter)
     buf = np.frombuffer(data, np.uint8)
     src = buf.ctypes.data_as(u8p)
     h, w, c, bd, cap = _info(lib, src, len(data))
@@ -191,10 +231,15 @@ def decode_image(data: bytes) -> np.ndarray:
 
 
 def decode_batch(datas: list[bytes], n_threads: int = 0) -> list[np.ndarray]:
-    """Decode a batch in C++ threads (`n_threads=0`: one per core)."""
+    """Decode a batch in C++ threads (`n_threads=0`: one per core): through
+    libpng and libjpeg where `decode.cc` builds, else the JPEGs through
+    `jpeg.cc` and the rest one by one."""
+    n_threads = n_threads if n_threads > 0 else os.cpu_count() or 1
     lib = _load("decode")
-    if lib is None:
-        return [decode_image(d) for d in datas]
+    if lib is None or any(_is_tiff(d) for d in datas):
+        jpegs = [i for i, d in enumerate(datas) if _is_jpeg(d)] if lib is None else []
+        out = dict(zip(jpegs, _jpeg_batch([datas[i] for i in jpegs], n_threads)))
+        return [out[i] if i in out else decode_image(d) for i, d in enumerate(datas)]
     n = len(datas)
     if n == 0:
         return []
@@ -207,11 +252,88 @@ def decode_batch(datas: list[bytes], n_threads: int = 0) -> list[np.ndarray]:
         caps[i], outs[i] = cap, outs_np[-1].ctypes.data_as(u8p)
     hs, ws, cs, bds = ((ctypes.c_int * n)() for _ in range(4))
     rc = lib.mp_decode_batch(n, (u8p * n)(*[s.ctypes.data_as(u8p) for s in srcs]),
-                             (ctypes.c_long * n)(*[len(s) for s in srcs]), outs, caps, hs, ws, cs, bds,
-                             n_threads if n_threads > 0 else os.cpu_count() or 1)
+                             (ctypes.c_long * n)(*[len(s) for s in srcs]), outs, caps, hs, ws, cs, bds, n_threads)
     if rc != 0:
         raise ValueError(f"mp_decode_batch failed: {rc}")
     return [_wrap(outs_np[i], hs[i], ws[i], cs[i], bds[i]) for i in range(n)]
+
+
+def _jpeg_lib() -> ctypes.CDLL:
+    lib = _load("jpeg")
+    if lib is None:
+        failed = next(BUILD_DIR.glob("jpeg-*.failed"), None)
+        message = failed.read_text() if failed is not None else "no compiler"
+        raise RuntimeError(f"JPEG images need jpeg.cc, which did not build: {message}")
+    return lib
+
+
+def _jpeg_shape(lib: ctypes.CDLL, buf: np.ndarray) -> tuple[int, int, int]:
+    h, w, c = (ctypes.c_int() for _ in range(3))
+    msg = ctypes.create_string_buffer(_MSG)
+    if lib.mp_jpeg_info(buf.ctypes.data_as(u8p), len(buf), h, w, c, msg, _MSG) != 0:
+        raise ValueError(f"JPEG: {msg.value.decode()}")
+    return h.value, w.value, c.value
+
+
+def _jpeg_array(out: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
+    return out.reshape(h, w) if c == 1 else out.reshape(h, w, 3)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """One JPEG through `jpeg.cc` (whether or not libjpeg is present):
+    `[H, W]` uint8 for grey, `[H, W, 3]` uint8 RGB. Raises ValueError, with
+    libjpeg's reason where it has one, on what it does not decode."""
+    lib = _jpeg_lib()
+    buf = np.frombuffer(data, np.uint8)
+    h, w, c = _jpeg_shape(lib, buf)
+    out = np.empty(h * w * c, np.uint8)
+    hh, ww, cc = (ctypes.c_int() for _ in range(3))
+    msg = ctypes.create_string_buffer(_MSG)
+    if lib.mp_jpeg_decode(buf.ctypes.data_as(u8p), len(buf), out.ctypes.data_as(u8p), out.size, hh, ww, cc,
+                          msg, _MSG) != 0:
+        raise ValueError(f"JPEG: {msg.value.decode()}")
+    return _jpeg_array(out, h, w, c)
+
+
+def _jpeg_batch(datas: list[bytes], n_threads: int) -> list[np.ndarray]:
+    """JPEGs through `jpeg.cc` in `n_threads` C++ threads; a file that
+    fails is decoded again alone for its message."""
+    if not datas:
+        return []
+    lib, n = _jpeg_lib(), len(datas)
+    bufs = [np.frombuffer(d, np.uint8) for d in datas]
+    shapes = [_jpeg_shape(lib, b) for b in bufs]
+    outs = [np.empty(h * w * c, np.uint8) for h, w, c in shapes]
+    hs, ws, cs, rcs = ((ctypes.c_int * n)() for _ in range(4))
+    failed = lib.mp_jpeg_decode_batch(n, (u8p * n)(*[b.ctypes.data_as(u8p) for b in bufs]),
+                                      (ctypes.c_long * n)(*[len(b) for b in bufs]),
+                                      (u8p * n)(*[o.ctypes.data_as(u8p) for o in outs]),
+                                      (ctypes.c_long * n)(*[o.size for o in outs]), hs, ws, cs, rcs, n_threads)
+    if failed:
+        decode_jpeg(datas[next(i for i in range(n) if rcs[i] != 0)])  # raises with the message
+    return [_jpeg_array(o, *s) for o, s in zip(outs, shapes)]
+
+
+def _strips(name: str, data: bytes, size: int) -> bytes:
+    """One LZW or PackBits strip through `tiff.cc`, decoded to `size` bytes
+    (fewer where the strip ends early; `utils/tiff.py` checks)."""
+    lib = _load("tiff")
+    if lib is None:
+        return (tiff_py.lzw_decode if name == "lzw" else tiff_py.packbits_decode)(data, size)
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(max(size, 1), np.uint8)
+    fn = lib.mp_tiff_lzw if name == "lzw" else lib.mp_tiff_packbits
+    n = fn(src.ctypes.data_as(u8p), len(src), out.ctypes.data_as(u8p), size)
+    if n < 0:
+        raise ValueError(f"TIFF: corrupt {'LZW' if name == 'lzw' else 'PackBits'} data")
+    return out[:n].tobytes()
+
+
+def decode_tiff(data: bytes) -> np.ndarray:
+    """`utils/tiff.decode_tiff`, its LZW and PackBits strips through
+    `tiff.cc` when it builds (else its Python twins, the same bytes)."""
+    return tiff_py.decode_tiff(data, lzw=lambda d, n: _strips("lzw", d, n),
+                               packbits=lambda d, n: _strips("packbits", d, n))
 
 
 def simplify_mesh(verts: np.ndarray, faces: np.ndarray, colors: np.ndarray | None, target_faces: int,

@@ -7,6 +7,7 @@ table of the hierarchical coarse mode.
 from __future__ import annotations
 
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,6 +41,15 @@ def make_so3_grid(resolution: int, device: str | torch.device = "cuda") -> torch
         super_fibonacci_quats(resolution), dtype=torch.float32, device=device
     )
     return rotmat_from_quat(quats)
+
+
+def load_qua_grid(path: str | Path, device: str | torch.device = "cuda") -> torch.Tensor:
+    """A LaValle-format `.qua` file (whitespace-separated xyzw lines, the
+    reference's grids) as rotation matrices `[N, 3, 3]` float32."""
+    xyzw = np.loadtxt(str(path), dtype=np.float64, ndmin=2)
+    if xyzw.shape[1] != 4:
+        raise ValueError(f"{path}: expected lines of 4 numbers (x y z w), got {xyzw.shape}")
+    return rotmat_from_quat(torch.as_tensor(xyzw, dtype=torch.float32, device=device))
 
 
 def build_prune_table(grid, parent_grid) -> tuple[np.ndarray, np.ndarray]:

@@ -5,8 +5,10 @@ of `ds_names` and each pair of `detection_coarse_types`, one `run_eval`
 under `<save_dir>/<ds_name>/<detection>+<coarse>/` with its
 `eval_config.json`, and every summary in `<save_dir>/all_summaries.json`
 keyed `<ds_name>/<detection>+<coarse>`, as the JAX package lays them out.
-The official bop_toolkit scoring (`run_bop_eval`) is not ported: the
-port's meters score the BOP19 ARs in `run_eval`.
+The port's meters score the BOP19 ARs in `run_eval`; with `run_bop_eval`,
+bop_toolkit's `eval_bop19.py` (in `bop_toolkit_dir`, which the repository
+does not hold) also scores each BOP19 dataset's results CSV, as in the JAX
+package.
 
     python -m megapose6d_tpu_torch.scripts.run_full_eval ds_names=synthdemo.bop19 \\
         data_dir=runs/ar_dr save_dir=build/full_eval detection_coarse_types=gt:SO3_grid,detector:SO3_grid \\
@@ -22,7 +24,16 @@ import logging
 import sys
 from pathlib import Path
 
-from ..evaluation.eval_config import EvalConfig, FullEvalConfig, apply_eval_overrides, get_save_dir, save_eval_config
+from ..evaluation.bop import run_bop_evaluation
+from ..evaluation.eval_config import (
+    BOPEvalConfig,
+    EvalConfig,
+    FullEvalConfig,
+    apply_eval_overrides,
+    generate_save_key,
+    get_save_dir,
+    save_eval_config,
+)
 from ..evaluation.evaluation import run_eval
 from .run_eval import normalize_argv
 
@@ -40,7 +51,7 @@ def create_eval_cfg(cfg: FullEvalConfig, detection_type: str, coarse_estimation_
     eval_cfg = dataclasses.replace(eval_cfg, ds_name=ds_name)
     if detection_type == "detector" and not eval_cfg.detector_run:
         raise ValueError("the detector detection type needs detector_run")
-    return f"{detection_type}+{coarse_estimation_type}", eval_cfg
+    return generate_save_key(detection_type, coarse_estimation_type), eval_cfg
 
 
 def run_full_eval(cfg: FullEvalConfig) -> dict:
@@ -52,18 +63,31 @@ def run_full_eval(cfg: FullEvalConfig) -> dict:
     if cfg.save_dir is None:
         raise ValueError("FullEvalConfig.save_dir is not set")
     all_summaries: dict[str, dict] = {}
+    bop_eval_cfgs: list[BOPEvalConfig] = []
     for ds_name in cfg.ds_names:
         for det_type, coarse_type in cfg.detection_coarse_types:
             save_key, eval_cfg = create_eval_cfg(cfg, det_type, coarse_type, ds_name)
             if cfg.skip_inference:  # the saved results are only listed, as in the JAX package
-                save_dir, summary = get_save_dir(eval_cfg), {}
-                if not (save_dir / "results.npz").is_file():
+                save_dir = get_save_dir(eval_cfg)
+                eval_out = {"results_path": save_dir / "results.npz", "pred_keys": ["final"], "summary": {}}
+                if not eval_out["results_path"].is_file():
                     raise FileNotFoundError(f"skip_inference=True but no results under {save_dir}")
             else:
                 eval_out = run_eval(eval_cfg)
-                save_dir, summary = Path(eval_out["save_dir"]), eval_out["summary"]
-            all_summaries[f"{ds_name}/{save_key}"] = summary
+                save_dir = Path(eval_out["save_dir"])
+            all_summaries[f"{ds_name}/{save_key}"] = eval_out["summary"]
             save_eval_config(eval_cfg, save_dir / "eval_config.json")
+            if cfg.run_bop_eval and cfg.rank == 0 and "bop19" in ds_name:
+                for method in sorted({"final", "depth_refiner"}.intersection(eval_out["pred_keys"])):
+                    bop_eval_cfgs.append(BOPEvalConfig(results_path=str(eval_out["results_path"]), dataset=ds_name,
+                                                       split="test", eval_dir=str(save_dir / "bop_evaluation"),
+                                                       method=method))
+    for bop_cfg in bop_eval_cfgs:  # the results CSV `run_eval` wrote beside results.npz
+        csv = Path(bop_cfg.results_path).parent / f"{bop_cfg.dataset.split('.')[0]}.csv"
+        result = run_bop_evaluation(csv, bop_cfg.eval_dir, bop_toolkit_dir=cfg.bop_toolkit_dir or None,
+                                    dummy=cfg.debug)
+        if result is not None:
+            logger.info("bop_toolkit on %s: rc=%d", csv, result.returncode)
     out_dir = Path(cfg.save_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "all_summaries.json").write_text(json.dumps(all_summaries, indent=2, default=str))

@@ -17,6 +17,7 @@ summaries as above. Errors on random poses: rtol 1e-5 (f32 sums in
 another order). The CSV: byte for byte the JAX writer's.
 """
 
+import dataclasses
 import json
 import re
 import shutil
@@ -35,6 +36,9 @@ from megapose6d_tpu.data.tensor_collection import PandasTensorCollection
 from megapose6d_tpu.evaluation import bop as jbop_csv
 from megapose6d_tpu.evaluation import meters as jmeters
 from megapose6d_tpu.evaluation import vsd as jvsd
+from megapose6d_tpu.evaluation.eval_config import EvalConfig as JEvalConfig
+from megapose6d_tpu.evaluation.eval_config import FullEvalConfig as JFullEvalConfig
+from megapose6d_tpu.evaluation.eval_config import apply_eval_overrides as japply_eval_overrides
 from megapose6d_tpu.evaluation.evaluation import load_predictions as jload_predictions
 from megapose6d_tpu.evaluation.runner import EvaluationRunner as JEvaluationRunner
 from megapose6d_tpu.meshes import MeshDataBase as JMeshDataBase
@@ -44,12 +48,13 @@ from megapose6d_tpu_torch.data.tensor_collection import TensorCollection, concat
 from megapose6d_tpu_torch.evaluation import bop as tbop_csv
 from megapose6d_tpu_torch.evaluation import meters as tmeters
 from megapose6d_tpu_torch.evaluation import vsd as tvsd
-from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig, apply_eval_overrides, get_save_dir
+from megapose6d_tpu_torch.evaluation.eval_config import EvalConfig, FullEvalConfig, apply_eval_overrides, get_save_dir
 from megapose6d_tpu_torch.evaluation.evaluation import load_predictions, run_eval, save_predictions
 from megapose6d_tpu_torch.evaluation.runner import EvaluationRunner
 from megapose6d_tpu_torch.meshes.mesh_db import MeshDataBase
 from megapose6d_tpu_torch.ops._precision import pin_f32
 from megapose6d_tpu_torch.scripts import run_eval as run_eval_cli
+from megapose6d_tpu_torch.scripts import run_full_eval
 from tests.test_evaluation import write_synthetic_bop
 
 pin_f32()
@@ -349,6 +354,74 @@ def test_eval_overrides():
     for bad in (["nope=1"], ["inference.nope=1"], ["n_frames"]):
         with pytest.raises(ValueError):
             apply_eval_overrides(EvalConfig(), bad)
+
+
+EVAL_DOTLISTS = [
+    [],
+    ["hardware.n_cpus=4", "hardware.n_chips=2", "debug=1", "result_id=abc", "n_dataloader_workers=3",
+     "global_batch_size=16", "n_frames=5", "inference.SO3_grid_size=72", "render_size=48,64", "skip_evaluation=true"],
+    ["run_bop_eval=1", "bop_toolkit_dir=/opt/bop_toolkit", "modelnet_categories=chair,mug", "ds_names=a.bop19,b",
+     "detection_coarse_types=gt:SO3_grid,detector:SO3_grid", "hardware.n_cpus=2", "debug=true"],
+    ['modelnet_categories=["bottle", "can"]', "world_size=2", "rank=1", "load_depth=1"],
+]
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["eval", "full_eval"])
+@pytest.mark.parametrize("argv", EVAL_DOTLISTS, ids=["defaults", "eval_keys", "full_keys", "lists"])
+def test_eval_overrides_match_jax(full, argv):
+    """Every field of the JAX package's configurations exists in the port
+    and takes the same value from the same dotlist (the inference
+    configuration: the fields the dotlist sets)."""
+    if not full and any(a.split("=")[0] in ("run_bop_eval", "bop_toolkit_dir", "modelnet_categories", "ds_names",
+                                            "detection_coarse_types") for a in argv):
+        with pytest.raises(ValueError):
+            apply_eval_overrides(EvalConfig(), argv)
+        return
+    j = japply_eval_overrides(JFullEvalConfig() if full else JEvalConfig(), argv)
+    t = apply_eval_overrides(FullEvalConfig() if full else EvalConfig(), argv)
+    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
+    for k, v in jd.items():
+        if k == "inference":
+            continue
+        assert k in td, k
+        assert td[k] == v or (isinstance(v, list) and [tuple(x) if isinstance(x, list) else x for x in td[k]]
+                              == [tuple(x) if isinstance(x, list) else x for x in v]), k
+    for a in argv:
+        if a.startswith("inference."):
+            f = a.split("=")[0].split(".")[1]
+            assert getattr(t.inference, f) == getattr(j.inference, f)
+
+
+def test_run_full_eval_scores_with_bop_toolkit(tmp_path):
+    """`run_bop_eval=1`: each BOP19 dataset's results CSV goes to
+    bop_toolkit's script, as the JAX sweep sends it (a stand-in script
+    records its arguments); without the toolkit nothing is scored."""
+    toolkit = tmp_path / "bop_toolkit"
+    (toolkit / "scripts").mkdir(parents=True)
+    for name in ("eval_bop19.py", "eval_bop19_dummy.py"):
+        (toolkit / "scripts" / name).write_text(
+            "import json, pathlib, sys\n"
+            f"pathlib.Path(sys.argv[sys.argv.index('--eval_path') + 1], '{name}.json').parent.mkdir(parents=True, "
+            "exist_ok=True)\n"
+            f"pathlib.Path(sys.argv[sys.argv.index('--eval_path') + 1], '{name}.json').write_text(json.dumps("
+            "sys.argv[1:]))\n")
+    key = "synthdemo.bop19/gt+SO3_grid"
+    seen = {}
+    for name in ("jax", "port", "port_no_toolkit"):
+        shutil.copytree(COMMITTED, tmp_path / name / key)
+        argv = ["ds_names=synthdemo.bop19", f"save_dir={tmp_path / name}", "skip_inference=1", "run_bop_eval=1",
+                "debug=1"] + ([] if name == "port_no_toolkit" else [f"bop_toolkit_dir={toolkit}"])
+        if name == "jax":
+            from megapose6d_tpu.scripts.run_full_eval import run_full_eval as jrun_full_eval
+
+            jrun_full_eval(japply_eval_overrides(JFullEvalConfig(), argv))
+        else:
+            run_full_eval.main(argv)
+        out = tmp_path / name / key / "bop_evaluation" / "eval_bop19_dummy.py.json"
+        seen[name] = json.loads(out.read_text()) if out.exists() else None
+    assert seen["port_no_toolkit"] is None
+    assert seen["jax"] is not None
+    assert [a.replace("/port/", "/jax/") for a in seen["port"]] == seen["jax"]
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,9 @@ The port builds its own copies of `decode.cc` and `meshproc.cc` into
     grey PNGs, and the JAX package's native decoder on JPEG;
   - without the native library, PNGs go through `utils/png.py` (its rows
     unfiltered by `unfilter.cc`, equal to its numpy unfilter on every
-    filter type, or by numpy without a compiler) and a JPEG raises;
+    filter type, or by numpy without a compiler) and a JPEG through
+    `jpeg.cc`, equal to the JAX package's native decoder (more in
+    `test_torch_jpeg.py`);
   - `simplify_mesh` and `meshes/io.simplify_vertex_clustering` equal the
     JAX package's native decimation vertex for vertex and face for face.
 The native tests skip, with a reason, where g++ (or libpng/libjpeg) is
@@ -82,13 +84,19 @@ def test_fallback_without_the_library(monkeypatch, unfilter_lib):
     elif native._load("unfilter") is None:
         pytest.skip("unfilter.cc did not build (no g++)")
     assert not native.available()
-    assert native.decoder() == ("png.py + unfilter.cc" if unfilter_lib == "built" else "png.py")
+    jpeg = ", jpeg.cc" if native._load("jpeg") is not None else ""
+    assert native.decoder() == ("png.py + unfilter.cc" if unfilter_lib == "built" else "png.py") + jpeg
     for kind in ("grey", "rgb", "rgba", "grey16"):
         data, arr = _encoded(kind, 7)
         np.testing.assert_array_equal(native.decode_image(data), arr)
         np.testing.assert_array_equal(native.decode_batch([data])[0], arr)
-    with pytest.raises(RuntimeError, match="JPEG"):
-        native.decode_image(_encoded("jpeg", 7)[0])
+    data = _encoded("jpeg", 7)[0]
+    if not jpeg:
+        with pytest.raises(RuntimeError, match="JPEG"):
+            native.decode_image(data)
+    elif jnative.available():
+        np.testing.assert_array_equal(native.decode_image(data), jnative.decode_image(data))
+        np.testing.assert_array_equal(native.decode_batch([data, data])[1], jnative.decode_image(data))
 
 
 @pytest.mark.skipif(shutil.which("g++") is None, reason="unfilter.cc needs g++")
