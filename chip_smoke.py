@@ -159,9 +159,12 @@ Phases, each printing one line with its wall time:
      with identity poses, K1 at the sharded shapes; run_training at
      runs/refiner_dr's settings for 3 steps in float32 as one NCCL rank
      and as two gloo rank processes on the card (`chip_smoke.py dp-worker
-     <run_id>`, every exit code checked): the first step's averaged
-     gradients and the parameters against the 1-rank run by phase 13's
-     own-move rule, one label-sharded step (synthdemo's objects, one
+     <run_id>`, every exit code checked, cuDNN's deterministic
+     algorithms): 2 ranks bit for bit the same half batches computed in
+     one process, the first step's averaged gradients and the parameters
+     against the 1-rank run by phase 13's own-move rule (with a line per
+     step for head_norm.bias and the tensor nearest its bound), one
+     label-sharded step (synthdemo's objects, one
      shard a rank), 2 dataset-fed steps (a loader per rank), which gloo
      collectives take CUDA tensors, each rank's
      bf16 step by part with the all-reduce's share, K1 at a rank's
@@ -192,14 +195,23 @@ Phases, each printing one line with its wall time:
      its poses bit for bit before and after; (g) `DeviceTimer` against the
      host clock, `profiling.trace` holding K1's launch,
      `resources.device_memory_stats`;
- 22. JPEG and TIFF frames: every committed fixture of
-     tests/data/torch_images (JPEGs of every sampling, progressive,
+ 22. image formats: every committed fixture of tests/data/torch_images
+     (PNGs of every layout libpng reads: palettes, tRNS, 1/2/4-bit grey,
+     grey with alpha, Adam7; JPEGs of every sampling, progressive,
      arithmetic coded, restarts, EXIF, Adobe RGB; TIFFs of every
      compression, both byte orders, 8 and 16 bits, tiles) decoded by
-     this machine's route (which
-     must be the port's own jpeg.cc, not libjpeg) alone and in a batch of
-     4 threads, each against hashes.json (made from PIL's decode); host ms
-     per frame at 240x320 and 480x640 and the batch rate;
+     this machine's route (which must be the port's own png.py and
+     jpeg.cc, not libpng and libjpeg) alone and in a batch of 4 threads,
+     each against hashes.json (libpng's decode for a PNG, PIL's for the
+     others); host ms per frame at 240x320 and 480x640 and the batch rate;
+     phase 4's request (build/weights' coarse_dr and refiner_dr exports
+     when there, else phase 4's seeded models) on the synthdemo models with
+     their textures as the committed PNGs (twice: the spread of two runs)
+     and as Adam7, tRNS, RGBA, palette and JPEG copies, each copy's
+     decode against its hash and the meshes' textures against its
+     to_rgb8, the lossless copies' textures, databases and poses against
+     the committed PNGs', the lossy ones' pose distance printed, K1's
+     launches on the path counted and held bit for bit;
      run_training train_datasets=synthdemo.bop19 at phase 19's refiner
      width (4 loader workers, 5 steps) on a copy of runs/ar_dr/synthdemo
      under build/ whose frames are the committed JPEG copies (quality 95,
@@ -210,6 +222,11 @@ Phases, each printing one line with its wall time:
      bit for bit and timed.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
+
+    python3 chip_smoke.py dp-repeat N
+runs phase 20's data-parallel check alone, N times as the phase runs it
+(cuDNN's deterministic algorithms) and N times with cuDNN's default ones,
+and counts the passes.
 """
 
 from __future__ import annotations
@@ -450,11 +467,12 @@ def phase_kernel_vs_plain(errors: list[float]) -> None:
               f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.3f}", flush=True)
 
 
-def scene_mesh_db(db_kw, device):
-    """The committed scene's models, with a run's mesh-database settings."""
+def scene_mesh_db(db_kw, device, models: Path = SCENE / "models"):
+    """The committed scene's models (or their copies in `models`), with a
+    run's mesh-database settings."""
     objects = RigidObjectDataset([
         RigidObject(label=p.stem, mesh_path=p, mesh_units="mm")
-        for p in sorted((SCENE / "models").glob("*.ply"))
+        for p in sorted(models.glob("*.ply"))
     ])
     return MeshDataBase.from_object_ds(
         objects, max_faces=db_kw["max_faces"], n_points=db_kw["n_points_mesh"], n_sym=db_kw["n_sym"],
@@ -2992,18 +3010,24 @@ def step0_grads(cfg, rank: int, world: int, scale: float = 1.0, halves: int = 1)
     return {n: g.float().cpu() for (n, _), g in zip(state.model.named_parameters(), grads)}
 
 
-def replay_training(cfg, scale: float, halves: int = 1) -> dict:
+def params_of(model) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def replay_training(cfg, scale: float, halves: int = 1) -> list[dict]:
     """`run_training`'s 1-rank steps replayed in this process, each batch's
     observations scaled by `scale`, each step's gradient the mean of its
     batch's `halves` parts (as `halves` ranks compute it, without the
-    all-reduce); the parameters after them."""
+    all-reduce); the parameters after each step."""
     db = run_training.synthetic_mesh_db(cfg, "cuda")
     synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
     state = tt.create_train_state(cfg, "cuda")
+    steps = []
     for step in range(DP_STEPS):
         grads = part_grads(state, cfg, synth, db, step, halves, scale)
         state.apply_gradients(grads, cfg.clip_grad_norm)
-    return {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+        steps.append(params_of(state.model))
+    return steps
 
 
 def part_grads(state, cfg, synth, db, step: int, halves: int, scale: float = 1.0) -> list:
@@ -3167,19 +3191,36 @@ def gloo_cuda_collectives(world: int) -> dict[str, str]:
 
 def dp_worker(argv: list[str]) -> int:
     """One rank of phase 20's data-parallel runs (`chip_smoke.py dp-worker
-    <run_id>`, with torchrun's variables set): `run_training` for 3 steps
-    and, with two ranks, one label-sharded step and 2 dataset-fed steps,
-    K1's launches counted;
-    then the first step's averaged gradients, the step by part and, on
-    rank 0 of two, K1 at the rank's launch shapes. Prints `DP_REPORT
-    <json>`."""
+    <run_id> [deterministic]`, with torchrun's variables set):
+    `run_training` for 3 steps, the parameters kept after each, and, with
+    two ranks, one label-sharded step and 2 dataset-fed steps, K1's
+    launches counted; then the first step's averaged gradients, on rank 0
+    of one the replays that measure the run's own move, the step by part
+    and, on rank 0 of two, K1 at the rank's launch shapes. With
+    `deterministic`, cuDNN runs its deterministic algorithms in all of it
+    but the step by part. Prints `DP_REPORT <json>`."""
     import torch.distributed as dist
 
-    run_id = argv[0]
+    run_id, deterministic = argv[0], argv[1:] == ["deterministic"]
     pin_f32()
     rt.visibility_kernel.library()
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    if deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    steps: list[dict] = []  # run_training's parameters after each step
+    apply = tt.TrainState.apply_gradients
+
+    def kept(self, *a, **k):
+        norm = apply(self, *a, **k)
+        steps.append(params_of(self.model))
+        return norm
+
+    tt.TrainState.apply_gradients = kept
     rt.visibility_kernel.launches = 0  # the data-parallel training path starts here
-    state = run_training.main(dp_args(run_id))
+    try:
+        state = run_training.main(dp_args(run_id))
+    finally:
+        tt.TrainState.apply_gradients = apply
     rank, world = dist.get_rank(), dist.get_world_size()
     cfg = load_config(DP_RUNS / run_id / "config.json")
     report = {"rank": rank, "world": world, "backend": dist.get_backend(), "steps": state.step,
@@ -3192,15 +3233,16 @@ def dp_worker(argv: list[str]) -> int:
         report["gloo_cuda"] = gloo_cuda_collectives(world)
     grads = step0_grads(cfg, rank, world)
     if rank == 0:
-        out = {"grads": grads}
+        out = {"grads": grads, "steps": steps}
         if world == 1:  # the 1-rank run's own moves: 1-ulp scalings, the replay, the batch in halves
             out["moves"] = [step0_grads(cfg, 0, 1, 1 + s * 2.0**-23) for s in (1, -1)]
             out["split"] = step0_grads(cfg, 0, 1, halves=2)
-            out["initial"] = {n: p.detach().cpu() for n, p in tt.create_train_state(cfg, "cuda").model.named_parameters()}
+            out["initial"] = params_of(tt.create_train_state(cfg, "cuda").model)
             out["replayed"] = replay_training(cfg, 1.0)
             out["param_moves"] = [replay_training(cfg, 1 + s * 2.0**-23) for s in (1, -1)]
             out["split_params"] = replay_training(cfg, 1.0, halves=2)
         torch.save(out, DP_RUNS / f"{run_id}_grads.pt")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     report["step"] = dp_step_times(load_config(ROOT / "runs/refiner_dr/config.json"), rank, world)
     if rank == 0 and world > 1:
         db = run_training.synthetic_mesh_db(cfg, "cuda")
@@ -3224,7 +3266,7 @@ def dp_worker(argv: list[str]) -> int:
     return 0
 
 
-def run_ranks(run_id: str, world: int) -> list[dict]:
+def run_ranks(run_id: str, world: int, deterministic: bool = False) -> list[dict]:
     """`world` rank processes of `dp_worker` on the card; every one must
     exit 0. Their reports, by rank."""
     import os
@@ -3234,7 +3276,7 @@ def run_ranks(run_id: str, world: int) -> list[dict]:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "dp-worker", run_id],
+        [sys.executable, str(ROOT / "chip_smoke.py"), "dp-worker", run_id] + ["deterministic"] * deterministic,
         env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                  MASTER_ADDR="localhost", MASTER_PORT=str(port)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
@@ -3259,31 +3301,45 @@ def run_ranks(run_id: str, world: int) -> list[dict]:
     return reports
 
 
-def dp_training(errors: list[float], shapes: dict) -> int:
-    """runs/refiner_dr's settings for 3 steps: one rank over NCCL, then two
-    rank processes on the one card over gloo (NCCL refuses two ranks on
-    one card), each step's global batch of 32 split 16 / 16. The first
-    step's averaged gradients are held to the 1-rank gradients within the
-    larger of 1e-4 of each tensor's largest entry and twice the tensor's
-    own move under a 1 +- 2^-23 scaling of the observations (phase 13's
-    rule), and, since the ranks run the 1-rank arithmetic on half
-    batches, that move also counts the batch computed in two halves in one
-    process (cuDNN takes other algorithms at 16 than at 32); to that
-    split computation the 2-rank run is held by the 1-ulp rule alone. The
-    parameters are held by the same rules on the norm of each tensor's
-    difference over the norm of its update (Adam turns a gradient entry
-    near 0 into a step of either sign), their own move being the 1-rank
-    steps replayed with the observations scaled by 1 +- 2^-23, unscaled
-    (the run-to-run spread of cuDNN's backward) and in halves.
+def dp_training(errors: list[float], shapes: dict, deterministic: bool = True) -> int:
+    """runs/refiner_dr's settings for 3 steps in float32 with cuDNN's
+    deterministic algorithms: one rank over NCCL, then two rank processes
+    on the one card over gloo (NCCL refuses two ranks on one card), each
+    step's global batch of 32 split 16 / 16. The 1-rank steps replayed in
+    this process must equal run_training's bit for bit, and the 2-rank
+    run the same half batches computed in one process (the first step's
+    averaged gradients and the parameters after every step): the ranks run
+    the 1-rank arithmetic on half batches, and the all-reduce's mean of two
+    is exact. The first step's averaged gradients are then held to the
+    1-rank gradients within the larger of 1e-4 of each tensor's largest
+    entry and twice the tensor's own move under a 1 +- 2^-23 scaling of
+    the observations (phase 13's rule), a move that also counts the batch
+    computed in two halves in one process (cuDNN takes other algorithms at
+    16 than at 32). The parameters are held by the same rules on the norm
+    of each tensor's difference over the norm of its update (Adam turns a
+    gradient entry near 0 into a step of either sign), their own move being
+    the 1-rank steps replayed with the observations scaled by 1 +- 2^-23,
+    unscaled and in halves. With `deterministic` False (`dp-repeat`'s
+    comparison) cuDNN takes its default algorithms, whose backward sums in
+    another order from run to run: now and then that moves a tensor's
+    update by a step of one size (head_norm.bias's by 2.171e-4 or
+    3.24e-4-3.42e-4 of its norm at step 3, where it otherwise moves by
+    1e-7-6e-7, in `dp-repeat` runs on an H100), which a replay samples
+    only when it happens there too (a check once failed so: 2.65e-4
+    against an own move of 2.35e-5); the bit-for-bit checks are then
+    skipped.
     One label-sharded step with the synthdemo objects over the two ranks;
     2 dataset-fed steps, each rank with a loader of its own (16 samples a
     batch, a stream of its own), the ranks' parameters equal after.
-    The step by part in bf16 (the run's dtype), the all-reduce's share."""
+    The step by part in bf16 (the run's dtype, cuDNN's default
+    algorithms), the all-reduce's share. Before the checks, per step:
+    head_norm.bias's gap and own move by part, and the tensor nearest its
+    bound."""
     shutil.rmtree(DP_RUNS, ignore_errors=True)
     DP_RUNS.mkdir(parents=True)
     torch.cuda.empty_cache()
-    one = run_ranks("w1", 1)
-    two = run_ranks("w2", 2)
+    one = run_ranks("w1", 1, deterministic)
+    two = run_ranks("w2", 2, deterministic)
     check(one[0]["backend"] == "nccl" and all(r["backend"] == "gloo" for r in two), "backends")
     check(all(r["steps"] == DP_STEPS for r in one + two), "steps")
     cfg = load_config(DP_RUNS / "w1" / "config.json")
@@ -3298,14 +3354,26 @@ def dp_training(errors: list[float], shapes: dict) -> int:
                                   map_location="cpu", weights_only=True)["params"]
     p1, p2 = load("w1"), load("w2")
     g1 = torch.load(DP_RUNS / "w1_grads.pt", weights_only=True)
-    g2 = torch.load(DP_RUNS / "w2_grads.pt", weights_only=True)["grads"]
+    w2 = torch.load(DP_RUNS / "w2_grads.pt", weights_only=True)
+    g2 = w2["grads"]
+    check(all(torch.equal(g[-1][n], p[n]) for g, p in ((g1["steps"], p1), (w2["steps"], p2)) for n in p),
+          "the parameters kept after the last step are not the checkpoint's")
     rel = lambda a, b: {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in b}  # noqa
     p0 = g1["initial"]
     # Adam turns a gradient entry near 0 into a step of either sign, so a
     # parameter's largest entry is no scale for its gap: its update is.
     upd = lambda a, b: {n: ((a[n] - b[n]).norm() / (b[n] - p0[n]).norm().clamp_min(1e-30)).item() for n in b}  # noqa
+    dp_step_gaps(g1, w2["steps"], upd, deterministic)
+    if deterministic:
+        same = lambda a, b: all(torch.equal(a[n], b[n]) for n in b)  # noqa: E731
+        check(all(same(r, p) for r, p in zip(g1["replayed"], g1["steps"])),
+              "the 1-rank steps replayed in this process differ from run_training's")
+        check(same(g2, g1["split"]) and all(same(a, b) for a, b in zip(w2["steps"], g1["split_params"])),
+              "2 ranks differ from the same half batches computed in one process")
+    last = {k: g1[k][-1] for k in ("replayed", "split_params")}  # the parameters after the last step
+    g1 = {**g1, **last, "param_moves": [m[-1] for m in g1["param_moves"]]}
     print(f"  1-rank steps replayed in-process vs run_training: worst {max(upd(g1['replayed'], p1).values()):.3g} "
-          f"of a tensor's update (cuDNN's backward need not sum in one order run to run)", flush=True)
+          f"of a tensor's update (0 with cuDNN's deterministic algorithms; {deterministic=})", flush=True)
     # Two ranks compute the 1-rank arithmetic on two half batches: held to
     # that in one process first, then to the 1-rank run, whose own move
     # counts the half batches (cuDNN picks other algorithms at 16 than at 32).
@@ -3354,6 +3422,32 @@ def dp_training(errors: list[float], shapes: dict) -> int:
     shapes.update(two[0]["shapes"])
     errors.append(two[0]["max_abs_err"])
     return launches
+
+
+def dp_step_gaps(g1: dict, steps2: list[dict], upd, deterministic: bool) -> None:
+    """Per step of the 3: head_norm.bias's gap between 2 ranks and 1 and
+    its own move by part (the replay, the 1 +- 2^-23 scalings, the halves),
+    the 2 ranks against the halves in one process, and the tensor whose gap
+    comes nearest the bound (the larger of 1e-4 and twice its own move);
+    with deterministic cuDNN, whether the replay equals run_training and
+    2 ranks the halves in one process bit for bit."""
+    name = "backbone.head_norm.bias"
+    for s, (p1, p2) in enumerate(zip(g1["steps"], steps2)):
+        parts = {"replay": g1["replayed"][s], "+ulp": g1["param_moves"][0][s], "-ulp": g1["param_moves"][1][s],
+                 "halves": g1["split_params"][s]}
+        gap, moves = upd(p2, p1), {k: upd(m, p1) for k, m in parts.items()}
+        own = {n: max(m[n] for m in moves.values()) for n in gap}
+        halves = upd(p2, parts["halves"])
+        near = max(gap, key=lambda n: gap[n] / max(1e-4, 2 * own[n]))
+        line = (f"  step {s + 1}: {name} gap {gap[name]:.4g}, own move {own[name]:.4g} ("
+                + ", ".join(f"{k} {m[name]:.4g}" for k, m in moves.items())
+                + f"), 2 ranks vs the halves in one process {halves[name]:.4g}; nearest its bound: {near} gap "
+                f"{gap[near]:.4g} / bound {max(1e-4, 2 * own[near]):.4g}")
+        if deterministic:
+            same = lambda a, b: all(torch.equal(a[n], b[n]) for n in b)  # noqa: E731
+            line += (f"; bit for bit: replay = run_training {same(parts['replay'], p1)}, 2 ranks = halves "
+                     f"{same(p2, parts['halves'])}")
+        print(line, flush=True)
 
 
 def eval_by_rank() -> int:
@@ -3987,8 +4081,9 @@ def array_hash(a: np.ndarray) -> str:
 
 
 def decode_fixtures() -> None:
-    """Every committed JPEG and TIFF fixture through this machine's route,
-    alone and in a batch of 4 threads, against its hash; host ms per frame."""
+    """Every committed PNG, JPEG and TIFF fixture through this machine's
+    route, alone and in a batch of 4 threads, against its hash (libpng's
+    decode for a PNG, PIL's for the others); host ms per frame."""
     from megapose6d_tpu_torch import native
 
     route = native.decoder()
@@ -4000,10 +4095,10 @@ def decode_fixtures() -> None:
     bad = [rel for rel, d in datas.items() if array_hash(native.decode_image(d)) != hashes[rel]]
     batch = native.decode_batch(list(datas.values()), n_threads=4)
     bad += [f"{rel} (batch)" for rel, a in zip(datas, batch) if array_hash(a) != hashes[rel]]
-    n_jpeg = sum(rel.endswith(".jpg") for rel in datas)
-    print(f"  {len(datas)} fixtures ({n_jpeg} JPEG, {len(datas) - n_jpeg} TIFF), alone and in a batch of 4 threads, "
-          f"against hashes.json: {len(bad)} differ {bad[:5]}", flush=True)
-    check(not bad, f"fixtures decode to other arrays than PIL's: {bad}")
+    n = Counter(rel.rsplit(".", 1)[1] for rel in datas)
+    print(f"  {len(datas)} fixtures ({n['png']} PNG, {n['jpg']} JPEG, {n['tif']} TIFF), alone and in a batch of 4 "
+          f"threads, against hashes.json: {len(bad)} differ {bad[:5]}", flush=True)
+    check(not bad, f"fixtures decode to other arrays than their reference decode's: {bad}")
     frame = datas["bop/synthdemo_jpg/test/000000/rgb/000000.jpg"]
     big = datas["jpeg/420_q95_480x640.jpg"]
     grey = datas["bop/itodd_gray/test/000000/gray/000000.tif"]
@@ -4017,6 +4112,122 @@ def decode_fixtures() -> None:
     print(f"  host ms per frame (this machine's CPU): 240x320 JPEG q95 4:2:0 {ms['jpeg_240x320']:.3f}, 480x640 JPEG "
           f"q95 4:2:0 {ms['jpeg_480x640']:.3f}, 240x320 grey Deflate TIFF {ms['tiff_240x320']:.3f}; decode_batch of "
           f"{len(bop)} 240x320 JPEGs in 4 threads: {rate:.1f} frames/s", flush=True)
+
+
+TEXTURED = BUILD_DIR / "texture_formats"
+# The committed copies of the synthdemo textures (tests/data/torch_images/
+# textures/<obj>_<format>); the first three hold the textures' own pixels.
+TEXTURE_FORMATS = ("adam7.png", "trns.png", "rgba.png", "palette.png", "q95.jpg")
+LOSSLESS = TEXTURE_FORMATS[:3]
+
+
+def texture_models(fmt: str) -> Path:
+    """The committed synthdemo models/ under build/, each PLY's `comment
+    TextureFile` line pointed at its texture's committed copy in `fmt`,
+    copied beside it; the PLY body untouched."""
+    out = TEXTURED / fmt.replace(".", "_")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(SCENE / "models", out)
+    for ply in sorted(out.glob("*.ply")):
+        name = f"{ply.stem}_{fmt}"
+        shutil.copy(IMAGES / "textures" / name, out / name)
+        head, end, body = ply.read_bytes().partition(b"end_header\n")
+        line = f"comment TextureFile {ply.stem}.png\n".encode()
+        check(line in head, f"{ply.name}: no {line!r}")
+        ply.write_bytes(head.replace(line, f"comment TextureFile {name}\n".encode()) + end + body)
+    return out
+
+
+def texture_formats(est, requests, db_kw, errors: list[float]) -> int:
+    """Phase 4's RGB request (576 / 5 / 5, resnet18-spatial, bf16,
+    240x320, 2 detections; build/weights' coarse_dr and refiner_dr exports
+    when there, else phase 4's seeded models) on a committed frame, with the
+    synthdemo models textured from the committed PNGs twice (the spread of
+    two runs) and from each copy of TEXTURE_FORMATS once, read by this
+    machine's route. Every copy decodes to its hash and gives the mesh its
+    to_rgb8; the lossless copies give the committed textures and mesh
+    databases, and poses within the two runs' spread; the lossy ones
+    finite poses, printed beside the committed textures'. K1's launches on
+    the path counted, each held bit for bit against the plain twin.
+    Returns the launches."""
+    from megapose6d_tpu_torch import native
+    from megapose6d_tpu_torch.utils.imaging import to_rgb8
+
+    t_start = time.perf_counter()
+    hashes = json.loads((IMAGES / "hashes.json").read_text())
+    trained = all((WEIGHTS / f).exists() for f in WEIGHT_FILES.values())
+    if trained:
+        coarse, refiner = (build_model(ROOT / f"runs/{run}", WEIGHTS / WEIGHT_FILES[run], None, device="cuda")
+                           for run in ("coarse_dr", "refiner_dr"))
+    else:
+        coarse, refiner = est.coarse_model, est.refiner_model
+    committed = {p.stem: mesh_io.load_ply(p).texture for p in sorted((SCENE / "models").glob("*.ply"))}
+    dbs = {"committed PNG": scene_mesh_db(db_kw, "cuda")}
+    decode_ms = {}
+    for fmt in TEXTURE_FORMATS:
+        models = texture_models(fmt)
+        for label, tex in committed.items():
+            rel = f"textures/{label}_{fmt}"
+            data = (IMAGES / rel).read_bytes()
+            decoded = native.decode_image(data)
+            check(array_hash(decoded) == hashes[rel], f"{rel}: decoded to another array than its hash")
+            got = mesh_io.load_ply(models / f"{label}.ply").texture
+            check(np.array_equal(got, to_rgb8(decoded)), f"{rel}: the mesh's texture is not its file's to_rgb8")
+            check(fmt not in LOSSLESS or np.array_equal(got, tex), f"{rel}: not the committed texture's pixels")
+            decode_ms[rel] = host_ms(lambda d=data: native.decode_image(d), 50)
+        dbs[fmt] = scene_mesh_db(db_kw, "cuda", models)
+        same_db = torch.equal(dbs[fmt].textures, dbs["committed PNG"].textures)
+        check(fmt not in LOSSLESS or same_db, f"{fmt}: the mesh database's textures differ from the committed PNGs'")
+        diff = (dbs[fmt].textures.float() - dbs["committed PNG"].textures.float()).abs()
+        print(f"  textures as {fmt}: {len(committed)} files equal their hashes, meshes their to_rgb8; mesh "
+              f"database textures {tuple(dbs[fmt].textures.shape)} equal the committed PNGs' {same_db} (max "
+              f"|diff| {diff.max().item():.0f} levels, mean {diff.mean().item():.3f}); host ms a 192x192 decode "
+              + ", ".join(f"{rel.split('/')[1]} {ms:.3f}" for rel, ms in decode_ms.items() if rel.endswith(fmt)),
+              flush=True)
+    obs, dets = requests[1]
+    runs = [("committed PNG", "committed PNG"), ("committed PNG, again", "committed PNG")] + [
+        (fmt, fmt) for fmt in TEXTURE_FORMATS]
+    poses, wall = {}, {}
+    captured: list = []
+    restore = record_visibility_inputs(captured)
+    rt.visibility_kernel.launches = 0  # the textured path starts here
+    try:
+        for name, db in runs:
+            pe = PoseEstimator(coarse, refiner, dbs[db], est.cfg, device="cuda")
+            t0 = time.perf_counter()
+            out, _ = pe.run_inference_pipeline(obs, dets)
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            poses[name] = out.poses.clone()
+    finally:
+        rt.visibility = restore
+    launches = rt.visibility_kernel.launches  # read right after the path
+    expected = len(runs) * len(launch_phases(len(dets), est.cfg))
+    print(f"  kernel launches on the textured path: {launches} (expected {expected}, "
+          f"{len(launch_phases(len(dets), est.cfg))} a request)", flush=True)
+    check(launches == expected, "the textured path did not launch K1 as expected")
+    worst = 0.0
+    for vis in captured:
+        errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
+        worst = max(worst, errors[-1])
+    print(f"  K1 on the textured path: {len(captured)} launches held against the plain twin, max_abs_err {worst:.3g}",
+          flush=True)
+    base = poses["committed PNG"]
+    gap = lambda name: (poses[name] - base).abs().max().item()  # noqa: E731
+    spread = gap("committed PNG, again")
+    weights = "trained (coarse_dr@5000, refiner_dr@24000)" if trained else "seeded (phase 4's)"
+    print(f"  weights: {weights}; two runs "
+          f"on the committed PNGs: poses differ by {spread:.3g} at most (the spread); {nvidia_smi()}", flush=True)
+    for fmt in TEXTURE_FORMATS:
+        P = poses[fmt]
+        check(tuple(P.shape) == tuple(base.shape) and bool(torch.isfinite(P).all()), f"{fmt}: bad poses")
+        deg = rot_deg(P, base).max().item()
+        mm = ((P[:, :3, 3] - base[:, :3, 3]).norm(dim=-1).max() * 1e3).item()
+        print(f"  textures as {fmt}: request {wall[fmt]:.4f} s; poses against the committed PNGs': max |diff| "
+              f"{gap(fmt):.3g}, {deg:.4g} deg, {mm:.4g} mm", flush=True)
+        check(fmt not in LOSSLESS or gap(fmt) <= spread, f"{fmt}: poses beyond the spread of two runs")
+    print(f"  the textured path took {time.perf_counter() - t_start:.1f} s of phase 22", flush=True)
+    return launches
 
 
 def bop_copy(frames: str) -> Path:
@@ -4097,13 +4308,15 @@ def format_kernel_shapes(roots: dict[str, Path], errors: list[float], shapes: di
         kernel_at(f"train_{frames}_refiner_B{captured[0][0].shape[0]}", captured, errors, shapes)
 
 
-def phase_image_formats(errors: list[float]) -> tuple[int, dict]:
-    """Phase 22: the fixtures decoded; run_training train_datasets= at
-    phase 19's refiner width on the synthdemo set with JPEG frames (5
-    steps) and on one scene of grey TIFF frames (5), K1's launches counted;
-    the loader's rate on PNG frames, JPEG frames and JPEG backgrounds; K1
-    at each format's launch."""
+def phase_image_formats(errors: list[float], est, requests, db_kw) -> tuple[dict[str, int], dict]:
+    """Phase 22: the fixtures decoded; phase 4's request on the synthdemo
+    models textured from each texture format (`texture_formats`);
+    run_training train_datasets= at phase 19's refiner width on the
+    synthdemo set with JPEG frames (5 steps) and on one scene of grey TIFF
+    frames (5), K1's launches counted; the loader's rate on PNG frames,
+    JPEG frames and JPEG backgrounds; K1 at each format's launch."""
     decode_fixtures()
+    textured = texture_formats(est, requests, db_kw, errors)
     roots = {"jpg": bop_copy("jpg"), "tif": bop_copy("tif")}
     shutil.rmtree(FORMAT_RUNS, ignore_errors=True)
     rt.visibility_kernel.launches = 0  # the JPEG and TIFF training path starts here
@@ -4132,7 +4345,7 @@ def phase_image_formats(errors: list[float]) -> tuple[int, dict]:
     format_loader_rates(roots["jpg"], list(db.labels), cfg)
     shapes: dict = {}
     format_kernel_shapes(roots, errors, shapes)
-    return launches, shapes
+    return {"texture_formats": textured, "train_jpeg_tiff": launches}, shapes
 
 
 def main() -> int:
@@ -4191,8 +4404,8 @@ def main() -> int:
         multi_launches, multi_shapes = phase_multi_device(errors)
     with Phase("scan renderer, FLOPs, visualization, long demos, preprocessing, utilities"):
         last_launches = phase_last_slice(est, requests, prod_est, prod_request)
-    with Phase("JPEG and TIFF frames"):
-        format_launches, format_shapes = phase_image_formats(errors)
+    with Phase("image formats: PNG layouts, textures, JPEG and TIFF frames"):
+        format_launches, format_shapes = phase_image_formats(errors, est, requests, db_kw)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
@@ -4210,14 +4423,14 @@ def main() -> int:
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
         + serve_launches + dataset_launches + sum(multi_launches.values()) + sum(last_launches.values())
-        + format_launches,
+        + sum(format_launches.values()),
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
                              "production": prod_launches, "demo_finalize": final_launches,
                              "scene_gen": gen_launches, "detector": det_launches,
                              "detector_serving": serve_launches, "train_datasets": dataset_launches,
-                             **multi_launches, **last_launches, "train_jpeg_tiff": format_launches},
+                             **multi_launches, **last_launches, **format_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,
@@ -4229,7 +4442,36 @@ def main() -> int:
     return 0
 
 
+def dp_repeat(n: int) -> int:
+    """Phase 20's data-parallel check `n` times as the phase runs it (cuDNN's
+    deterministic algorithms) and `n` times with cuDNN's default ones
+    (`chip_smoke.py dp-repeat <n>`): each check's lines, whether it passed,
+    and the counts."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    pin_f32()
+    print(f"  {torch.cuda.get_device_name(0)}; {nvidia_smi()}", flush=True)
+    rt.visibility_kernel.library()
+    passed = Counter()
+    for i in range(n):
+        for det in (True, False):
+            t0 = time.perf_counter()
+            try:
+                dp_training([], {}, deterministic=det)
+                result = "passed"
+                passed[det] += 1
+            except RuntimeError as e:  # a check of the phase failed: counted, and the loop goes on
+                result = f"failed: {e}"
+            print(f"DP_REPEAT {i} cudnn_deterministic={det}: {result} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"DP_REPEAT passes: deterministic cuDNN (the phase's check) {passed[True]} of {n}, default cuDNN "
+          f"{passed[False]} of {n}; {nvidia_smi()}", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dp-worker"]:  # one rank of phase 20's data-parallel runs
         sys.exit(dp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["dp-repeat"]:  # phase 20's data-parallel check in a loop
+        sys.exit(dp_repeat(int(sys.argv[2])))
     sys.exit(main())

@@ -253,17 +253,6 @@ class DepthBackgroundDropoutTransform(SceneObservationTransform):
 # ---------------------------------------------------------------------------
 
 
-def _read_rgb(path: str | Path) -> np.ndarray:
-    """An image file as uint8 RGB (PIL's `convert("RGB")` of grey, grey with
-    alpha, RGB and RGBA)."""
-    img = decode_image(Path(path).read_bytes())
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: only 8-bit images can be backgrounds")
-    if img.ndim == 2:
-        img = img[..., None]
-    return np.repeat(img[..., :1], 3, axis=-1) if img.shape[-1] in (1, 2) else img[..., :3]
-
-
 class ReplaceBackgroundTransform(SceneObservationTransform):
     """Pixels outside every object's mask from a random image of
     `image_paths`, resized bicubically (PIL's default) to the frame."""
@@ -277,7 +266,8 @@ class ReplaceBackgroundTransform(SceneObservationTransform):
         if obs.segmentation is None:
             raise ValueError("background replacement needs the observation's segmentation")
         H, W = obs.rgb.shape[:2]
-        bg = imaging.resize(_read_rgb(random.choice(self.image_paths)), (H, W), "bicubic")
+        bg = imaging.resize(imaging.to_rgb8(decode_image(Path(random.choice(self.image_paths)).read_bytes())),
+                          (H, W), "bicubic")
         rgb = np.array(obs.rgb)
         m = obs.segmentation == 0
         rgb[m] = bg[m]

@@ -2,7 +2,8 @@
 
 Counterpart of `megapose6d_tpu/meshes/io.py`: PLY and OBJ meshes with
 vertex colours or a texture image (`comment TextureFile` of a BOP PLY, the
-`map_Kd` of an OBJ's material), read by the port's own PNG decoder.
+`map_Kd` of an OBJ's material) in any format `native.decode_image` reads
+(PNG, JPEG, TIFF), converted to RGB as PIL's `convert("RGB")` converts it.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from pathlib import Path
 
 import numpy as np
 
-from ..utils.png import read_png, write_png
+from .. import native
+from ..utils.imaging import to_rgb8
+from ..utils.png import write_png
 
 
 @dataclasses.dataclass
@@ -175,14 +178,8 @@ def load_ply(path: str | Path) -> TriMesh:
 
 
 def _read_rgb(path: Path) -> np.ndarray:
-    """A texture image as `[H, W, 3]` uint8 (grey replicated, alpha
-    dropped, as PIL's `convert("RGB")`)."""
-    img = read_png(path)
-    if img.dtype != np.uint8:
-        raise ValueError(f"texture must be an 8-bit image: {path}")
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
+    """A texture image as `[H, W, 3]` uint8, as PIL's `convert("RGB")`."""
+    return to_rgb8(native.decode_image(path.read_bytes()))
 
 
 def _extract_vertex_cols(arr, cols):

@@ -19,6 +19,8 @@ operations, in the same order, and return the same arrays:
   - `luma` (`convert("L")`, ITU-R 601-2 in 16-bit fixed point) and
     `blend` (`Image.blend`: float32, truncated toward zero, clipped when
     extrapolating).
+  - `to_rgb8` (`convert("RGB")` of a decoded image): grey replicated,
+    alpha dropped, 16-bit grey clipped to 255.
 """
 
 from __future__ import annotations
@@ -215,3 +217,17 @@ def blend(degenerate: np.ndarray, img: np.ndarray, alpha: float) -> np.ndarray:
     if 0.0 <= a <= 1.0:
         return np.trunc(v).astype(np.uint8)
     return _clip8(v)
+
+
+def to_rgb8(img: np.ndarray) -> np.ndarray:
+    """What `Image.open(path).convert("RGB")` gives, from the array
+    `native.decode_image` gives for the same file: `[H, W]` grey and
+    `[H, W, 2]` grey with alpha replicated, RGBA's alpha dropped, 16-bit grey
+    clipped to 255 (as Pillow converts mode "I;16"). `[H, W, 3]` uint8."""
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.dtype == np.uint16 and img.shape[-1] == 1:
+        img = np.minimum(img, 255).astype(np.uint8)
+    if img.dtype != np.uint8 or img.shape[-1] not in (1, 2, 3, 4):
+        raise ValueError(f"not a decoded 8-bit or 16-bit grey image: {img.shape} {img.dtype}")
+    return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1) if img.shape[-1] < 3 else img[..., :3])

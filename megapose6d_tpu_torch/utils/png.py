@@ -2,10 +2,13 @@
 
 The JAX package decodes images through libpng (`native/decode.cc`) or
 PIL and writes them through PIL; the port's machines may have neither, so
-it reads the PNGs of the BOP datasets itself: non-interlaced grey, RGB and
-RGBA at 8 bits and grey at 16 bits, with all five row filters. Anything
-else is refused. `encode_png` writes 8-bit grey and RGB and 16-bit grey
-(BOP depth in millimetres), every row with the Up filter.
+it reads PNGs itself, to the arrays libpng gives as `decode.cc` configures
+it (`decode_png`): every colour type at 1 to 8 bits and grey at 16,
+Adam7-interlaced or not, with all five row filters; palettes expanded to
+RGB, 1/2/4-bit grey scaled to 8 bits and a tRNS chunk turned into an alpha
+channel. 16-bit colour is refused, as `decode.cc` refuses it, and so is
+what libpng refuses as malformed. `encode_png` writes 8-bit grey and RGB
+and 16-bit grey (BOP depth in millimetres), every row with the Up filter.
 
 Unfiltering is vectorised. A pixel's byte depends only on its left, upper
 and upper-left neighbours, so the image is reconstructed one anti-diagonal
@@ -22,8 +25,12 @@ from pathlib import Path
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# (colour type, bit depth) -> channels.
-_FORMATS = {(0, 8): 1, (0, 16): 1, (2, 8): 3, (6, 8): 4}
+# Colour type -> (samples per pixel, the bit depths PNG allows for it):
+# grey, RGB, palette indices, grey with alpha, RGBA.
+_COLOUR = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7: the (x0, y0, dx, dy) of each of the seven passes.
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_MAX_SIDE = 1_000_000  # libpng's default limit on the width and the height
 
 
 def read_png(path: str | Path) -> np.ndarray:
@@ -62,49 +69,137 @@ def write_png(path: str | Path, img: np.ndarray) -> Path:
     return path
 
 
-def decode_png(data: bytes, unfilter_rows=None) -> np.ndarray:
-    """PNG bytes -> `[H, W]` (grey) or `[H, W, C]` (RGB, RGBA) array,
-    `uint8`, or `uint16` for 16-bit grey. The same arrays as
-    `np.asarray(PIL.Image.open(...))`. `unfilter_rows` replaces `unfilter`
-    (`native.unfilter`, the same bytes in C)."""
+def _chunks(data: bytes) -> tuple[tuple, bytes | None, bytes | None, bytes]:
+    """IHDR's fields, the palette and tRNS bodies that apply (else None)
+    and the image data, read as libpng reads a file up to the end of its
+    first run of IDAT chunks (`png_read_info`, then the rows; nothing after
+    the run is read). A critical chunk with a bad CRC, an unknown critical
+    chunk, a second IHDR or PLTE, a palette image without a PLTE before its
+    data and a PLTE libpng cannot use raise ValueError; an ancillary chunk
+    with a bad CRC, a misplaced or invalid tRNS and a second tRNS are
+    ignored, as libpng ignores them."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos < len(data):
+    pos, header, plte, trns, idat = 8, None, None, None, []
+    seen_plte = seen_trns = False
+    while pos + 8 <= len(data):
         (n,) = struct.unpack(">I", data[pos : pos + 4])
         kind = data[pos + 4 : pos + 8]
-        body = data[pos + 8 : pos + 8 + n]
+        if idat and kind != b"IDAT":
+            break  # the end of the image data
+        body, crc = data[pos + 8 : pos + 8 + n], data[pos + 8 + n : pos + 12 + n]
         pos += 12 + n
+        if len(crc) < 4:
+            raise ValueError(f"PNG chunk {kind!r} cut short")
+        critical = not kind[0] & 0x20
+        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+            if critical:
+                raise ValueError(f"PNG chunk {kind!r}: CRC error")
+            continue
+        if header is None and kind != b"IHDR":
+            raise ValueError("PNG without IHDR first")
         if kind == b"IHDR":
+            if header is not None or n != 13:
+                raise ValueError("PNG with a bad IHDR")
             header = struct.unpack(">IIBBBBB", body)
+            W, H, depth, colour, compression, filt, interlace = header
+            if (colour not in _COLOUR or depth not in _COLOUR[colour][1] or compression or filt or interlace > 1
+                    or not 0 < W <= _MAX_SIDE or not 0 < H <= _MAX_SIDE):
+                raise ValueError(f"PNG with an invalid IHDR {header}")
+        elif kind == b"PLTE":
+            if seen_plte:
+                raise ValueError("PNG with two PLTE chunks")
+            seen_plte = True
+            if colour & 2:  # a grey image ignores its PLTE
+                if n == 0 or (colour == 3 and (n % 3 or n > 768)):
+                    raise ValueError(f"PNG with an invalid palette of {n} bytes")
+                if n % 3 == 0 and n <= 768:  # else RGB's suggested palette, ignored
+                    plte = body[: 3 * (1 << depth)] if colour == 3 else body
+                    trns = None  # a tRNS before the PLTE is cancelled
+        elif kind == b"tRNS":
+            valid = {0: n == 2, 2: n == 6, 3: plte is not None and 0 < n <= len(plte) // 3}.get(colour, False)
+            if valid and not seen_trns:
+                trns, seen_trns = body, True
         elif kind == b"IDAT":
+            if colour == 3 and plte is None:
+                raise ValueError("PNG palette image without a PLTE before its data")
             idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None or not idat:
+        elif critical:
+            raise ValueError(f"PNG with an unexpected critical chunk {kind!r}")
+    if not idat:
         raise ValueError("PNG without IHDR or IDAT")
-    W, H, depth, colour, compression, filt, interlace = header
-    if interlace != 0:
-        raise ValueError("interlaced PNGs are not supported")
-    if (colour, depth) not in _FORMATS or compression != 0 or filt != 0:
-        raise ValueError(
-            f"unsupported PNG: colour type {colour}, bit depth {depth} "
-            "(grey, RGB, RGBA at 8 bits and grey at 16 bits are)"
-        )
-    channels = _FORMATS[(colour, depth)]
-    bpp = channels * depth // 8  # bytes per pixel
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != H * (1 + W * bpp):
-        raise ValueError("PNG data has the wrong size")
-    raw = raw.reshape(H, 1 + W * bpp)
-    ftype = raw[:, 0]
-    if (ftype > 4).any():
-        raise ValueError(f"bad PNG row filter {int(ftype.max())}")
-    pixels = (unfilter_rows or unfilter)(raw[:, 1:].reshape(H, W, bpp), ftype)
+    return header, plte, trns, b"".join(idat)
+
+
+def _unpack(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows `[h, rowbytes]` -> samples `[h, w, channels]`
+    (uint16 at 16 bits; sub-byte samples MSB first, unscaled)."""
+    h = rows.shape[0]
     if depth == 16:
-        pixels = pixels.view(">u2").astype(np.uint16)
-    pixels = pixels.reshape(H, W, channels)
-    return pixels[..., 0] if channels == 1 else pixels
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, channels)
+    if depth == 8:
+        return rows.reshape(h, w, channels)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w, None]
+
+
+def decode_png(data: bytes, unfilter_rows=None) -> np.ndarray:
+    """PNG bytes -> the array libpng gives as `decode.cc` configures it:
+    `[H, W]` grey, `[H, W, 2]` grey with alpha, `[H, W, 3]` RGB or
+    `[H, W, 4]` RGBA, `uint8`, or `[H, W]` `uint16` for 16-bit grey.
+    Palettes are expanded to RGB (an index past the palette's end is black),
+    1/2/4-bit grey is scaled to 8 bits, and a tRNS chunk adds an alpha
+    channel (0 where a pixel equals its colour, for palettes its entries
+    and 255 past them); at 16 bits tRNS is not applied. Adam7 images are
+    de-interlaced. `unfilter_rows` replaces `unfilter` (`native.unfilter`,
+    the same bytes in C); a sub-byte row is unfiltered byte by byte."""
+    (W, H, depth, colour, _, _, interlace), plte, trns, stream = _chunks(data)
+    if depth == 16 and colour != 0:
+        raise ValueError(f"unsupported PNG: colour type {colour} at 16 bits (grey is read at 16 bits)")
+    try:
+        raw = np.frombuffer(zlib.decompress(stream), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from e
+    channels = _COLOUR[colour][0]
+    bits = channels * depth
+    unit = max(1, bits // 8)  # the filters' byte distance
+    samples = np.empty((H, W, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        w, h = -(-(W - x0) // dx), -(-(H - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue  # an empty pass has no rows
+        rowbytes = -(-w * bits // 8)
+        if raw.size < pos + h * (1 + rowbytes):
+            raise ValueError("PNG image data cut short")
+        rows = raw[pos : pos + h * (1 + rowbytes)].reshape(h, 1 + rowbytes)
+        pos += h * (1 + rowbytes)
+        ftype = rows[:, 0]
+        if (ftype > 4).any():
+            raise ValueError(f"bad PNG row filter {int(ftype.max())}")
+        rows = (unfilter_rows or unfilter)(rows[:, 1:].reshape(h, rowbytes // unit, unit), ftype)
+        samples[y0::dy, x0::dx] = _unpack(rows.reshape(h, rowbytes), w, channels, depth)
+    if depth == 16:
+        return samples[..., 0]
+    alpha = None
+    if trns is not None:
+        if colour == 3:
+            table = np.full(256, 255, np.uint8)
+            table[: len(trns)] = np.frombuffer(trns, np.uint8)
+            alpha = table[samples[..., 0]]
+        else:  # the tRNS colour, cut to the bit depth as libpng cuts it
+            key = np.array(struct.unpack(f">{channels}H", trns)) & ((1 << depth) - 1)
+            alpha = np.where((samples == key).all(-1), 0, 255).astype(np.uint8)
+    if colour == 3:
+        palette = np.zeros((256, 3), np.uint8)
+        palette[: len(plte) // 3] = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+        samples = palette[samples[..., 0]]
+    elif depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    if alpha is not None:
+        samples = np.concatenate([samples, alpha[..., None]], -1)
+    return samples[..., 0] if samples.shape[-1] == 1 else samples
 
 
 def unfilter(filtered: np.ndarray, ftype: np.ndarray) -> np.ndarray:

@@ -12,8 +12,8 @@ transform under the same seeds, bit for bit (the tolerance PR 11 held the
 bicubic resize to), and so do the batches of `PoseBatchFactory(...,
 background_paths=)` and the JAX package's `PoseDataset(...,
 apply_background_augmentation=True)` over the JPEG frames. `tests/data/torch_images/hashes.json` equals PIL's
-decode of every committed fixture, the port decodes each to its hash, and
-the fixtures stay within 1.5 MB.
+decode of every committed JPEG and TIFF fixture and libpng's of every PNG,
+the port decodes each to its hash, and the fixtures stay within 1.5 MB.
 """
 
 import json
@@ -35,7 +35,7 @@ from megapose6d_tpu_torch.data.bop_scene_dataset import BOPDataset
 from megapose6d_tpu_torch.data.loader import PoseBatchFactory
 from tests.test_torch_augmentations import _apply, _obs_pair, _same
 from tests.test_torch_datasets_cfg import _same_frames
-from tests.torch_image_fixtures import OUT, SYNTHDEMO, array_hash, pil_decode
+from tests.torch_image_fixtures import OUT, SYNTHDEMO, array_hash, reference_decode
 
 HASHES = json.loads((OUT / "hashes.json").read_text())
 needs_gxx = pytest.mark.skipif(shutil.which("g++") is None, reason="jpeg.cc needs g++")
@@ -135,10 +135,13 @@ def test_factory_with_jpeg_backgrounds_matches_jax(tmp_path, monkeypatch):
 
 
 def test_committed_hashes_equal_pil_decode():
+    """PIL's decode for a JPEG or TIFF, libpng's (the JAX package's native
+    decoder) for a PNG, as `tests/torch_image_fixtures.reference_decode`."""
     files = sorted(p for p in OUT.rglob("*") if p.is_file() and p.name != "hashes.json")
     assert sorted(HASHES) == [str(p.relative_to(OUT)) for p in files]
     for p in files:
-        assert array_hash(pil_decode(p.read_bytes())) == HASHES[str(p.relative_to(OUT))], p
+        rel = str(p.relative_to(OUT))
+        assert array_hash(reference_decode(rel, p.read_bytes())) == HASHES[rel], p
     assert sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file()) <= 1.5e6
 
 

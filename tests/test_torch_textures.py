@@ -11,25 +11,43 @@ difference by the texture size (256) and the texel gradient (up to 1 per
 texel), so the last-bit differences of XLA's and torch's phase-A
 arithmetic (1/z off by ~2e-7 at a few pixels) reach ~2e-4 in rgb on the
 committed models; on the checker quad the renders agree within 1e-4.
+
+Textures in every format the JAX package opens through PIL's
+`convert("RGB")`: each PNG layout of `tests/data/torch_images/png`
+(palettes, tRNS, 1/2/4-bit grey, grey with alpha, Adam7), the synthdemo
+textures as Adam7, tRNS, RGBA, palette and JPEG files, a grey TIFF and
+16-bit grey (clipped to 255), read by `load_ply` and `load_obj` (baked and
+not) with the native decoder built and forced off: texture arrays and baked
+colours bit for bit the JAX package's. Palette and grey-with-alpha
+backgrounds through `ReplaceBackgroundTransform` likewise.
 """
 
 from pathlib import Path
 
-import jax.numpy as jnp
 import json
+import random
+import shutil
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
+from megapose6d_tpu.data import augmentations as ja
 from megapose6d_tpu.meshes import io as jio
 from megapose6d_tpu.meshes import mesh_db as jdb
 from megapose6d_tpu.ops import rasterizer_tiled as jrt
+from megapose6d_tpu_torch import native
+from megapose6d_tpu_torch.data import augmentations as ta
 from megapose6d_tpu_torch.meshes import io as tio
 from megapose6d_tpu_torch.meshes import mesh_db as tdb
 from megapose6d_tpu_torch.ops import rasterizer_tiled as trt
 from megapose6d_tpu_torch.ops._precision import pin_f32
+from megapose6d_tpu_torch.utils.png import encode_png
 from tests.test_textures import _expected_checker, make_checker, make_textured_quad
+from tests.test_torch_augmentations import _apply, _obs_pair, _same
+from tests.torch_image_fixtures import OUT
 
 pin_f32()
 SCENE = Path(__file__).resolve().parents[1] / "runs/ar_dr/synthdemo"
@@ -238,3 +256,70 @@ def test_synthdemo_textured_render_matches_jax():
     assert err.max() <= 5e-4, err.max()
     assert (err <= 1e-4).mean() >= 0.999, (err <= 1e-4).mean()
     np.testing.assert_allclose(jo["depth"][hit], to["depth"][hit], rtol=1e-6)
+
+
+# Every texture format: the committed PNG layouts and texture copies, a
+# grey TIFF, 16-bit grey as TIFF and as PNG (written here, with values
+# above 255).
+TEXTURES = sorted(str(p.relative_to(OUT)) for d in ("png", "textures") for p in (OUT / d).iterdir()) + [
+    "tiff/grey8.tif", "tiff/grey16_deflate.tif", "grey16.png"]
+
+
+def _texture_file(tmp_path, rel):
+    dst = tmp_path / Path(rel).name
+    if rel == "grey16.png":
+        ramp = np.arange(24 * 32, dtype=np.uint16).reshape(24, 32) * 83
+        dst.write_bytes(encode_png(ramp))
+    else:
+        shutil.copy(OUT / rel, dst)
+    return dst.name
+
+
+@pytest.mark.parametrize("route", ["default", "png.py"])
+@pytest.mark.parametrize("rel", TEXTURES)
+def test_ply_texture_formats_match_jax(tmp_path, monkeypatch, rel, route):
+    """The committed synthdemo PLY, its `comment TextureFile` pointed at a
+    texture of each format."""
+    name = _texture_file(tmp_path, rel)
+    ply = (SCENE / "models/obj_000001.ply").read_text()
+    assert "comment TextureFile obj_000001.png\n" in ply
+    (tmp_path / "m.ply").write_text(ply.replace("TextureFile obj_000001.png", f"TextureFile {name}"))
+    if route == "png.py":
+        monkeypatch.setitem(native._libs, "decode", None)
+    a, b = jio.load_ply(tmp_path / "m.ply"), tio.load_ply(tmp_path / "m.ply")
+    assert b.texture is not None and b.texture.shape[2] == 3
+    assert_same_mesh(a, b)
+
+
+@pytest.mark.parametrize("bake", [True, False])
+@pytest.mark.parametrize("rel", TEXTURES)
+def test_obj_texture_formats_match_jax(tmp_path, rel, bake):
+    name = _texture_file(tmp_path, rel)
+    (tmp_path / "m.mtl").write_text(f"newmtl m\nmap_Kd {name}\n")
+    (tmp_path / "q.obj").write_text(
+        "mtllib m.mtl\n"
+        "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\n"
+        "vt 0.1 0.2\nvt 0.9 0.15\nvt 0.7 0.8\nvt 0.05 0.95\n"
+        "f 1/1 2/2 3/3\nf 1/1 3/3 4/4\n"
+    )
+    a = jio.load_obj(tmp_path / "q.obj", bake_texture=bake)
+    b = tio.load_mesh(tmp_path / "q.obj", bake_texture=bake)
+    assert (b.texture is None) == bake and (b.vertex_colors is None) != bake
+    assert_same_mesh(a, b)
+
+
+@pytest.mark.parametrize("route", ["default", "png.py"])
+def test_palette_and_grey_alpha_backgrounds_match_jax(monkeypatch, route):
+    paths = [OUT / "png" / n for n in ("palette8_48x64.png", "palette4_32x40.png", "palette8_trns_40x48.png",
+                                       "adam7_palette2_trns_29x43.png", "grey_alpha_48x64.png",
+                                       "grey1_trns_64x64.png")]
+    if route == "png.py":
+        monkeypatch.setitem(native._libs, "decode", None)
+    seen = set()
+    for seed in range(12):
+        jo, to = _obs_pair(seed)
+        random.seed(seed)
+        seen.add(random.choice(paths))
+        _same(_apply(ja.ReplaceBackgroundTransform(paths), jo, seed),
+              _apply(ta.ReplaceBackgroundTransform(paths), to, seed))
+    assert len(seen) >= 4

@@ -19,7 +19,14 @@ quantisation tables; and `encode_tiff`, a TIFF writer in either byte order,
 in strips or tiles, with any of the four compressions, the predictor and
 WhiteIsZero. Their files are valid: PIL and libjpeg read them.
 
-`hashes.json` maps each file to `array_hash` of PIL's decode (the same
+The PNGs (`png/`, one small image per colour type, bit depth, tRNS and
+interlace that libpng reads, and `textures/`, the committed synthdemo
+textures as Adam7, tRNS, RGBA and palette PNGs beside a JPEG copy) come
+from `encode_png_any`, a writer of every PNG layout with every row filter.
+
+`hashes.json` maps each file to `array_hash` of its reference decode: the
+JAX package's native decoder (libpng) for a PNG, since PIL returns a
+palette image's indices, and PIL's decode for a JPEG or TIFF (the same
 arrays as the JAX package's native decoder, where it decodes); the tests
 and `chip_smoke.py` hold the port's decode to it.
 """
@@ -44,6 +51,8 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests/data/torch_images"
 SYNTHDEMO = ROOT / "runs/ar_dr/synthdemo"
 ITODD_SCENE = "000000"  # the scene whose frames are written as grey TIFFs
+TEXTURES = ROOT / "runs/ar_baseline/synthdemo/models"  # obj_000001.png, obj_000002.png (192x192 RGB)
+TEXTURE_FORMATS = ("adam7.png", "trns.png", "rgba.png", "palette.png", "q95.jpg")  # textures/<obj>_<format>
 
 
 def array_hash(a: np.ndarray) -> str:
@@ -411,6 +420,73 @@ def encode_tiff(img: np.ndarray, compression: int = 1, order: str = "<", predict
 
 
 # ---------------------------------------------------------------------------
+# PNG: a writer of every colour type, bit depth and interlace
+# ---------------------------------------------------------------------------
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def _filter_rows(raw: np.ndarray, unit: int, ftype: np.ndarray) -> np.ndarray:
+    """PNG's row filters applied to `raw [H, rowbytes]` (each row its type
+    of `ftype`): the filtered bytes, each row led by its type byte."""
+    raw = raw.astype(np.int64)
+    out = np.zeros((raw.shape[0], 1 + raw.shape[1]), np.uint8)
+    for y, t in enumerate(ftype):
+        row = raw[y]
+        up = raw[y - 1] if y else np.zeros_like(row)
+        a = np.concatenate([np.zeros(unit, np.int64), row[:-unit]])
+        c = np.concatenate([np.zeros(unit, np.int64), up[:-unit]])
+        pa, pb, pc = np.abs(up - c), np.abs(a - c), np.abs(a + up - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, up, c))
+        pred = [np.zeros_like(row), a, up, (a + up) >> 1, paeth][t]
+        out[y, 0] = t
+        out[y, 1:] = (row - pred) % 256
+    return out
+
+
+def encode_png_any(samples: np.ndarray, colour: int, depth: int, palette: np.ndarray | None = None,
+                   trns: bytes | None = None, interlace: int = 0, seed: int = 0, ftype: int | None = None) -> bytes:
+    """`samples` (`[H, W]` for grey and palette indices, `[H, W, C]`
+    otherwise, each below 2^depth) -> PNG bytes of colour type `colour` at
+    `depth` bits: sub-byte rows packed MSB first, `palette [N, 3]` as PLTE,
+    `trns` as the tRNS chunk's body, Adam7 when `interlace`, every row with
+    the filter type `ftype`, or one drawn from `seed`."""
+    samples = np.asarray(samples).reshape(samples.shape[0], samples.shape[1], -1)
+    H, W, C = samples.shape
+    unit = max(1, C * depth // 8)
+    rng = np.random.RandomState(seed)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    data = bytearray()
+    for x0, y0, dx, dy in passes:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        h, w = sub.shape[:2]
+        if depth == 16:
+            rows = sub.astype(">u2").view(np.uint8).reshape(h, -1)
+        elif depth == 8:
+            rows = sub.astype(np.uint8).reshape(h, -1)
+        else:
+            per = 8 // depth
+            flat = np.zeros((h, -(-w * C // per) * per), np.int64)
+            flat[:, : w * C] = sub.reshape(h, -1)
+            shifts = 8 - depth * (1 + np.arange(per))
+            rows = (flat.reshape(h, -1, per) << shifts).sum(-1).astype(np.uint8)
+        data += _filter_rows(rows, unit, rng.randint(0, 5, h) if ftype is None else np.full(h, ftype)).tobytes()
+    out = b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, colour, 0, 0, interlace))
+    if palette is not None:
+        out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += png_chunk(b"tRNS", trns)
+    return out + png_chunk(b"IDAT", zlib.compress(bytes(data))) + png_chunk(b"IEND", b"")
+
+
+# ---------------------------------------------------------------------------
 # The committed fixtures
 # ---------------------------------------------------------------------------
 
@@ -495,7 +571,97 @@ def fixtures() -> dict[str, bytes]:
         if scene == ITODD_SCENE:
             out[f"bop/itodd_gray/test/{scene}/gray/{path.stem}.tif"] = _pil_tiff(
                 _grey(img), compression="tiff_adobe_deflate")
+    return {**out, **png_cases(), **texture_copies()}
+
+
+def _texture(i: int) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(TEXTURES / f"obj_00000{i}.png").convert("RGB"))
+
+
+def _quantized(img: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's median cut of `img` to at most `n` colours, undithered: the
+    indices `[H, W]` and the palette `[K, 3]` they use."""
+    from PIL import Image
+
+    q = Image.fromarray(img).quantize(n, dither=Image.Dither.NONE)
+    idx = np.asarray(q)
+    return idx, np.asarray(q.getpalette(), np.uint8).reshape(-1, 3)[: int(idx.max()) + 1]
+
+
+def _commonest(values: np.ndarray) -> np.ndarray:
+    """The most frequent value (row of the last axis) of `values`."""
+    flat = values.reshape(-1, values.shape[-1]) if values.ndim > 2 else values.reshape(-1, 1)
+    uniq, counts = np.unique(flat, axis=0, return_counts=True)
+    return uniq[counts.argmax()]
+
+
+def png_cases() -> dict[str, bytes]:
+    """`png/<case>.png`: one small image (24x32 to 64x64, cut from the
+    committed textures) per layout that libpng reads and `decode.cc`
+    expands: palette at 8, 4 and (Adam7, with tRNS) 2 bits, tRNS on
+    palette, RGB and grey, grey at 1, 2 and 4 bits with and without tRNS,
+    grey with alpha, Adam7 RGB and Adam7 1-bit grey."""
+    t1, t2 = _texture(1), _texture(2)
+    rgb = np.ascontiguousarray(t1[20:68, 40:104])  # 48x64
+    luma = _grey(np.ascontiguousarray(t2[100:164, 30:94]))  # 64x64
+    idx8, pal8 = _quantized(rgb, 256)
+    idx4, pal4 = _quantized(np.ascontiguousarray(t2[0:32, 0:40]), 16)
+    idx_t, pal_t = _quantized(np.ascontiguousarray(t1[100:140, 100:148]), 256)
+    idx2, pal2 = _quantized(np.ascontiguousarray(t2[50:79, 60:103]), 4)
+    small = np.ascontiguousarray(t2[60:84, 10:42])  # 24x32
+    g4 = luma[:40, :56] >> 4
+    g8 = luma[8:56, 4:60]
+    odd = np.ascontiguousarray(t1[3:48, 70:131])  # 45x61, every Adam7 pass partial
+    return {
+        "png/palette8_48x64.png": encode_png_any(idx8, 3, 8, palette=pal8, seed=1),
+        "png/palette4_32x40.png": encode_png_any(idx4, 3, 4, palette=pal4, seed=2),
+        "png/palette8_trns_40x48.png": encode_png_any(
+            idx_t, 3, 8, palette=pal_t, trns=bytes(np.arange(len(pal_t) // 2, dtype=np.uint8) * 9), seed=3),
+        "png/adam7_palette2_trns_29x43.png": encode_png_any(idx2, 3, 2, palette=pal2, trns=bytes([0, 128]),
+                                                            interlace=1, seed=4),
+        "png/rgb_trns_24x32.png": encode_png_any(small, 2, 8, trns=struct.pack(">3H", *_commonest(small)), seed=5),
+        "png/grey1_64x64.png": encode_png_any(luma > 128, 0, 1, seed=6),
+        "png/grey1_trns_64x64.png": encode_png_any(luma > 100, 0, 1, trns=struct.pack(">H", 0), seed=7),
+        "png/grey2_64x64.png": encode_png_any(luma >> 6, 0, 2, seed=8),
+        "png/grey4_40x56.png": encode_png_any(g4, 0, 4, seed=9),
+        "png/grey4_trns_40x56.png": encode_png_any(g4, 0, 4, trns=struct.pack(">H", *_commonest(g4)), seed=10),
+        "png/grey8_trns_48x56.png": encode_png_any(g8, 0, 8, trns=struct.pack(">H", *_commonest(g8)), seed=11),
+        "png/grey_alpha_48x64.png": encode_png_any(np.stack([_grey(rgb), rgb[..., 0]], -1), 4, 8, seed=12),
+        "png/adam7_rgb_45x61.png": encode_png_any(odd, 2, 8, interlace=1, seed=13),
+        "png/adam7_grey1_37x53.png": encode_png_any(luma[:37, :53] > 90, 0, 1, interlace=1, seed=14),
+    }
+
+
+def texture_copies() -> dict[str, bytes]:
+    """`textures/obj_00000{1,2}_<format>`: each committed texture as an
+    Adam7 RGB PNG, an RGB PNG with tRNS (its commonest colour), an RGBA PNG
+    (alpha its luma), a 256-colour palette PNG (lossy) and a JPEG (quality
+    95, 4:2:0, lossy), each PNG with one row filter throughout (smaller
+    files). The first three hold the texture's own pixels."""
+    out = {}
+    for i in (1, 2):
+        tex = _texture(i)
+        idx, pal = _quantized(tex, 256)
+        for fmt, data in zip(TEXTURE_FORMATS, (
+                encode_png_any(tex, 2, 8, interlace=1, ftype=0),
+                encode_png_any(tex, 2, 8, trns=struct.pack(">3H", *_commonest(tex)), ftype=2),
+                encode_png_any(np.concatenate([tex, _grey(tex)[..., None]], -1), 6, 8, ftype=2),
+                encode_png_any(idx, 3, 8, palette=pal, ftype=0),
+                _pil_jpeg(tex, quality=95, subsampling=2))):
+            out[f"textures/obj_00000{i}_{fmt}"] = data
     return out
+
+
+def reference_decode(rel: str, data: bytes) -> np.ndarray:
+    """The array `hashes.json` holds for fixture `rel`: libpng's through the
+    JAX package's native decoder for a PNG, else PIL's."""
+    if rel.endswith(".png"):
+        from megapose6d_tpu import native as jnative
+
+        return jnative.decode_image(data)
+    return pil_decode(data)
 
 
 def pil_decode(data: bytes) -> np.ndarray:
@@ -515,7 +681,7 @@ def main() -> int:
         path = OUT / rel
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_bytes(data)
-    hashes = {rel: array_hash(pil_decode(data)) for rel, data in sorted(files.items())}
+    hashes = {rel: array_hash(reference_decode(rel, data)) for rel, data in sorted(files.items())}
     (OUT / "hashes.json").write_text(json.dumps(hashes, indent=1) + "\n")
     total = sum(len(d) for d in files.values())
     print(f"{len(files)} files, {total} bytes, in {OUT}")
