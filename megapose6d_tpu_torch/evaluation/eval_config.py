@@ -7,8 +7,8 @@ field of the JAX package's configurations, so that its dotlists
 (`hardware.n_cpus=8`, `run_bop_eval=1`) apply here too. `hardware`,
 `result_id`, `n_dataloader_workers` and `global_batch_size` are recorded
 and not read, as in the JAX package. The port adds `coarse_weights` / `refiner_weights` /
-`detector_weights` (npz files of the runs' params, see
-`inference/load_model.py`; empty: weights drawn from a fixed seed),
+`detector_weights` (weight files that override the run directories'
+checkpoints, see `inference/load_model.py`; empty: the runs' own),
 `data_dir` (the root holding `<ds_name>/`; empty:
 `MEGAPOSE_DATA_DIR/bop_datasets`) and `device`.
 """

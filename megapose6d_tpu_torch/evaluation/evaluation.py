@@ -24,6 +24,7 @@ from ..data.datasets_cfg import make_object_dataset, make_scene_dataset
 from ..data.tensor_collection import TensorCollection
 from ..inference.load_model import load_or_init_models, read_weights, weight_source
 from ..interop.from_jax import detector_state_dict_from_jax
+from ..interop.orbax import is_orbax_checkpoint
 from ..inference.pose_estimator import PoseEstimator
 from ..meshes.mesh_db import MeshDataBase
 from ..models.detector import CenterNetDetector, Detector, DetectorConfig
@@ -39,18 +40,18 @@ logger = logging.getLogger(__name__)
 def load_detector(run_dir: str | Path, weights: str | Path | None = None,
                   device: str | torch.device = "cuda") -> Detector:
     """A detector from its run directory's `labels.json` and `config.json`,
-    with the weights of `weights` (an npz export of a JAX run's params, or
-    a port checkpoint), else of the run's latest port checkpoint
-    (`run_detector_training`'s), else drawn from seed 0; threshold 0.7."""
+    with the weights of `weights` (an npz export of a JAX run's params, an
+    orbax checkpoint directory or a port checkpoint) if given, else of the
+    run's checkpoint: a JAX run's `checkpoints/final` (orbax, as the JAX
+    package's `load_detector` reads it), else the port run's latest
+    (`run_detector_training`'s). A run without either raises; threshold 0.7."""
     run_dir = Path(run_dir)
     labels = json.loads((run_dir / "labels.json").read_text())
     model = CenterNetDetector(DetectorConfig(**json.loads((run_dir / "config.json").read_text())))
-    source = weight_source(run_dir, weights)
-    if source is not None:
-        model.load_state_dict(read_weights(source, detector_state_dict_from_jax))
-    else:
-        logger.warning("detector weights drawn from a seed")
-        model.init_weights(torch.Generator().manual_seed(0))
+    final = run_dir / "checkpoints" / "final"
+    source = weight_source(None, weights) if weights else (final if is_orbax_checkpoint(final)
+                                                           else weight_source(run_dir, None))
+    model.load_state_dict(read_weights(source, detector_state_dict_from_jax))
     return Detector(model.to(device), labels)
 
 

@@ -4,16 +4,18 @@ named megapose-1.0 configurations.
 Counterpart of `load_or_init_models` in
 `megapose6d_tpu/scripts/run_inference_on_example.py` and of `NAMED_MODELS`
 and `load_named_model` in `megapose6d_tpu/inference/load_model.py`. A run directory
-gives the model configuration (`config.json`). The weights come from, in
-order: a weight file given by name, either an npz of a JAX run's params
-tree (flat keys joined by `/`, `backbone/Conv_0/kernel`, written from its
-orbax checkpoint by `python -m tests.test_torch_checkpoints export <run>
-<out.npz>` where the JAX package is installed) or a port checkpoint
-(`state.pt`, or the checkpoint directory holding it, to name a step); the
-run directory's latest port checkpoint (`checkpoints/latest.txt`, as
-`run_training` and `run_detector_training` write them); else a seed, with
-a warning. The JAX package's own checkpoints are orbax (OCDBT,
-zstd-compressed), which the port does not read.
+gives the model configuration (`config.json`) and its weights: the
+checkpoint that `checkpoints/latest.txt` names (or a given epoch), either
+the JAX package's orbax checkpoint (`epoch_N/`, read by
+`interop/orbax.py` with the port's own zstd decoder and OCDBT reader) or
+the port's (`epoch_N/state.pt` of `run_training`, `step_N/state.pt` of
+`run_detector_training`). A weights argument overrides it: an npz of a JAX
+run's params tree (flat keys joined by `/`, `backbone/Conv_0/kernel`), a
+port `state.pt`, an orbax or port checkpoint directory, a run directory, or
+a reference `checkpoint.pth.tar`. A run directory without a readable
+checkpoint raises. Weights are drawn from a seed, with a warning, only
+when neither a run nor weights are given, as the JAX package initialises
+only without a run.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..interop.from_jax import config_from_run_json, state_dict_from_jax
+from ..interop.orbax import is_orbax_checkpoint, read_checkpoint
 from ..meshes.mesh_db import BatchedMeshes, MeshDataBase, RigidObjectDataset
 from ..models.pose_predictor import PosePredictor, make_coarse_config, make_refiner_config
 from .depth_refiner import DepthRefiner, GNCRegistrationRefiner, ICPRefiner
@@ -85,48 +88,76 @@ def load_params_npz(path: str | Path) -> dict[str, Any]:
     return tree
 
 
-def npz_step(weights: str | Path | None) -> int:
-    """The training step an export names (`<run>@<step>.npz`), else 0."""
-    m = re.search(r"@(\d+)\.npz$", str(weights or ""))
+def weights_step(weights: str | Path | None) -> int:
+    """The training step a weight source names: `<run>@<step>.npz`, or a
+    checkpoint directory `epoch_<step>` / `step_<step>` (or its
+    `state.pt`); else 0."""
+    text = str(weights or "")
+    m = re.search(r"@(\d+)\.npz$", text) or re.search(r"(?:epoch|step)_(\d+)(?:/state\.pt)?/?$", text)
     return int(m.group(1)) if m else 0
 
 
-def run_checkpoint(run_dir: str | Path | None) -> Path | None:
-    """The `state.pt` that a port run's `checkpoints/latest.txt` names
-    (`epoch_N/` of `run_training`, `step_N/` of `run_detector_training`),
-    or None (no such file: a JAX run, or no run)."""
+def run_checkpoint(run_dir: str | Path | None, epoch: int | str | None = None) -> Path | None:
+    """A run's checkpoint at `epoch` (None: the one `checkpoints/latest.txt`
+    names): a port run's `state.pt` (`epoch_N/` of `run_training`,
+    `step_N/` of `run_detector_training`) or a JAX run's orbax directory
+    (`epoch_N/`, `step_N/`). None when there is no run, or no epoch is
+    given and the run has no `latest.txt`; FileNotFoundError when the
+    named checkpoint is missing."""
     if not run_dir:
         return None
     ckpt = Path(run_dir) / "checkpoints"
-    latest = ckpt / "latest.txt"
-    if not latest.exists():
-        return None
-    n = latest.read_text().strip()
-    for name in (f"epoch_{n}", f"step_{n}", n):
+    if epoch is None:
+        latest = ckpt / "latest.txt"
+        if not latest.exists():
+            return None
+        epoch = latest.read_text().strip()
+    names = (f"epoch_{epoch}", f"step_{epoch}", str(epoch))
+    for name in names:
         if (ckpt / name / "state.pt").exists():
             return ckpt / name / "state.pt"
+    for name in names:
+        if is_orbax_checkpoint(ckpt / name):
+            return ckpt / name
+    raise FileNotFoundError(f"{ckpt} holds no checkpoint {epoch} (no state.pt and no orbax checkpoint "
+                            f"in {', '.join(names)})")
+
+
+def _run_weights(run_dir: str | Path, epoch: int | str | None) -> Path:
+    source = run_checkpoint(run_dir, epoch)
+    if source is None:
+        raise FileNotFoundError(f"{run_dir} has no checkpoints/latest.txt: name a checkpoint or weight file")
+    return source
+
+
+def weight_source(run_dir: str | Path | None, weights: str | Path | None,
+                  epoch: int | str | None = None) -> Path | None:
+    """The weights of a model: `weights` if given (an npz, a `state.pt`, a
+    `.pth.tar`, a port or orbax checkpoint directory, or a run directory,
+    whose checkpoint at `epoch` it names), else the checkpoint of
+    `run_dir` at `epoch` (None: its latest), else None (no run: seeded).
+    A run directory without that checkpoint raises FileNotFoundError."""
+    if weights:
+        path = Path(weights)
+        if (path / "checkpoints").is_dir():
+            return _run_weights(path, epoch)
+        if path.is_dir() and not is_orbax_checkpoint(path):
+            return path / "state.pt"
+        return path
+    if run_dir:
+        return _run_weights(run_dir, epoch)
     return None
 
 
-def weight_source(run_dir: str | Path | None, weights: str | Path | None) -> Path | None:
-    """The weight file of a model: `weights` (an npz, a `state.pt`, a
-    checkpoint directory holding one, or a port run directory, whose latest
-    checkpoint it names) if given, else the run's latest port checkpoint,
-    else None."""
-    if weights:
-        path = Path(weights)
-        if (path / "checkpoints" / "latest.txt").exists():
-            return run_checkpoint(path)
-        return path / "state.pt" if path.is_dir() else path
-    return run_checkpoint(run_dir)
-
-
 def read_weights(path: Path, from_jax) -> dict[str, torch.Tensor]:
-    """A module's state dict from an npz export (through `from_jax`), a
-    reference MegaPose `checkpoint.pth.tar` (`interop.torch_convert`), or
-    the `params` and `buffers` of a port checkpoint."""
+    """A module's state dict from a JAX run's params (an orbax checkpoint
+    directory or an npz export, through `from_jax`), a reference MegaPose
+    `checkpoint.pth.tar` (`interop.torch_convert`), or the `params` and
+    `buffers` of a port checkpoint."""
     if path.suffix == ".npz":
         return from_jax(load_params_npz(path))
+    if is_orbax_checkpoint(path):
+        return from_jax(read_checkpoint(path, prefixes=["params"])["params"])
     if path.name.endswith(".pth.tar"):
         from ..interop.torch_convert import load_torch_pose_checkpoint
 
@@ -142,19 +173,20 @@ def build_model(
     render_size: tuple[int, int] = (240, 320),
     seed: int = 0,
     device: str | torch.device = "cuda",
+    epoch: int | str | None = None,
 ) -> PosePredictor:
     """One `PosePredictor`: the run's configuration (or `default_config`
     at `render_size`), with the weights of `weight_source(run_dir,
-    weights)`, else drawn from `seed`."""
+    weights, epoch)`; drawn from `seed` only when neither a run nor
+    weights are given."""
     cfg = (config_from_run_json(Path(run_dir) / "config.json")[0] if run_dir
            else default_config(render_size=tuple(render_size)))
     model = PosePredictor(cfg)
-    source = weight_source(run_dir, weights)
+    source = weight_source(run_dir, weights, epoch)
     if source is not None:
         model.load_state_dict(read_weights(source, state_dict_from_jax))
     else:
-        logger.warning("pose model weights drawn from seed %d (no weight file, no port checkpoint in %s)",
-                       seed, run_dir)
+        logger.warning("pose model weights drawn from seed %d (no run directory, no weight file)", seed)
         model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 
@@ -193,8 +225,8 @@ def load_named_model(
 ) -> PoseEstimator:
     """A `PoseEstimator` for a `NAMED_MODELS` configuration.
 
-    A run directory gives a model's configuration (and an npz its
-    weights); without one the model is the named configuration's (resnet34,
+    A run directory gives a model's configuration and weights (a weights
+    argument overrides them); without one the model is the named configuration's (resnet34,
     240x320) with weights drawn from `seed` (coarse) and `seed + 1`
     (refiner), computing in `compute_dtype`, by default bfloat16 on the
     GPU and float32 on the CPU. `inference_overrides` update the named

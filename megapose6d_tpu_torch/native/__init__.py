@@ -11,7 +11,11 @@ and three of its own, which need only a compiler:
   - `jpeg.cc`: a JPEG decoder equal bit for bit to libjpeg-turbo's default
     output (baseline, extended and progressive, Huffman or arithmetic
     coded, 8-bit, grey or 3 components), a batch in threads;
-  - `tiff.cc`: TIFF's LZW and PackBits strips, for `utils/tiff.py`.
+  - `tiff.cc`: TIFF's LZW and PackBits strips, for `utils/tiff.py`;
+  - `zstd.cc`: a Zstandard decoder (RFC 8878) and CRC32C, for the orbax
+    checkpoints' OCDBT stores (`utils/ocdbt.py`, `interop/orbax.py`); it
+    has no fallback, so without a compiler a read raises with the
+    compiler's message.
 Each is compiled with `g++` at first use into `build/` at the repository
 root (named by the hash of its source and flags; the JAX package's
 libraries are never loaded), then bound with ctypes. Without libpng and
@@ -27,6 +31,9 @@ through `utils/tiff.py`. Without `meshproc`,
     decode_image(data: bytes) -> np.ndarray   # [H, W, C] u8, [H, W] u8 or u16
     decode_batch(list[bytes], n_threads=0) -> list[np.ndarray]
     decode_jpeg(data: bytes) -> np.ndarray     # always jpeg.cc
+    decode_zstd(data: bytes, max_size: int) -> bytes
+    decode_zstd_into(data: bytes, out: np.ndarray) -> int   # bytes written
+    crc32c(data: bytes) -> int
     meshproc_available() -> bool
     simplify_mesh(verts, faces, colors, target_faces) -> (verts, faces, colors | None)
 """
@@ -53,7 +60,7 @@ logger = logging.getLogger(__name__)
 _DIR = Path(__file__).resolve().parent
 _FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _LIBS = {"decode": ("-lpng", "-ljpeg", "-lz", "-lpthread"), "meshproc": (), "unfilter": (), "jpeg": ("-lpthread",),
-         "tiff": ()}
+         "tiff": (), "zstd": ()}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL | None] = {}
 
@@ -109,6 +116,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.mp_tiff_lzw.restype = ctypes.c_long
         lib.mp_tiff_packbits.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long]
         lib.mp_tiff_packbits.restype = ctypes.c_long
+    elif name == "zstd":
+        lib.mp_zstd_content_size.argtypes = [u8p, ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
+        lib.mp_zstd_content_size.restype = ctypes.c_long
+        lib.mp_zstd_decode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.POINTER(ctypes.c_long),
+                                       ctypes.c_char_p, ctypes.c_int]
+        lib.mp_zstd_decode.restype = ctypes.c_int
+        lib.mp_crc32c.argtypes = [u8p, ctypes.c_long]
+        lib.mp_crc32c.restype = ctypes.c_uint
     elif name == "unfilter":
         lib.mp_png_unfilter.argtypes = [u8p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
         lib.mp_png_unfilter.restype = ctypes.c_int
@@ -258,13 +273,18 @@ def decode_batch(datas: list[bytes], n_threads: int = 0) -> list[np.ndarray]:
     return [_wrap(outs_np[i], hs[i], ws[i], cs[i], bds[i]) for i in range(n)]
 
 
-def _jpeg_lib() -> ctypes.CDLL:
-    lib = _load("jpeg")
+def _required(name: str, what: str) -> ctypes.CDLL:
+    """The library `name`, or RuntimeError with the compiler's message."""
+    lib = _load(name)
     if lib is None:
-        failed = next(BUILD_DIR.glob("jpeg-*.failed"), None)
+        failed = next(BUILD_DIR.glob(f"{name}-*.failed"), None)
         message = failed.read_text() if failed is not None else "no compiler"
-        raise RuntimeError(f"JPEG images need jpeg.cc, which did not build: {message}")
+        raise RuntimeError(f"{what} need {name}.cc, which did not build: {message}")
     return lib
+
+
+def _jpeg_lib() -> ctypes.CDLL:
+    return _required("jpeg", "JPEG images")
 
 
 def _jpeg_shape(lib: ctypes.CDLL, buf: np.ndarray) -> tuple[int, int, int]:
@@ -334,6 +354,62 @@ def decode_tiff(data: bytes) -> np.ndarray:
     `tiff.cc` when it builds (else its Python twins, the same bytes)."""
     return tiff_py.decode_tiff(data, lzw=lambda d, n: _strips("lzw", d, n),
                                packbits=lambda d, n: _strips("packbits", d, n))
+
+
+def _zstd_run(lib: ctypes.CDLL, src: np.ndarray, out: np.ndarray) -> int | None:
+    """Decode `src` into `out`: the bytes written, or None when `out` is too small."""
+    n = ctypes.c_long()
+    msg = ctypes.create_string_buffer(_MSG)
+    rc = lib.mp_zstd_decode(src.ctypes.data_as(u8p), src.size, out.ctypes.data_as(u8p), out.size, ctypes.byref(n),
+                            msg, _MSG)
+    if rc == 1:
+        raise ValueError(f"zstd: {msg.value.decode()}")
+    return None if rc == 2 else n.value
+
+
+def decode_zstd(data: bytes, max_size: int) -> bytes:
+    """Every zstd frame of `data` (skippable frames skipped), decoded by
+    `zstd.cc`. Raises ValueError on corrupt or truncated input, a frame
+    that needs a dictionary, a failed content checksum, or output over
+    `max_size` bytes. Frames without a declared content size decode into a
+    buffer that doubles until it fits."""
+    lib = _required("zstd", "zstd data")
+    src = np.frombuffer(data, np.uint8)
+    msg = ctypes.create_string_buffer(_MSG)
+    size = lib.mp_zstd_content_size(src.ctypes.data_as(u8p), src.size, msg, _MSG)
+    if size == -2:
+        raise ValueError(f"zstd: {msg.value.decode()}")
+    if size > max_size:
+        raise ValueError(f"zstd: {size} bytes declared, more than the {max_size} allowed")
+    cap = size if size >= 0 else min(max_size, max(4 * src.size, 1 << 16))
+    while True:
+        out = np.empty(max(cap, 1), np.uint8)
+        n = _zstd_run(lib, src, out[:cap])
+        if n is not None:
+            return out[:n].tobytes()
+        if cap >= max_size:
+            raise ValueError(f"zstd: more than the {max_size} bytes allowed")
+        cap = min(max_size, 2 * cap)
+
+
+def decode_zstd_into(data: bytes, out: np.ndarray) -> int:
+    """Decode `data` into the C-contiguous array `out` (any dtype; its
+    bytes are written in place); returns the bytes written. Raises
+    ValueError as `decode_zstd` does, and when the output does not fit."""
+    lib = _required("zstd", "zstd data")
+    if not out.flags.c_contiguous or not out.flags.writeable:
+        raise ValueError("decode_zstd_into needs a writeable C-contiguous array")
+    n = _zstd_run(lib, np.frombuffer(data, np.uint8), out.reshape(-1).view(np.uint8))
+    if n is None:
+        raise ValueError(f"zstd: the data decodes to more than {out.nbytes} bytes")
+    return n
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli) of `data`, through `zstd.cc`."""
+    lib = _required("zstd", "CRC32C")
+    src = np.frombuffer(data, np.uint8)
+    return int(lib.mp_crc32c(src.ctypes.data_as(u8p), src.size))
 
 
 def simplify_mesh(verts: np.ndarray, faces: np.ndarray, colors: np.ndarray | None, target_faces: int,

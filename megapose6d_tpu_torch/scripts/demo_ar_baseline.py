@@ -11,14 +11,18 @@ view; refiner: 2 views, `front_1view`), the same pipeline settings
 rescoring; 64 coarse images and 16 refiner hypotheses a chunk, 2
 detections) and the same report. The evaluation reads the objects'
 meshes from the dataset's `models/`, in a mesh database of 2048 faces,
-512 points and 4 symmetries as the JAX script's. Weights come from npz
-exports (`refiner_weights=`, `coarse_weights=`, `detector_weights=`; a
-file name ending in `@<step>.npz` names the step in the report), or from a
-seed.
+512 points and 4 symmetries as the JAX script's. The models' weights come
+from the JAX script's run directories, `refiner_dir=runs/refiner_long` and
+`coarse_dir=runs/coarse_grid` by default (their latest checkpoints, or the
+refiner's at `epoch=`; orbax or the port's), and the detector's from
+`detector_dir=`. `refiner_weights=`, `coarse_weights=` and
+`detector_weights=` override them with a weight file or checkpoint (a
+file name ending in `@<step>.npz` names the step in the report); an empty
+`*_dir` with no weights draws that model from a seed. The committed
+`runs/ar_gnc` reports used refiner step 24000:
 
     python -m megapose6d_tpu_torch.scripts.demo_ar_baseline out_dir=runs/ar_gnc \
-        coarse_weights=build/weights/coarse_dr@5000.npz \
-        refiner_weights=build/weights/refiner_dr@24000.npz \
+        refiner_dir=runs/refiner_dr epoch=24000 coarse_dir=runs/coarse_dr \
         so3=64 refine_iters=3 n_hyp=4 depth_refine=icp report_dir=/tmp/ar [device=cpu]
 
 writes `<report_dir>/report[_<domain>][_<world>][_<tag>].json`
@@ -42,7 +46,7 @@ from ..evaluation.evaluation import load_detector
 from ..evaluation.meters import BOPScoreMeter
 from ..evaluation.runner import EvaluationRunner, PredictionRunner
 from ..inference.depth_refiner import GNCRegistrationRefiner, ICPRefiner
-from ..inference.load_model import build_model, npz_step
+from ..inference.load_model import build_model, weight_source, weights_step
 from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import InferenceConfig
 from ..meshes.mesh_db import BatchedMeshes, MeshDataBase
@@ -54,6 +58,7 @@ from .generate_synthetic_dataset import generate_bop
 logger = logging.getLogger(__name__)
 
 DEFAULTS = dict(
+    refiner_dir="runs/refiner_long", coarse_dir="runs/coarse_grid", epoch="",
     out_dir="ar_baseline", report_dir="", coarse_weights="", refiner_weights="", so3="576",
     refine_iters="3", backbone="resnet18-spatial", render="240,320", n_hyp="4", detector_dir="",
     detector_weights="", n_frames="24", depth_refine="0", dtype="auto", tag="",
@@ -120,12 +125,15 @@ def run(args: dict[str, str]) -> tuple[dict, dict[str, TensorCollection]]:
     logger.info("dataset: %d frames at %s", len(scene_ds), render)
 
     seed = int(args["seed"])
-    refiner = build_model(None, args["refiner_weights"] or None, lambda render_size: make_refiner_config(
+    r_source = weight_source(None, args["refiner_weights"] or args["refiner_dir"] or None,
+                             None if args["refiner_weights"] else args["epoch"] or None)
+    c_source = weight_source(None, args["coarse_weights"] or args["coarse_dir"] or None)
+    refiner = build_model(None, r_source, lambda render_size: make_refiner_config(
         backbone=args["backbone"], render_size=render_size, n_rendered_views=2,
         multiview_type="TCO+front_1view", compute_dtype=dtype), render, seed + 1, device)
-    coarse = build_model(None, args["coarse_weights"] or None, lambda render_size: make_coarse_config(
+    coarse = build_model(None, c_source, lambda render_size: make_coarse_config(
         backbone=args["backbone"], render_size=render_size, compute_dtype=dtype), render, seed, device)
-    r_step, c_step = npz_step(args["refiner_weights"]), npz_step(args["coarse_weights"])
+    r_step, c_step = weights_step(r_source), weights_step(c_source)
     logger.info("weights: refiner@%d coarse@%d (0: seeded or unnamed)", r_step, c_step)
 
     cfg = InferenceConfig(

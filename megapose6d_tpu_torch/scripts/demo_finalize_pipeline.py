@@ -13,28 +13,26 @@ the same arguments and the same `report.json` keys:
     with the small scorer or the low-resolution sweep, and
     `combo_top_k`).
 
-The port cannot read orbax. `refiner_dir` and `coarse_dir` name npz
-exports of a JAX run's params instead (`python -m
-tests.test_torch_checkpoints export <run> <out.npz> <step>`; a name
-ending in `@<step>.npz` gives the step), or port run directories (of
-`demo_long_refiner` and `demo_long_coarse`: their latest checkpoint and
-its step), so the JAX script's `epoch`,
-`coarse_epoch` and `coarse2_epoch`, which pick an orbax step, have no
-counterpart here. An empty `refiner_dir` means weights from seed 1; an
-empty `coarse_dir` trains the scorer for `coarse_steps` on the port's
-trainer. `coarse2_dir` is a run directory whose `config.json` gives the
-second scorer's model; its weights come from `coarse2_weights=` (an npz),
-else from seed 2. The evaluation scenes (`synthetic_batch_fn` at key
+`refiner_dir`, `coarse_dir` and `coarse2_dir` are run directories, as
+in the JAX script: the JAX package's (their orbax checkpoints) or the
+port's (`demo_long_refiner`, `demo_long_coarse`), read at `epoch`,
+`coarse_epoch` and `coarse2_epoch` (empty: the run's latest), with the
+checkpoint's step in the report. `refiner_dir` and `coarse_dir` may also
+name a weight file or checkpoint directory (an npz export of a JAX run's
+params, ending in `@<step>.npz` to give the step). An empty `refiner_dir`
+means weights from seed 1; an empty `coarse_dir` trains the scorer for
+`coarse_steps` on the port's trainer. `coarse2_dir`'s `config.json`
+gives the second scorer's model; `coarse2_weights=` overrides its run's
+weights with a file. The evaluation scenes (`synthetic_batch_fn` at key
 9999) and the pose noise (key 7) are drawn as the JAX script draws them
 (`utils/threefry.py`) and rendered by the port. The report goes to
 `<out_dir>/report.json`, by default under `build/`, so that a run never
 overwrites the committed `runs/final_pipeline*` reports.
 
     python -m megapose6d_tpu_torch.scripts.demo_finalize_pipeline \\
-        refiner_dir=build/weights/refiner_long@14000.npz \\
-        coarse_dir=build/weights/coarse_grid@2500.npz out_dir=/tmp/final \\
-        [so3=576] [n_eval=16] [lod_ab=1] [prune_ab=1 prune_grid=144 prune_keep=16] \\
-        [coarse_res_ab=1] [coarse2_dir=runs/coarse120 coarse2_weights=...] \\
+        refiner_dir=runs/refiner_long coarse_dir=runs/coarse_grid out_dir=/tmp/final \\
+        [epoch=14000] [coarse_epoch=2500] [so3=576] [n_eval=16] [lod_ab=1] \\
+        [prune_ab=1 prune_grid=144 prune_keep=16] [coarse_res_ab=1] [coarse2_dir=runs/coarse120] \\
         [combo_ab=1 combo_top_k=2] [device=cpu]
 """
 
@@ -50,7 +48,7 @@ import numpy as np
 import torch
 
 from ..data.types import ObservationTensor
-from ..inference.load_model import build_model, npz_step, run_checkpoint
+from ..inference.load_model import build_model, weight_source, weights_step
 from ..inference.pose_estimator import PoseEstimator
 from ..inference.types import InferenceConfig, make_detections
 from ..meshes.mesh_db import BatchedMeshes
@@ -67,13 +65,13 @@ logger = logging.getLogger(__name__)
 Tensor = torch.Tensor
 
 DEFAULTS = dict(
-    refiner_dir="build/weights/refiner_long@14000.npz", out_dir="build/final_pipeline",
-    coarse_steps="800", so3="576", n_eval="16",
+    refiner_dir="runs/refiner_long", out_dir="build/final_pipeline",
+    coarse_steps="800", epoch="", so3="576", n_eval="16",
     refine_iters="3", backbone="resnet18-spatial", render="240,320",
-    batch_size="32", coarse_dir="", lod_ab="0",
+    batch_size="32", coarse_dir="", coarse_epoch="", lod_ab="0",
     prune_ab="0", prune_grid="72", prune_keep="8", top_k="4",
     dtype="auto", coarse_res_ab="0", coarse_render="120,160",
-    coarse2_dir="", combo_ab="0", combo_top_k="",
+    coarse2_dir="", coarse2_epoch="", combo_ab="0", combo_top_k="",
     coarse2_weights="", device="cuda",
 )
 
@@ -88,20 +86,15 @@ def parse_args(argv: list[str]) -> dict[str, str]:
     return args
 
 
-def weights_step(weights: str) -> int:
-    """The training step of `weights`: a port run's latest checkpoint's,
-    or the `@<step>` of an npz name (0 without one)."""
-    ckpt = run_checkpoint(weights) if weights and Path(weights).is_dir() else None
-    if ckpt is not None:
-        return int(torch.load(ckpt, map_location="cpu", weights_only=True)["step"])
-    return npz_step(weights)
-
-
-def make_model(cfg: TrainingConfig, weights: str, seed: int, device: torch.device) -> PosePredictor:
-    """The model of `cfg` with `weights` (an npz or a port run directory),
-    or weights from `seed` when `weights` is empty."""
-    return build_model(None, weights or None, lambda render_size: PosePredictorConfig(**cfg.model_config_kwargs()),
-                       seed=seed, device=device)
+def make_model(cfg: TrainingConfig, weights: str, epoch: str, seed: int,
+               device: torch.device) -> tuple[PosePredictor, int]:
+    """(the model of `cfg` with `weights`, the checkpoint's step): a run
+    directory at `epoch` (empty: its latest), a weight file or checkpoint
+    directory, or weights from `seed` when `weights` is empty."""
+    source = weight_source(None, weights or None, epoch or None)
+    model = build_model(None, source, lambda render_size: PosePredictorConfig(**cfg.model_config_kwargs()),
+                        seed=seed, device=device)
+    return model, weights_step(source)
 
 
 @dataclasses.dataclass
@@ -125,20 +118,21 @@ def build_models(args: dict[str, str], mesh_db: BatchedMeshes, input_res: tuple[
     )
     ref_cfg = dataclasses.replace(make_refiner_cfg(base), n_rendered_views=2,
                                   multiview_type="front_1view", n_iterations=1)
-    refiner = make_model(ref_cfg, args["refiner_dir"], 1, device)
-    logger.info("refiner weights @ step %d", weights_step(args["refiner_dir"]))
+    refiner, refiner_step = make_model(ref_cfg, args["refiner_dir"], args["epoch"], 1, device)
+    logger.info("refiner weights @ step %d", refiner_step)
     coarse_cfg = dataclasses.replace(make_coarse_cfg(base), n_hypotheses=4)
     if args["coarse_dir"]:
-        coarse = make_model(coarse_cfg, args["coarse_dir"], 0, device)
-        logger.info("coarse weights @ step %d", weights_step(args["coarse_dir"]))
+        coarse, coarse_step = make_model(coarse_cfg, args["coarse_dir"], args["coarse_epoch"], 0, device)
+        logger.info("coarse weights @ step %d", coarse_step)
     else:
         coarse = train_model(coarse_cfg, mesh_db, int(args["coarse_steps"]), input_res, "coarse")[0]
-    coarse2 = None
+    coarse2, coarse2_step = None, 0
     if args["coarse2_dir"]:
         cfg2 = dataclasses.replace(load_config(Path(args["coarse2_dir"]) / "config.json"), compute_dtype=dtype)
-        coarse2 = make_model(cfg2, args["coarse2_weights"], 2, device)
-        logger.info("small coarse scorer %s @ step %d", tuple(cfg2.render_size), npz_step(args["coarse2_weights"]))
-    return Models(refiner, coarse, coarse2, weights_step(args["refiner_dir"]), npz_step(args["coarse2_weights"]))
+        coarse2, coarse2_step = make_model(cfg2, args["coarse2_weights"] or args["coarse2_dir"],
+                                           "" if args["coarse2_weights"] else args["coarse2_epoch"], 2, device)
+        logger.info("small coarse scorer %s @ step %d", tuple(cfg2.render_size), coarse2_step)
+    return Models(refiner, coarse, coarse2, refiner_step, coarse2_step)
 
 
 def _median_mm(x) -> float:

@@ -4,8 +4,13 @@
 
     python -m megapose6d_tpu_torch.scripts.run_eval ds_name=synthdemo.bop19 \\
         data_dir=runs/ar_dr coarse_run=runs/coarse_dr refiner_run=runs/refiner_dr \\
-        coarse_weights=build/weights/coarse_dr.npz refiner_weights=build/weights/refiner_dr.npz \\
         save_dir=eval_out load_depth=true inference.n_pose_hypotheses=4 device=cpu
+
+The run directories give the models' configurations and trained weights
+(their `checkpoints/latest.txt` checkpoints, orbax or the port's);
+`coarse_weights=` / `refiner_weights=` / `detector_weights=` override
+them with a weight file or another checkpoint
+(`refiner_weights=runs/refiner_dr/checkpoints/epoch_24000`).
 
 Counterpart of `megapose6d_tpu/scripts/run_eval.py`, with its legacy
 aliases (dataset=, out_dir=, so3_grid_size=, ...). `rank=r world_size=W`

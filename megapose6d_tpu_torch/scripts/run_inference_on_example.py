@@ -11,13 +11,15 @@ the same example-directory contract:
       outputs/object_data.json (written: [{"label", "TWO"}, ...])
 
 The models come from training run directories (`--coarse-run`,
-`--refiner-run`) with npz weights (`--coarse-weights`, `--refiner-weights`,
-exported from the JAX package's checkpoints); without weights they are
-drawn from a seed (a smoke test of the pipeline, no meaningful poses).
+`--refiner-run`): their configurations and the trained weights of their
+latest checkpoints (the JAX package's orbax ones or the port's).
+`--coarse-weights` / `--refiner-weights` override those with a weight
+file or checkpoint; without a run or weights a model is drawn from a
+seed (a smoke test of the pipeline, no meaningful poses).
 `--depth` adds `image_depth.png` to the observation as its depth channel.
 
     python -m megapose6d_tpu_torch.scripts.run_inference_on_example <dir> \\
-        --run-inference [--depth] [--coarse-run RUN --coarse-weights NPZ ...] [--device cpu] \\
+        --run-inference [--depth] [--coarse-run runs/coarse_dr --refiner-run runs/refiner_dr] [--device cpu] \\
         [--vis-detections] [--vis-outputs]
 
 `--vis-detections` writes `visualizations/detections.png` (the input boxes

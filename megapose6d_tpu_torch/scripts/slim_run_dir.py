@@ -8,7 +8,9 @@ Counterpart of `megapose6d_tpu/scripts/slim_run_dir.py` for the port's
 `opt_state`; every other checkpoint directory is deleted except `final/`
 (the detector's parameters-only copy). `inference.load_model` reads the
 slimmed run as before, and a resumed run restores the weights and the step
-with a fresh Adam (`training.train.load_checkpoint`).
+with a fresh Adam (`training.train.load_checkpoint`). A JAX run (orbax
+checkpoints) raises ValueError: slimming it means writing orbax, which the
+port does not do; the JAX package's `scripts/slim_run_dir.py` does.
 
     python -m megapose6d_tpu_torch.scripts.slim_run_dir runs/refiner_long [...]
 """
@@ -21,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from ..interop.orbax import is_orbax_checkpoint
+
 
 def slim_run_dir(run_dir: str | Path) -> Path:
     """Slim `run_dir` in place; returns the kept checkpoint directory."""
@@ -29,6 +33,9 @@ def slim_run_dir(run_dir: str | Path) -> Path:
     if not latest.exists():
         raise FileNotFoundError(f"no latest.txt under {ckpt_dir}")
     tag = latest.read_text().strip()
+    if any(is_orbax_checkpoint(ckpt_dir / name) for name in (f"epoch_{tag}", f"step_{tag}", "final")):
+        raise ValueError(f"{run_dir} is a JAX run (orbax checkpoints): the port writes no orbax; slim it with "
+                         "the JAX package's megapose6d_tpu/scripts/slim_run_dir.py")
     path = next((p for p in (ckpt_dir / f"epoch_{tag}", ckpt_dir / f"step_{tag}") if (p / "state.pt").exists()),
                 None)
     if path is None:

@@ -13,7 +13,8 @@ Counterpart of `megapose6d_tpu/training/train.py`:
     unbroken one. The JAX package folds the step into its key instead.
   - Checkpoints keep the JAX package's layout, `run_dir/config.json`,
     `checkpoints/epoch_N/` and `checkpoints/latest.txt`, with
-    `torch.save` in place of orbax (`epoch_N/state.pt`).
+    `torch.save` in place of orbax (`epoch_N/state.pt`). A JAX run's
+    orbax checkpoints are read too (`resume_run_id`, `pretrain_run_id`).
   - Data parallelism is one process per device (`parallel.distributed`):
     rank r of W takes rows [r b / W, (r + 1) b / W) of each step's global
     batch of b and the same rows of its draws, and the gradients and
@@ -45,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..interop.from_jax import state_dict_from_jax
+from ..interop.orbax import is_orbax_checkpoint, read_checkpoint
 from ..meshes.mesh_db import BatchedMeshes
 from ..models.backbones import synced_batch_stats
 from ..models.pose_predictor import PosePredictor, PosePredictorConfig
@@ -400,17 +402,47 @@ def save_checkpoint(run_dir: str | Path, state: TrainState, epoch: int) -> None:
     (Path(run_dir) / "checkpoints" / "latest.txt").write_text(str(epoch))
 
 
+def _load_jax_checkpoint(path: Path, state: TrainState, params_only: bool) -> None:
+    """Restore a JAX run's orbax checkpoint into `state`: the params, and
+    unless `params_only` optax's Adam state (`opt_state[1][0]`: count,
+    mu, nu, renamed and transposed as the params are) and the step; a
+    params-and-step checkpoint leaves Adam fresh."""
+    tree = read_checkpoint(path, prefixes=["params"] if params_only else None)
+    device = state.params[0].device
+    state.model.load_state_dict({k: v.to(device) for k, v in state_dict_from_jax(tree["params"]).items()})
+    if params_only:
+        return
+    names = [n for n, _ in state.model.named_parameters()]
+    if "opt_state" in tree:
+        adam = tree["opt_state"][1][0]
+        for key in ("mu", "nu"):
+            moments = state_dict_from_jax(adam[key])
+            for t, n in zip(state.opt_state[key], names):
+                t.copy_(moments[n])
+        state.opt_state["count"] = int(adam["count"])
+    state.step = int(tree["step"])
+
+
 @torch.no_grad()
-def load_checkpoint(run_dir: str | Path, state: TrainState, params_only: bool = False) -> tuple[TrainState, int]:
-    """Restore the checkpoint of `run_dir` that `latest.txt` names into
-    `state`. `params_only=True` is the pretrain path: the weights only,
-    Adam and the step start afresh. A checkpoint without Adam's state (one
-    `scripts/slim_run_dir` slimmed) restores the weights and the step, with
-    a fresh Adam, as the JAX package's params-and-step fallback does."""
+def load_checkpoint(run_dir: str | Path, state: TrainState, epoch: int | None = None,
+                    params_only: bool = False) -> tuple[TrainState, int]:
+    """Restore the checkpoint of `run_dir` at `epoch` (None: the one
+    `latest.txt` names) into `state`: a port run's `state.pt` or a JAX
+    run's orbax checkpoint (`interop/orbax.py`). `params_only=True` is the
+    pretrain path: the weights only, Adam and the step start afresh. A
+    checkpoint without Adam's state (one `scripts/slim_run_dir` slimmed, or
+    a JAX params-and-step save) restores the weights and the step, with a
+    fresh Adam, as the JAX package's params-and-step fallback does."""
+    from ..inference.load_model import run_checkpoint
+
     run_dir = Path(run_dir)
-    epoch = int((run_dir / "checkpoints" / "latest.txt").read_text())
-    saved = torch.load(run_dir / "checkpoints" / f"epoch_{epoch}" / "state.pt", map_location="cpu",
-                       weights_only=True)
+    if epoch is None:
+        epoch = int((run_dir / "checkpoints" / "latest.txt").read_text())
+    path = run_checkpoint(run_dir, epoch)
+    if is_orbax_checkpoint(path):
+        _load_jax_checkpoint(path, state, params_only)
+        return state, epoch
+    saved = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict({**saved["params"], **saved.get("buffers", {})})
     names = [n for n, _ in state.model.named_parameters()]
     if not params_only and "opt_state" not in saved:
@@ -426,9 +458,9 @@ def load_checkpoint(run_dir: str | Path, state: TrainState, params_only: bool = 
 
 @torch.no_grad()
 def load_pretrained(path: str | Path, state: TrainState) -> TrainState:
-    """Weights only, from a port run directory (its latest checkpoint) or
-    from an npz export of a JAX run's params (`python -m
-    tests.test_torch_checkpoints export <run> <out.npz>`)."""
+    """Weights only, from a run directory (its latest checkpoint: a JAX
+    run's orbax one or a port run's) or from an npz export of a JAX run's
+    params."""
     path = Path(path)
     if path.suffix == ".npz":
         from ..inference.load_model import load_params_npz
@@ -484,7 +516,7 @@ def train(
     `val_batches`, as on the dataset path), checkpoints every
     `save_epoch_interval` epochs and at the end. `resume_run_id` restores
     parameters, Adam and the step and continues at the saved epoch + 1;
-    `pretrain_run_id` restores the weights only (a port run or an npz,
+    `pretrain_run_id` restores the weights only (a JAX or port run, or an npz,
     under `run_dir`).
 
     Data parallel with `reduce_over` (a process group of W ranks, each

@@ -1,9 +1,13 @@
 """Port vs JAX: the committed trained checkpoints in the port.
 
-`export_params` reads a run's checkpoint with the JAX package's own
-`load_checkpoint` and writes its params as an npz of `/`-joined keys, the
-file `megapose6d_tpu_torch.inference.load_model` loads (the port cannot
-read orbax). Also runnable as
+The port reads the run directories' orbax checkpoints itself
+(`interop/orbax.py`): `build_model`, `load_or_init_models` and
+`load_detector` given a JAX run directory equal the JAX package's own
+restore, exported as an npz (the route before the port read orbax, kept as
+one more weight source), and so does a port `TrainState` restored from a
+JAX run with Adam's state. `export_params` reads a run's checkpoint with
+the JAX package's `load_checkpoint` and writes its params as an npz of
+`/`-joined keys. Also runnable as
 
     python -m tests.test_torch_checkpoints export runs/coarse_dr build/weights/coarse_dr.npz
     python -m tests.test_torch_checkpoints export runs/refiner_dr build/weights/refiner_dr@24000.npz 24000
@@ -15,8 +19,9 @@ run (a run directory with `labels.json`) exports its `checkpoints/final`
 
     python -m tests.test_torch_checkpoints export runs/detector_long build/weights/detector_long@12000.npz
 
-The trained pipeline (`runs/coarse_dr` + `runs/refiner_dr`, f32, at the
-240x320 that their spatial heads fix, SO(3) grid 72) runs in both packages
+The trained pipeline (`runs/coarse_dr` + `runs/refiner_dr`, read from the
+run directories, f32, at the 240x320 that their spatial heads fix, SO(3)
+grid 72) runs in both packages
 on committed frames of `runs/ar_dr/synthdemo` (read by the port's PNG
 decoder, boxes from `scene_gt_info.json` `bbox_visib`, textured models).
 Tolerances: the top-K ids equal; coarse logits within 0.05 and 90% of them
@@ -75,6 +80,12 @@ def jax_params(run_dir: str | Path, compute_dtype: str | None = None, step: int 
     return jmodel, jax.tree.map(np.asarray, state.params)
 
 
+def jax_config(run_dir: str | Path):
+    from megapose6d_tpu.training.config import load_config
+
+    return load_config(Path(run_dir) / "config.json")
+
+
 def flatten(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -114,7 +125,7 @@ def export_params(run_dir: str | Path, out: str | Path, step: int | None = None)
 def exported(tmp_path_factory):
     """Both runs exported once: {run: (JAX model, params, npz path)}."""
     d = tmp_path_factory.mktemp("weights")
-    out = {}
+    out = {"dir": d}
     for run in ("coarse_dr", "refiner_dr"):
         jmodel, params = jax_params(RUNS / run, compute_dtype="float32")
         path = d / f"{run}.npz"
@@ -160,16 +171,94 @@ def test_export_at_a_named_step(tmp_path, exported):
     assert len(differ) > len(at) // 2, len(differ)
 
 
-def test_seeded_models_without_npz():
+def test_seeded_models_without_npz(caplog):
+    """Weights are drawn from the seed only without a run directory and
+    without weights, as the JAX package initialises only without a run;
+    a run directory without a checkpoint raises."""
     from megapose6d_tpu_torch.inference.load_model import build_model
     from megapose6d_tpu_torch.models.pose_predictor import make_coarse_config
 
-    a = build_model(RUNS / "coarse_dr", None, make_coarse_config, seed=3, device="cpu")
-    b = build_model(RUNS / "coarse_dr", None, make_coarse_config, seed=3, device="cpu")
-    c = build_model(None, None, make_coarse_config, render_size=(48, 64), seed=3, device="cpu")
-    assert a.cfg.backbone == "resnet18-spatial" and c.cfg.render_size == (48, 64)
+    with caplog.at_level("WARNING"):
+        a = build_model(None, None, make_coarse_config, render_size=(48, 64), seed=3, device="cpu")
+    assert "drawn from seed 3" in caplog.text
+    b = build_model(None, None, make_coarse_config, render_size=(48, 64), seed=3, device="cpu")
+    c = build_model(None, None, make_coarse_config, render_size=(48, 64), seed=4, device="cpu")
+    assert a.cfg.backbone == make_coarse_config().backbone and a.cfg.render_size == (48, 64)
     for k, v in a.state_dict().items():
         assert torch.equal(v, b.state_dict()[k]), k
+    assert any(not torch.equal(v, c.state_dict()[k]) for k, v in a.state_dict().items())
+
+
+def test_run_directory_without_a_checkpoint_raises(tmp_path):
+    from megapose6d_tpu_torch.inference.load_model import build_model
+
+    (tmp_path / "run").mkdir()
+    (tmp_path / "run/config.json").write_text((RUNS / "coarse_dr/config.json").read_text())
+    with pytest.raises(FileNotFoundError):
+        build_model(tmp_path / "run", None, None, device="cpu")
+    (tmp_path / "run/checkpoints").mkdir()
+    (tmp_path / "run/checkpoints/latest.txt").write_text("7")
+    with pytest.raises(FileNotFoundError, match="no checkpoint 7"):
+        build_model(tmp_path / "run", None, None, device="cpu")
+
+
+def test_run_directories_give_the_exports_weights(exported, caplog):
+    """`build_model` of a JAX run directory (its latest.txt) and of an
+    orbax checkpoint directory, and `load_detector` of the detector's run
+    (`checkpoints/final`), equal the npz exports of the JAX package's
+    restore bit for bit, with no seeded weights."""
+    from megapose6d_tpu_torch.evaluation.evaluation import load_detector
+    from megapose6d_tpu_torch.inference.load_model import build_model
+    from megapose6d_tpu_torch.interop.from_jax import detector_state_dict_from_jax
+
+    with caplog.at_level("WARNING"):
+        for run in ("coarse_dr", "refiner_dr"):
+            want = build_model(RUNS / run, exported[run][2], None, device="cpu").state_dict()
+            latest = RUNS / run / "checkpoints" / f"epoch_{(RUNS / run / 'checkpoints/latest.txt').read_text()}"
+            for got in (build_model(RUNS / run, None, None, device="cpu"),
+                        build_model(RUNS / run, latest, None, device="cpu")):
+                assert got.state_dict().keys() == want.keys()
+                assert all(torch.equal(got.state_dict()[k], want[k]) for k in want), run
+        at = build_model(RUNS / "refiner_dr", RUNS / "refiner_dr/checkpoints/epoch_24000", None, device="cpu")
+        npz = export_params(RUNS / "refiner_dr", exported["dir"] / "r@24000.npz", step=24000)
+        want = build_model(RUNS / "refiner_dr", npz, None, device="cpu").state_dict()
+        assert all(torch.equal(at.state_dict()[k], want[k]) for k in want)
+        det = load_detector(RUNS / "detector_long", device="cpu").model.state_dict()
+        want = detector_state_dict_from_jax(jax_detector_params(RUNS / "detector_long")[1])
+        assert det.keys() == want.keys() and all(torch.equal(det[k], want[k]) for k in want)
+    assert "seed" not in caplog.text
+
+
+def test_train_state_restored_from_a_jax_run(exported):
+    """A port `TrainState` restored from `runs/refiner_dr` at step 27000
+    holds the JAX restore's params, Adam's moments and count (optax's
+    `opt_state[1][0]`, renamed and transposed as the params are) and the
+    step, bit for bit; a params-only restore leaves Adam fresh."""
+    from megapose6d_tpu.training.train import TrainState as JTrainState
+    from megapose6d_tpu.training.train import load_checkpoint as jload_checkpoint
+    from megapose6d_tpu.training.train import make_optimizer
+    from megapose6d_tpu_torch.interop.from_jax import state_dict_from_jax
+    from megapose6d_tpu_torch.training import train as tt
+    from megapose6d_tpu_torch.training.config import load_config
+
+    jmodel, params = exported["refiner_dr"][:2]
+    jcfg = jax_config(RUNS / "refiner_dr")
+    jstate = JTrainState.create(apply_fn=jmodel.apply, params=params, tx=make_optimizer(jcfg, 1))
+    jstate, _ = jload_checkpoint(RUNS / "refiner_dr", jstate, epoch=27000)
+    adam = jstate.opt_state[1][0]
+    state = tt.create_train_state(load_config(RUNS / "refiner_dr/config.json"), device="cpu")
+    state, epoch = tt.load_checkpoint(RUNS / "refiner_dr", state, epoch=27000)
+    assert epoch == 27000 and state.step == int(jstate.step) == 27000
+    assert state.opt_state["count"] == int(adam.count) == 3000
+    names = [n for n, _ in state.model.named_parameters()]
+    for got, want in ((dict(zip(names, state.params)), state_dict_from_jax(jax.tree.map(np.asarray, jstate.params))),
+                      (dict(zip(names, state.opt_state["mu"])), state_dict_from_jax(jax.tree.map(np.asarray, adam.mu))),
+                      (dict(zip(names, state.opt_state["nu"])), state_dict_from_jax(jax.tree.map(np.asarray, adam.nu)))):
+        assert all(torch.equal(got[n], want[n]) for n in names)
+    fresh = tt.create_train_state(load_config(RUNS / "refiner_dr/config.json"), device="cpu")
+    fresh = tt.load_pretrained(RUNS / "refiner_dr", fresh)
+    assert fresh.step == 0 and fresh.opt_state["count"] == 0 and not any(m.any() for m in fresh.opt_state["mu"])
+    assert all(torch.equal(a, b) for a, b in zip(fresh.params, tt.load_checkpoint(RUNS / "refiner_dr", fresh)[0].params))
 
 
 def frames(view_ids, n_det):
@@ -203,12 +292,11 @@ def run_pipelines(exported, view_ids, n_det, icfg):
     from megapose6d_tpu_torch.ops._precision import pin_f32
 
     pin_f32()
-    (jc, cparams, cpath), (jr, rparams, rpath) = exported["coarse_dr"], exported["refiner_dr"]
+    (jc, cparams, _), (jr, rparams, _) = exported["coarse_dr"], exported["refiner_dr"]
     jdb = JMeshDataBase.from_object_ds(jload_objects(SCENE / "models")).batched()
     jest = JPoseEstimator(jc, cparams, jr, rparams, jdb, JInferenceConfig(**icfg))
-    coarse, refiner, tdb = load_or_init_models(
-        load_bop_object_dataset(SCENE / "models"), RUNS / "coarse_dr", RUNS / "refiner_dr",
-        cpath, rpath, device="cpu")
+    coarse, refiner, tdb = load_or_init_models(  # the run directories' latest checkpoints, as the JAX export's
+        load_bop_object_dataset(SCENE / "models"), RUNS / "coarse_dr", RUNS / "refiner_dr", device="cpu")
     f32 = lambda m: PosePredictor(PosePredictorConfig(**{**m.cfg.__dict__, "compute_dtype": "float32"}))
     models = []
     for m in (coarse, refiner):

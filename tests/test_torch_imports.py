@@ -1,5 +1,5 @@
-"""Import hygiene of the port: with JAX, flax, orbax, pandas, PIL and the
-JAX package blocked, every module of `megapose6d_tpu_torch` and
+"""Import hygiene of the port: with JAX, flax, orbax, tensorstore,
+zstandard, pandas, PIL and the JAX package blocked, every module of `megapose6d_tpu_torch` and
 `chip_smoke` imports; and the port's entry points default to `cuda`."""
 
 import inspect
@@ -12,7 +12,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 BLOCKER = r"""
 import importlib.abc, importlib.util, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "PIL", "megapose6d_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "pandas", "PIL",
+           "megapose6d_tpu")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -66,7 +67,8 @@ def test_port_imports_without_jax_pandas_or_pil():
         "megapose6d_tpu_torch.data.modelnet",
         "megapose6d_tpu_torch.parallel.distributed", "megapose6d_tpu_torch.parallel.mesh",
         "megapose6d_tpu_torch.meshes.sharded_db", "megapose6d_tpu_torch.interop.torch_convert",
-        "megapose6d_tpu_torch.scripts.test_distributed",
+        "megapose6d_tpu_torch.scripts.test_distributed", "megapose6d_tpu_torch.utils.ocdbt",
+        "megapose6d_tpu_torch.interop.orbax", "megapose6d_tpu_torch.scripts.slim_run_dir",
     }
     assert expected <= set(out["modules"])
 
