@@ -237,7 +237,22 @@ Phases, each printing one line with its wall time:
      checkpoint the ms, MB decompressed and MB/s, and a params-only read of
      refiner_dr@27000 when it is in the copy. `python3 chip_smoke.py
      checkpoints [runs/<run>/checkpoints/<step> ...]` runs this phase
-     alone, on the named checkpoints (each must be in the copy).
+     alone, on the named checkpoints (each must be in the copy), and then
+     phase 24's slimming of those that are a pose run's `epoch_N`
+     (refiner_dr@27000 and @30000 hold Adam's state);
+ 24. write: the five served pose checkpoints (STEPS), each the
+     `latest.txt` checkpoint of a run directory copied into a temporary
+     directory outside the copy and slimmed by the port's `slim_run_dir`
+     (read, `write_checkpoint` with `native/zstd.cc`'s encoder and
+     `utils/ocdbt.write_ocdbt`, on this machine's CPU), and the detector's
+     `final` written again by `write_checkpoint`: every array of each
+     result against hashes.json and bit for bit against `read_checkpoint`
+     of the original, the write's ms and MB/s, the bytes on disk against
+     the original's; then phase 4's request served on the card from the
+     slimmed coarse_dr and refiner_dr (K1 at B=576 / 20 / 10, its
+     launches counted and held bit for bit against the plain twin), its
+     poses bit for bit those of phase 4's estimator on the committed
+     checkpoints.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 
@@ -256,6 +271,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -4471,6 +4487,139 @@ def phase_checkpoints(names: list[str] | None = None) -> None:
         print(f"  params-only read of refiner_dr@27000: {len(params)} arrays, {mb:.2f} MB in {ms:.1f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: orbax checkpoints written by the port
+# ---------------------------------------------------------------------------
+
+def disk_mb(path: Path) -> float:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e6
+
+
+def check_written(name: str, original: Path, written: Path, tree: dict, hashes: dict) -> None:
+    """Every array of `written` against hashes.json's entry for `original`,
+    and against `tree` (the original's read of the same top-level keys):
+    the same names, dtypes and shapes, bit for bit."""
+    from megapose6d_tpu_torch.interop.orbax import array_leaves, read_checkpoint
+
+    got, want = array_leaves(read_checkpoint(written)), array_leaves(tree)
+    hashed = hashes[str(original.relative_to(ROOT))]
+    bad = [k for k, a in got.items() if k not in hashed or [a.dtype.name, list(a.shape),
+           hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()] != hashed[k]]
+    check(got and not bad, f"{name}: {len(bad)} arrays differ from hashes.json, e.g. {bad[:3]}")
+    check(got.keys() == want.keys() and all(got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+                                            and got[k].tobytes() == want[k].tobytes() for k in want),
+          f"{name}: the written checkpoint does not read back as the original")
+
+
+def slim_checkpoints(paths: list[Path], tmp: Path, hashes: dict) -> dict[str, Path]:
+    """Each pose checkpoint `runs/<run>/checkpoints/epoch_N` of `paths`, as
+    the `latest.txt` checkpoint of a run directory under `tmp`, slimmed by
+    the port's `slim_run_dir` and held against hashes.json and the
+    original's params (and step); the slim's `write_checkpoint` call
+    timed on its own. Returns the slimmed run directories by run name."""
+    from megapose6d_tpu_torch.interop.orbax import array_leaves, read_checkpoint, top_level_keys
+    from megapose6d_tpu_torch.scripts import slim_run_dir as slim_module
+
+    write_ms: list[float] = []
+    write_checkpoint = slim_module.write_checkpoint
+
+    def timed_write(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = write_checkpoint(*args, **kwargs)
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    runs = {}
+    for path in paths:
+        run_name, step = path.parents[1].name, path.name.removeprefix("epoch_")
+        run = tmp / f"{run_name}@{step}"
+        (run / "checkpoints").mkdir(parents=True)
+        shutil.copy(path.parents[1] / "config.json", run / "config.json")
+        shutil.copytree(path, run / "checkpoints" / path.name)
+        (run / "checkpoints/latest.txt").write_text(step)
+        keys = [k for k in ("params", "step") if k in top_level_keys(path)]
+        tree = read_checkpoint(path, prefixes=keys)
+        raw_mb = sum(a.nbytes for a in array_leaves(tree).values()) / 1e6
+        write_ms.clear()
+        slim_module.write_checkpoint = timed_write
+        try:
+            t0 = time.perf_counter()
+            kept = slim_module.slim_run_dir(run)
+            slim_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            slim_module.write_checkpoint = write_checkpoint
+        check(len(write_ms) == 1, f"{run_name}@{step}: slim_run_dir wrote {len(write_ms)} checkpoints")
+        check(kept == run / "checkpoints" / path.name, f"{run_name}@{step}: slim_run_dir kept {kept}")
+        check(sorted(p.name for p in (run / "checkpoints").iterdir()) == [path.name, "latest.txt"],
+              f"{run_name}@{step}: slim_run_dir left {sorted(p.name for p in (run / 'checkpoints').iterdir())}")
+        check_written(f"{run_name}@{step} slimmed", path, kept, tree, hashes)
+        print(f"  {run_name}@{step} ({'+'.join(top_level_keys(path))}): slimmed in {slim_ms:.1f} ms (read, write, "
+              f"swap); its write {write_ms[0]:.1f} ms, {raw_mb:.2f} MB raw, {raw_mb / write_ms[0] * 1e3:.1f} MB/s; "
+              f"{disk_mb(path):.2f} MB on disk -> {disk_mb(kept):.2f} MB ({disk_mb(kept) / disk_mb(path):.4f}); "
+              f"every array equals hashes.json and the original's", flush=True)
+        runs[run_name] = run
+    return runs
+
+
+def phase_write(errors: list[float], est, requests) -> int:
+    """Phase 24: the served checkpoints slimmed and written by the port,
+    then phase 4's request from the slimmed runs. Returns K1's launches on
+    that path."""
+    from megapose6d_tpu_torch import native
+    from megapose6d_tpu_torch.interop.orbax import array_leaves, read_checkpoint, write_checkpoint
+
+    t0 = time.perf_counter()
+    native.encode_zstd(b"")  # builds and loads zstd.cc
+    print(f"  zstd.cc ready in {time.perf_counter() - t0:.2f} s; {nvidia_smi()}", flush=True)
+    hashes = json.loads(CHECKPOINT_HASHES.read_text())
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_write_"))
+    try:
+        runs = slim_checkpoints([ckpt(run) for run in STEPS], tmp, hashes)
+        tree = read_checkpoint(DETECTOR_CKPT)
+        t0 = time.perf_counter()
+        written = write_checkpoint(tmp / "detector_final", tree)
+        ms = (time.perf_counter() - t0) * 1e3
+        check_written("detector final written again", DETECTOR_CKPT, written, tree, hashes)
+        mb = sum(a.nbytes for a in array_leaves(tree).values()) / 1e6
+        print(f"  detector_long final written again: {ms:.1f} ms, {mb:.2f} MB raw, {mb / ms * 1e3:.1f} MB/s; "
+              f"{disk_mb(DETECTOR_CKPT):.2f} MB on disk -> {disk_mb(written):.2f} MB; every array equals "
+              "hashes.json and the original's", flush=True)
+
+        slim = PoseEstimator(build_model(runs["coarse_dr"], None, None, device="cuda"),
+                             build_model(runs["refiner_dr"], None, None, device="cuda"), est.mesh_db, est.cfg,
+                             device="cuda")
+        served = requests[1:]
+        want = [est.run_inference_pipeline(obs, dets)[0].poses.clone() for obs, dets in served]
+        captured: list = []
+        restore = record_visibility_inputs(captured)
+        rt.visibility_kernel.launches = 0  # the slimmed runs' path starts here
+        try:
+            got = []
+            for obs, dets in served:
+                t0 = time.perf_counter()
+                got.append(slim.run_inference_pipeline(obs, dets)[0].poses.clone())
+                torch.cuda.synchronize()
+                print(f"  request from the slimmed runs: {len(dets)} detections, {time.perf_counter() - t0:.4f} s",
+                      flush=True)
+        finally:
+            rt.visibility = restore
+        launches = rt.visibility_kernel.launches  # read right after the path
+        expected = sum(len(launch_phases(len(dets), est.cfg)) for _, dets in served)
+        check(launches == expected, f"the slimmed runs' path launched K1 {launches} times, expected {expected}")
+        worst = 0.0
+        for vis in captured:
+            errors.append(compare_visibility(rt.visibility_kernel(*vis), rt.visibility_plain(*vis)))
+            worst = max(worst, errors[-1])
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"  phase 4's request ({len(served)} frames) from the slimmed coarse_dr and refiner_dr: poses bit for "
+              f"bit those from the committed checkpoints {same}; K1 launches {launches} (expected {expected}), held "
+              f"against the plain twin, max_abs_err {worst:.3g}", flush=True)
+        check(same, "the slimmed checkpoints' poses differ from the committed checkpoints'")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main(full: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4532,6 +4681,8 @@ def main(full: bool = False) -> int:
         format_launches, format_shapes = phase_image_formats(errors, est, requests, db_kw)
     with Phase("checkpoints: the JAX package's orbax checkpoints"):
         phase_checkpoints()
+    with Phase("write: orbax checkpoints slimmed and written by the port"):
+        write_launches = phase_write(errors, est, requests)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
@@ -4549,14 +4700,15 @@ def main(full: bool = False) -> int:
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
         + serve_launches + dataset_launches + sum(multi_launches.values()) + sum(last_launches.values())
-        + sum(format_launches.values()),
+        + sum(format_launches.values()) + write_launches,
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
                              "production": prod_launches, "demo_finalize": final_launches,
                              "scene_gen": gen_launches, "detector": det_launches,
                              "detector_serving": serve_launches, "train_datasets": dataset_launches,
-                             **multi_launches, **last_launches, **format_launches},
+                             **multi_launches, **last_launches, **format_launches,
+                             "slimmed_checkpoints": write_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,
@@ -4605,6 +4757,14 @@ if __name__ == "__main__":
             sys.exit("chip_smoke: CUDA is not available")
         with Phase("checkpoints: the JAX package's orbax checkpoints"):
             phase_checkpoints(sys.argv[2:] or None)
+        poses = [ROOT / p for p in sys.argv[2:] if (ROOT / p).name.startswith("epoch_")]
+        if poses:
+            with Phase("write: the named pose checkpoints slimmed by the port"):
+                tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_write_"))
+                try:
+                    slim_checkpoints(poses, tmp, json.loads(CHECKPOINT_HASHES.read_text()))
+                finally:
+                    shutil.rmtree(tmp, ignore_errors=True)
         sys.exit(0)
     if sys.argv[1:] not in ([], ["full"]):
         sys.exit("usage: python3 chip_smoke.py [full | checkpoints [runs/<run>/checkpoints/<step> ...] | dp-repeat N]")

@@ -1,5 +1,5 @@
-"""Read the JAX package's orbax checkpoints, with neither orbax nor
-tensorstore.
+"""Read and write the JAX package's orbax checkpoints, with neither orbax
+nor tensorstore.
 
 A checkpoint directory (`<run>/checkpoints/epoch_<N>`, a detector run's
 `final` or `step_<N>`), as orbax's `StandardCheckpointer` writes it, holds:
@@ -13,8 +13,10 @@ A checkpoint directory (`<run>/checkpoints/epoch_<N>`, a detector run's
     (`native/zstd.cc`).
 
     read_checkpoint(path, prefixes=None) -> {"params": ..., "opt_state": ..., "step": ...}
+    write_checkpoint(path, tree)
     array_leaves(tree) -> {"params.params.backbone.Conv_0.kernel": array, ...}
     is_orbax_checkpoint(path) -> bool
+    top_level_keys(path) -> ["opt_state", "params", "step"]
 
 `read_checkpoint` builds the tree from the key tuples: a dict under mapping
 keys, a list under sequence indices (optax's tuples, so `opt_state[1][0]`
@@ -26,6 +28,20 @@ them; the data files of the others are not read. Arrays are read and
 decoded in up to 8 threads. Refuses a checkpoint that
 is not an OCDBT zarr v2 one, filters, compressors other than zstd and
 chunks that are missing, with a message.
+
+`write_checkpoint` is its inverse, and writes what orbax 0.11's
+`StandardCheckpointer().save` writes for a tree of numpy arrays (held
+against orbax's own save in `tests/test_torch_orbax_write.py`): the tree's
+dicts (string keys, in sorted order) and lists or tuples, its leaves numpy
+arrays ("np.ndarray") and Python bools, ints and floats ("scalar"; stored as
+bool, int64 and float64), None and empty containers stored as nothing
+("None", "Dict", "List", "Tuple"); each array one zarr v2 chunk in
+little-endian C order, compressed by `native.encode_zstd` under orbax's
+`{"id": "zstd", "level": 1}`, in an OCDBT store (`utils/ocdbt.write_ocdbt`)
+beside `_METADATA` and `_CHECKPOINT_METADATA`. It writes into
+`<path>.orbax-checkpoint-tmp` and renames that to `path` at the end, as
+orbax finalizes a checkpoint; arrays of no elements are refused, as orbax
+refuses them.
 """
 
 from __future__ import annotations
@@ -33,6 +49,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
+import time
 from concurrent.futures import ThreadPoolExecutor
 from itertools import product
 from pathlib import Path
@@ -41,9 +59,12 @@ from typing import Any, Iterable
 import numpy as np
 
 from .. import native
-from ..utils.ocdbt import OcdbtStore
+from ..utils.ocdbt import OcdbtStore, write_ocdbt
 
-_SEQUENCE = 1  # orbax's KeyType.SEQUENCE; 2 is KeyType.DICT
+_SEQUENCE, _MAPPING = 1, 2  # orbax's KeyType.SEQUENCE and KeyType.DICT
+_EMPTY = {"Dict": dict, "List": list, "Tuple": tuple}  # the value types of empty containers
+_COMPRESSOR = {"id": "zstd", "level": 1}
+_HANDLER = "orbax.checkpoint._src.handlers.standard_checkpoint_handler.StandardCheckpointHandler"
 
 
 def is_orbax_checkpoint(path: str | Path) -> bool:
@@ -52,17 +73,24 @@ def is_orbax_checkpoint(path: str | Path) -> bool:
     return (path / "_METADATA").is_file() and (path / "manifest.ocdbt").is_file()
 
 
-def _leaves(path: Path) -> list[tuple[tuple[Any, ...], str | None]]:
-    """(key tuple, array name or None for a "None" leaf) of each leaf."""
+def _leaves(path: Path) -> list[tuple[tuple[Any, ...], str | None, str]]:
+    """(key tuple, array name or None for a leaf that stores nothing, value
+    type) of each leaf."""
     meta = json.loads((path / "_METADATA").read_text())
     if not meta.get("use_ocdbt", True) or meta.get("use_zarr3", False):
         raise ValueError(f"{path}: only OCDBT checkpoints of zarr v2 arrays are read")
     leaves = []
     for entry in meta["tree_metadata"].values():
         keys = tuple(int(k["key"]) if k["key_type"] == _SEQUENCE else str(k["key"]) for k in entry["key_metadata"])
-        stored = entry["value_metadata"]["value_type"] != "None" and not entry["value_metadata"]["skip_deserialize"]
-        leaves.append((keys, ".".join(str(k) for k in keys) if stored else None))
+        value_type = entry["value_metadata"]["value_type"]
+        stored = value_type != "None" and not entry["value_metadata"]["skip_deserialize"]
+        leaves.append((keys, ".".join(str(k) for k in keys) if stored else None, value_type))
     return leaves
+
+
+def top_level_keys(path: str | Path) -> list[str]:
+    """The first keys of a checkpoint's leaves (`params`, `step`, ...), sorted."""
+    return sorted({str(keys[0]) for keys, _, _ in _leaves(Path(path))})
 
 
 def _assemble(leaves: Iterable[tuple[tuple[Any, ...], Any]]) -> Any:
@@ -90,7 +118,7 @@ def _assemble(leaves: Iterable[tuple[tuple[Any, ...], Any]]) -> Any:
 def array_leaves(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
     """The arrays of a `read_checkpoint` tree by orbax's names (the keys
     joined with ".")."""
-    if isinstance(tree, (dict, list)):
+    if isinstance(tree, (dict, list, tuple)):
         items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out: dict[str, np.ndarray] = {}
         for k, v in items:
@@ -144,11 +172,92 @@ def read_checkpoint(path: str | Path, prefixes: Iterable[str] | None = None) -> 
     if not is_orbax_checkpoint(path):
         raise FileNotFoundError(f"{path} is not an orbax checkpoint (no _METADATA and manifest.ocdbt)")
     keep = None if prefixes is None else set(prefixes)
-    leaves = [(keys, name) for keys, name in _leaves(path) if keep is None or keys[0] in keep]
-    if keep is not None and not keep <= {keys[0] for keys, _ in leaves}:
-        raise KeyError(f"{path} has no {sorted(keep - {keys[0] for keys, _ in leaves})}")
+    leaves = [leaf for leaf in _leaves(path) if keep is None or leaf[0][0] in keep]
+    if keep is not None and not keep <= {keys[0] for keys, _, _ in leaves}:
+        raise KeyError(f"{path} has no {sorted(keep - {keys[0] for keys, _, _ in leaves})}")
     store = OcdbtStore(path)
-    names = [name for _, name in leaves if name is not None]
+    names = [name for _, name, _ in leaves if name is not None]
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:  # the decoder releases the GIL
         arrays = dict(zip(names, pool.map(lambda name: read_array(store, name), names)))
-    return _assemble((keys, None if name is None else arrays[name]) for keys, name in leaves)
+    def value(name: str | None, kind: str) -> Any:
+        if name is not None:
+            return arrays[name]
+        return _EMPTY[kind]() if kind in _EMPTY else None
+
+    return _assemble((keys, value(name, kind)) for keys, name, kind in leaves)
+
+
+def _flatten(tree: Any, keys: tuple = ()) -> list[tuple[tuple, tuple, Any]]:
+    """(keys, key types, leaf) in the order orbax lists a tree: dict keys
+    sorted, sequences by index; an empty container is a leaf."""
+    if isinstance(tree, dict) and tree:
+        if not all(isinstance(k, str) for k in tree):
+            raise TypeError(f"checkpoint dict keys must be strings, found {sorted(map(repr, tree))}")
+        return [leaf for k in sorted(tree) for leaf in _flatten(tree[k], keys + ((k, _MAPPING),))]
+    if isinstance(tree, (list, tuple)) and tree:
+        return [leaf for i, v in enumerate(tree) for leaf in _flatten(v, keys + ((i, _SEQUENCE),))]
+    return [(tuple(k for k, _ in keys), tuple(t for _, t in keys), tree)]
+
+
+def _leaf_array(leaf: Any, name: str) -> tuple[str, np.ndarray | None]:
+    """(orbax's value type, the array to store or None) of a leaf."""
+    if leaf is None:
+        return "None", None
+    for kind, container in _EMPTY.items():
+        if isinstance(leaf, container):
+            return kind, None
+    if isinstance(leaf, (np.ndarray, np.generic)):  # before float: np.float64 is one
+        kind, array = "np.ndarray", np.asarray(leaf)
+    elif isinstance(leaf, (bool, int, float)):
+        kind, array = "scalar", np.asarray(leaf, np.bool_ if isinstance(leaf, bool) else
+                                          np.int64 if isinstance(leaf, int) else np.float64)
+    else:
+        raise TypeError(f"{name}: a checkpoint leaf is a numpy array, bool, int, float or None, not "
+                        f"{type(leaf).__name__}")
+    if array.dtype.kind not in "biuf":
+        raise TypeError(f"{name}: dtype {array.dtype} is not written")
+    if array.size == 0:
+        raise ValueError(f"{name}: cannot save arrays with zero size (orbax refuses them too)")
+    return kind, np.asarray(array, array.dtype.newbyteorder("<"), order="C")  # 0-d stays 0-d
+
+
+def write_checkpoint(path: str | Path, tree: Any) -> Path:
+    """Write `tree` (nested dicts and lists of numpy arrays and scalars) as
+    the orbax checkpoint directory `path`, which must not exist yet; returns
+    `path`. `read_checkpoint`, orbax and tensorstore read it back."""
+    path = Path(path)
+    if path.exists():
+        raise FileExistsError(f"{path} exists")
+    started = time.time_ns()
+    tree_meta, arrays = {}, {}
+    for keys, types, leaf in _flatten(tree):
+        name = ".".join(str(k) for k in keys)
+        kind, array = _leaf_array(leaf, name)
+        tree_meta[str(tuple(str(k) for k in keys))] = {
+            "key_metadata": [{"key": str(k), "key_type": t} for k, t in zip(keys, types)],
+            "value_metadata": {"value_type": kind, "skip_deserialize": array is None},
+        }
+        if array is not None:
+            arrays[name] = array
+    items = {}
+    for name, array in arrays.items():
+        shape = list(array.shape)
+        items[f"{name}/.zarray"] = json.dumps(
+            {"chunks": shape, "compressor": _COMPRESSOR, "dimension_separator": ".", "dtype": array.dtype.str,
+             "fill_value": None, "filters": None, "order": "C", "shape": shape, "zarr_format": 2},
+            sort_keys=True, separators=(",", ":")).encode()
+    chunk_keys = [f"{name}/{'.'.join('0' for _ in a.shape) or '0'}" for name, a in arrays.items()]
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:  # the encoder releases the GIL
+        items.update(zip(chunk_keys, pool.map(native.encode_zstd, arrays.values())))
+    tmp = path.with_name(path.name + ".orbax-checkpoint-tmp")
+    if tmp.exists():
+        shutil.rmtree(tmp)  # a write that did not finish
+    write_ocdbt(tmp, items)
+    (tmp / "_METADATA").write_text(json.dumps({
+        "tree_metadata": tree_meta, "use_ocdbt": True, "use_zarr3": False,
+        "store_array_data_equal_to_fill_value": True, "custom_metadata": None}))
+    (tmp / "_CHECKPOINT_METADATA").write_text(json.dumps({
+        "item_handlers": _HANDLER, "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": started,
+        "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}}))
+    tmp.rename(path)
+    return path

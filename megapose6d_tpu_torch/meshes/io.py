@@ -588,6 +588,27 @@ def _textured_cone(radius: float, height: float, n_seg: int, seed: int) -> TriMe
                    vertex_uvs=np.asarray(uvs, np.float32), texture=make_random_texture(seed)).with_computed_normals()
 
 
+def make_axes(length: float = 0.1, radius_ratio: float = 0.03) -> TriMesh:
+    """RGB x, y, z axes as one mesh: three cylinders of `make_cylinder`
+    (12 segments), each with its base at the origin."""
+    r = length * radius_ratio
+    verts, faces, colors, offset = [], [], [], 0
+    for axis, color in ((0, (0.9, 0.1, 0.1)), (1, (0.1, 0.9, 0.1)), (2, (0.1, 0.1, 0.9))):
+        cyl = make_cylinder(r, length, 12, color)
+        v = cyl.vertices.copy()
+        v[:, 2] += length / 2  # base at the origin
+        if axis == 0:
+            v = v[:, [2, 1, 0]] * np.asarray([1, 1, -1], np.float32)
+        elif axis == 1:
+            v = v[:, [0, 2, 1]] * np.asarray([1, 1, -1], np.float32)
+        verts.append(v)
+        faces.append(cyl.faces + offset)
+        colors.append(cyl.vertex_colors)
+        offset += len(v)
+    return TriMesh(np.concatenate(verts), np.concatenate(faces).astype(np.int32),
+                   vertex_colors=np.concatenate(colors)).with_computed_normals()
+
+
 def save_ply(mesh: TriMesh, path: str | Path) -> Path:
     """ASCII PLY: positions, normals (computed if absent), uint8 vertex
     colours when present and, for a textured mesh, `texture_u` /

@@ -12,10 +12,10 @@ and three of its own, which need only a compiler:
     output (baseline, extended and progressive, Huffman or arithmetic
     coded, 8-bit, grey or 3 components), a batch in threads;
   - `tiff.cc`: TIFF's LZW and PackBits strips, for `utils/tiff.py`;
-  - `zstd.cc`: a Zstandard decoder (RFC 8878) and CRC32C, for the orbax
-    checkpoints' OCDBT stores (`utils/ocdbt.py`, `interop/orbax.py`); it
-    has no fallback, so without a compiler a read raises with the
-    compiler's message.
+  - `zstd.cc`: a Zstandard decoder and encoder (RFC 8878) and CRC32C, for
+    the orbax checkpoints' OCDBT stores (`utils/ocdbt.py`,
+    `interop/orbax.py`); it has no fallback, so without a compiler a read
+    or a write raises with the compiler's message.
 Each is compiled with `g++` at first use into `build/` at the repository
 root (named by the hash of its source and flags; the JAX package's
 libraries are never loaded), then bound with ctypes. Without libpng and
@@ -27,12 +27,14 @@ through `utils/tiff.py`. Without `meshproc`,
 `meshes/io.simplify_vertex_clustering` runs its numpy twin.
 
     available() -> bool
+    supports(data: bytes) -> bool              # PNG or JPEG: what decode.cc reads
     decoder() -> "native", "png.py + unfilter.cc, jpeg.cc", ... or "png.py"
     decode_image(data: bytes) -> np.ndarray   # [H, W, C] u8, [H, W] u8 or u16
     decode_batch(list[bytes], n_threads=0) -> list[np.ndarray]
     decode_jpeg(data: bytes) -> np.ndarray     # always jpeg.cc
     decode_zstd(data: bytes, max_size: int) -> bytes
     decode_zstd_into(data: bytes, out: np.ndarray) -> int   # bytes written
+    encode_zstd(data) -> bytes                 # one frame
     crc32c(data: bytes) -> int
     meshproc_available() -> bool
     simplify_mesh(verts, faces, colors, target_faces) -> (verts, faces, colors | None)
@@ -122,6 +124,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.mp_zstd_decode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.POINTER(ctypes.c_long),
                                        ctypes.c_char_p, ctypes.c_int]
         lib.mp_zstd_decode.restype = ctypes.c_int
+        lib.mp_zstd_encode_bound.argtypes = [ctypes.c_long]
+        lib.mp_zstd_encode_bound.restype = ctypes.c_long
+        lib.mp_zstd_encode.argtypes = [u8p, ctypes.c_long, u8p, ctypes.c_long, ctypes.c_char_p, ctypes.c_int]
+        lib.mp_zstd_encode.restype = ctypes.c_long
         lib.mp_crc32c.argtypes = [u8p, ctypes.c_long]
         lib.mp_crc32c.restype = ctypes.c_uint
     elif name == "unfilter":
@@ -164,6 +170,14 @@ def _load(name: str) -> ctypes.CDLL | None:
 def available() -> bool:
     """True when the native decoder is built and loaded."""
     return _load("decode") is not None
+
+
+def supports(data: bytes) -> bool:
+    """True for the formats `decode.cc` reads, PNG and JPEG, by their magic
+    bytes. `decode_image` also reads TIFF (through `utils/tiff.py`), which
+    this says False to, as the JAX package's `supports` does."""
+    head = bytes(data[:4])
+    return head.startswith(b"\x89PNG") or head.startswith(b"\xff\xd8\xff")
 
 
 def decoder() -> str:
@@ -403,6 +417,21 @@ def decode_zstd_into(data: bytes, out: np.ndarray) -> int:
     if n is None:
         raise ValueError(f"zstd: the data decodes to more than {out.nbytes} bytes")
     return n
+
+
+def encode_zstd(data) -> bytes:
+    """`data` (bytes, or any C-contiguous buffer such as a numpy array) as
+    one zstd frame by `zstd.cc`'s encoder: the content size declared,
+    blocks of at most 128 KiB, each raw, RLE or compressed, whichever is
+    smallest. libzstd and `decode_zstd` decode it."""
+    lib = _required("zstd", "zstd data")
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(lib.mp_zstd_encode_bound(src.size), np.uint8)
+    msg = ctypes.create_string_buffer(_MSG)
+    n = lib.mp_zstd_encode(src.ctypes.data_as(u8p), src.size, out.ctypes.data_as(u8p), out.size, msg, _MSG)
+    if n < 0:
+        raise ValueError(f"zstd: {msg.value.decode()}")
+    return out[:n].tobytes()
 
 
 def crc32c(data: bytes) -> int:

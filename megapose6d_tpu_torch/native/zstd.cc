@@ -1,22 +1,36 @@
-// A self-contained Zstandard decoder (RFC 8878) for reading the JAX
-// package's orbax checkpoints on machines without a zstd library: every
-// array chunk and every OCDBT node of a checkpoint is a zstd frame.
+// A self-contained Zstandard codec (RFC 8878) for the JAX package's orbax
+// checkpoints on machines without a zstd library: every array chunk and
+// every OCDBT node of a checkpoint is a zstd frame.
 //
-// Decodes zstd frames (single-segment or windowed, with or without the
-// content size), raw, RLE and compressed blocks, raw / RLE / Huffman (1 or
-// 4 streams) / treeless literals, predefined / RLE / FSE / repeat sequence
+// The decoder reads zstd frames (single-segment or windowed, with or without
+// the content size), raw, RLE and compressed blocks, raw / RLE / Huffman (1
+// or 4 streams) / treeless literals, predefined / RLE / FSE / repeat sequence
 // tables with the three repeat offsets, skippable frames and any number of
 // concatenated frames, and checks the XXH64 content checksum when a frame
-// carries one. Refuses (a message and a nonzero return) dictionaries,
+// carries one. It refuses (a message and a nonzero return) dictionaries,
 // reserved bits, and input that is cut short or corrupt; it never guesses.
+//
+// The encoder writes one frame that carries its content size, in blocks of
+// at most 128 KiB, each the smallest of raw, RLE and compressed. A compressed
+// block holds the sequences of a greedy hash match finder (4-byte matches
+// within a 1 MiB window, the step growing over incompressible data), its
+// literals Huffman-coded (1 or 4 streams, the weights FSE-coded where that
+// is shorter than 4 bits a weight) and its sequence codes under the
+// predefined tables or FSE tables built for the block, whichever is
+// shorter. Any input is encoded; libzstd decodes the frames.
+//
 // Also computes CRC32C, the checksum of OCDBT's manifests and nodes.
 //
-// Every call owns its state, so callers may decode in threads. Needs only a
-// C++ compiler; C ABI, bound with ctypes
-// (megapose6d_tpu_torch/native/__init__.py).
+// Every call owns its state, so callers may encode and decode in threads
+// (ctypes releases the GIL around each call). Needs only a C++ compiler; C
+// ABI, bound with ctypes (megapose6d_tpu_torch/native/__init__.py).
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <queue>
 #include <stdexcept>
 #include <string>
 #include <vector>
@@ -752,6 +766,584 @@ size_t frame_length(const uint8_t* src, size_t len, const FrameHeader& h) {
   return p + (h.checksum ? 4 : 0);
 }
 
+// ---------------------------------------------------------------------------
+// Encoder
+// ---------------------------------------------------------------------------
+
+constexpr int kWindowLog = 20;  // matches reach back at most 1 MiB
+constexpr int kHashLog = 17;
+constexpr size_t kNoPos = SIZE_MAX;
+
+// Bits written forward, least significant first: an FSE table description
+// as it is, and, closed by a 1 bit, a backward stream (Huffman literals,
+// FSE weights, sequences), which the decoder reads from its end.
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t acc = 0;
+  int n = 0;
+  explicit BitWriter(std::vector<uint8_t>& o) : out(o) {}
+  void add(uint64_t v, int bits) {  // bits <= 32
+    acc |= (v & ((1ull << bits) - 1)) << n;
+    n += bits;
+    while (n >= 8) {
+      out.push_back((uint8_t)acc);
+      acc >>= 8;
+      n -= 8;
+    }
+  }
+  void pad() {
+    if (n) out.push_back((uint8_t)acc);
+    acc = 0;
+    n = 0;
+  }
+  void close() {
+    add(1, 1);
+    pad();
+  }
+};
+
+// The accuracy log libzstd's FSE_optimalTableLog picks for `total` symbols
+// up to `max_symbol`, within [5, max_log].
+int table_log(uint64_t total, int max_symbol, int max_log) {
+  int log = max_log;
+  const int from_src = total > 1 ? highbit(total - 1) - 2 : 0;
+  if (from_src < log) log = from_src;
+  const int min_bits = std::min(highbit(total) + 1, highbit((uint64_t)max_symbol + 1) + 2);
+  if (min_bits > log) log = min_bits;
+  return std::max(5, std::min(log, max_log));
+}
+
+// Counts scaled to sum to 2^log, at least 1 for every symbol that occurs;
+// the rounding is taken from, or given to, the largest.
+std::vector<int16_t> normalize(const uint32_t* count, int nsym, uint64_t total, int log) {
+  const int size = 1 << log;
+  std::vector<int16_t> norm(nsym, 0);
+  int sum = 0, largest = 0;
+  for (int s = 0; s < nsym; s++) {
+    if (!count[s]) continue;
+    norm[s] = (int16_t)std::max<uint64_t>(1, (count[s] * (uint64_t)size + total / 2) / total);
+    sum += norm[s];
+    if (count[s] > count[largest]) largest = s;
+  }
+  while (sum > size) {
+    int best = largest;
+    for (int s = 0; s < nsym; s++)
+      if (norm[s] > norm[best]) best = s;
+    const int take = std::min(sum - size, norm[best] - 1);
+    norm[best] = (int16_t)(norm[best] - take);
+    sum -= take;
+  }
+  norm[largest] = (int16_t)(norm[largest] + size - sum);
+  return norm;
+}
+
+// Bits that `count` costs under a table of normalized counts (-1 costs as
+// 1); infinity when a symbol that occurs has none.
+double table_cost(const uint32_t* count, int nsym, const int16_t* norm, int nnorm, int log) {
+  double bits = 0;
+  for (int s = 0; s < nsym; s++) {
+    if (!count[s]) continue;
+    if (s >= nnorm || norm[s] == 0) return 1e300;
+    bits += count[s] * (log - std::log2((double)std::max<int16_t>(norm[s], 1)));
+  }
+  return bits;
+}
+
+// The table description of RFC 8878 4.1.1: the inverse of Fse::read.
+void write_ncount(std::vector<uint8_t>& out, const std::vector<int16_t>& norm, int log) {
+  int nsym = (int)norm.size();
+  while (nsym > 0 && norm[nsym - 1] == 0) nsym--;
+  BitWriter w(out);
+  w.add(log - 5, 4);
+  int remaining = 1 << log;
+  for (int s = 0; s < nsym && remaining > 0;) {
+    const uint32_t v = (uint32_t)(norm[s] + 1);
+    const int bits = highbit((uint64_t)remaining + 1) + 1;
+    const uint32_t lower = (1u << (bits - 1)) - 1;
+    const uint32_t threshold = (1u << bits) - 1 - ((uint32_t)remaining + 1);
+    if (v < threshold)
+      w.add(v, bits - 1);
+    else if (v <= lower)
+      w.add(v, bits);
+    else
+      w.add(v + threshold, bits);
+    remaining -= norm[s] < 0 ? -norm[s] : norm[s];
+    if (norm[s++] == 0) {
+      int run = 0;
+      while (s + run < nsym && norm[s + run] == 0) run++;
+      s += run;
+      for (; run >= 3; run -= 3) w.add(3, 2);
+      w.add(run, 2);
+    }
+  }
+  w.pad();
+}
+
+// FSE compression tables (libzstd's FSE_buildCTable), the mirror of
+// Fse::build's spread.
+struct FseEnc {
+  int log = 0;
+  std::vector<uint16_t> next_state;
+  std::vector<int32_t> find;
+  std::vector<uint32_t> delta_bits;
+
+  void build(const int16_t* norm, int nsym, int accuracy_log) {
+    log = accuracy_log;
+    const uint32_t size = 1u << log, mask = size - 1, step = (size >> 1) + (size >> 3) + 3;
+    std::vector<uint8_t> symbol(size);
+    std::vector<uint32_t> cumul(nsym + 1, 0);
+    uint32_t high = size - 1;
+    for (int s = 0; s < nsym; s++) {
+      if (norm[s] == -1) {
+        cumul[s + 1] = cumul[s] + 1;
+        symbol[high--] = (uint8_t)s;
+      } else {
+        cumul[s + 1] = cumul[s] + (uint32_t)std::max<int16_t>(norm[s], 0);
+      }
+    }
+    uint32_t pos = 0;
+    for (int s = 0; s < nsym; s++) {
+      for (int i = 0; i < norm[s]; i++) {
+        symbol[pos] = (uint8_t)s;
+        do pos = (pos + step) & mask;
+        while (pos > high);
+      }
+    }
+    next_state.assign(size, 0);
+    for (uint32_t u = 0; u < size; u++) next_state[cumul[symbol[u]]++] = (uint16_t)(size + u);
+    find.assign(nsym, 0);
+    delta_bits.assign(nsym, 0);
+    int32_t total = 0;
+    for (int s = 0; s < nsym; s++) {
+      if (norm[s] == 0) {
+        delta_bits[s] = ((uint32_t)(log + 1) << 16) - size;
+      } else if (norm[s] == -1 || norm[s] == 1) {
+        delta_bits[s] = ((uint32_t)log << 16) - size;
+        find[s] = total - 1;
+        total++;
+      } else {
+        const uint32_t max_out = (uint32_t)(log - highbit((uint64_t)norm[s] - 1));
+        delta_bits[s] = (max_out << 16) - ((uint32_t)norm[s] << max_out);
+        find[s] = total - norm[s];
+        total += norm[s];
+      }
+    }
+  }
+};
+
+struct FseEncState {
+  const FseEnc* t;
+  uint32_t value = 0;
+  // The first symbol's state: the one that reads the most bits back, so
+  // that a decoder which stops on overrun stops there.
+  void init(int s) {
+    const uint32_t nb = (t->delta_bits[s] + (1u << 15)) >> 16;
+    const uint32_t v = (nb << 16) - t->delta_bits[s];
+    value = t->next_state[(v >> nb) + t->find[s]];
+  }
+  void encode(BitWriter& w, int s) {
+    const uint32_t nb = (value + t->delta_bits[s]) >> 16;
+    w.add(value, (int)nb);
+    value = t->next_state[(value >> nb) + t->find[s]];
+  }
+  void flush(BitWriter& w) const { w.add(value, t->log); }
+};
+
+// Huffman-coded literals.
+struct HufEnc {
+  uint8_t len[256] = {};
+  uint32_t code[256] = {};
+  int max_bits = 0, last = 0;  // last: the largest symbol with a code
+
+  // Code lengths of at most 11 bits from the counts (two or more symbols
+  // occur): Huffman's, then the longest ones folded up as JPEG's Annex K.3
+  // does, and handed out by frequency.
+  void build(const uint32_t* count) {
+    std::vector<uint64_t> weight;
+    std::vector<int> parent, syms;
+    for (int s = 0; s < 256; s++) {
+      if (!count[s]) continue;
+      syms.push_back(s);
+      weight.push_back(count[s]);
+      parent.push_back(-1);
+    }
+    using Item = std::pair<uint64_t, int>;
+    std::priority_queue<Item, std::vector<Item>, std::greater<Item>> heap;
+    for (size_t i = 0; i < weight.size(); i++) heap.push({weight[i], (int)i});
+    while (heap.size() > 1) {
+      const Item a = heap.top();
+      heap.pop();
+      const Item b = heap.top();
+      heap.pop();
+      const int id = (int)weight.size();
+      weight.push_back(a.first + b.first);
+      parent.push_back(-1);
+      parent[a.second] = parent[b.second] = id;
+      heap.push({weight.back(), id});
+    }
+    std::vector<int> bits(512, 0);
+    int longest = 0;
+    for (size_t i = 0; i < syms.size(); i++) {
+      int depth = 0;
+      for (int p = (int)i; parent[p] >= 0; p = parent[p]) depth++;
+      bits[depth]++;
+      longest = std::max(longest, depth);
+    }
+    for (int i = longest; i > kMaxHufBits; i--) {
+      while (bits[i] > 0) {
+        int j = i - 2;
+        while (bits[j] == 0) j--;
+        bits[i] -= 2;
+        bits[i - 1] += 1;
+        bits[j + 1] += 2;
+        bits[j] -= 1;
+      }
+    }
+    std::vector<int> order(syms);
+    std::stable_sort(order.begin(), order.end(), [&](int a, int b) { return count[a] > count[b]; });
+    size_t k = 0;
+    for (int l = 1; l <= kMaxHufBits; l++)
+      for (int i = 0; i < bits[l]; i++) len[order[k++]] = (uint8_t)l;
+    max_bits = 0;
+    for (int s = 0; s < 256; s++)
+      if (len[s]) {
+        max_bits = std::max<int>(max_bits, len[s]);
+        last = s;
+      }
+    // Codes as Huffman::build lays out its table: the longest codes first,
+    // each length in symbol order.
+    uint32_t start[kMaxHufBits + 2] = {};
+    for (int i = max_bits; i >= 1; i--) start[i - 1] = start[i] + (uint32_t)bits[i] * (1u << (max_bits - i));
+    for (int s = 0; s < 256; s++) {
+      if (!len[s]) continue;
+      code[s] = start[len[s]] >> (max_bits - len[s]);
+      start[len[s]] += 1u << (max_bits - len[s]);
+    }
+  }
+
+  // The tree description (RFC 8878 4.2.1): the weights of symbols
+  // 0..last-1, FSE-coded or 4 bits each, whichever is shorter. False when
+  // neither fits (over 128 weights, none FSE-codable under 128 bytes).
+  bool describe(std::vector<uint8_t>& out) const {
+    const int n = last;
+    uint8_t w[256];
+    uint32_t count[kMaxHufBits + 1] = {};
+    int max_w = 0;
+    for (int s = 0; s < n; s++) {
+      w[s] = len[s] ? (uint8_t)(max_bits + 1 - len[s]) : 0;
+      count[w[s]]++;
+      max_w = std::max<int>(max_w, w[s]);
+    }
+    std::vector<uint8_t> fse;
+    int distinct = 0;
+    for (int v = 0; v <= max_w; v++) distinct += count[v] > 0;
+    if (n >= 2 && distinct >= 2) {
+      const int log = table_log(n, max_w, 6);
+      const std::vector<int16_t> norm = normalize(count, max_w + 1, n, log);
+      FseEnc t;
+      t.build(norm.data(), max_w + 1, log);
+      write_ncount(fse, norm, log);
+      BitWriter bw(fse);
+      FseEncState s1{&t}, s2{&t};
+      int i = n;
+      if (n & 1) {
+        s1.init(w[--i]);
+        s2.init(w[--i]);
+        s1.encode(bw, w[--i]);
+      } else {
+        s2.init(w[--i]);
+        s1.init(w[--i]);
+      }
+      while (i > 0) {
+        s2.encode(bw, w[--i]);
+        s1.encode(bw, w[--i]);
+      }
+      s2.flush(bw);
+      s1.flush(bw);
+      bw.close();
+    }
+    const bool fse_ok = !fse.empty() && fse.size() < 128;
+    const size_t direct = n <= 128 ? 1 + (size_t)(n + 1) / 2 : SIZE_MAX;
+    if (fse_ok && 1 + fse.size() <= direct) {
+      out.push_back((uint8_t)fse.size());
+      out.insert(out.end(), fse.begin(), fse.end());
+      return true;
+    }
+    if (direct == SIZE_MAX) return false;
+    out.push_back((uint8_t)(127 + n));
+    for (int i = 0; i < n; i += 2) out.push_back((uint8_t)(w[i] << 4 | (i + 1 < n ? w[i + 1] : 0)));
+    return true;
+  }
+
+  // One backward stream: the literals from the last to the first.
+  void stream(const uint8_t* lit, size_t n, std::vector<uint8_t>& out) const {
+    BitWriter w(out);
+    for (size_t i = n; i-- > 0;) w.add(code[lit[i]], len[lit[i]]);
+    w.close();
+  }
+};
+
+void put_le(std::vector<uint8_t>& out, uint64_t v, int bytes) {
+  for (int i = 0; i < bytes; i++) out.push_back((uint8_t)(v >> (8 * i)));
+}
+
+// A raw or RLE literals header (type 0 or 1).
+void plain_literals_header(std::vector<uint8_t>& out, int type, size_t n) {
+  if (n <= 31)
+    put_le(out, type | n << 3, 1);
+  else if (n <= 4095)
+    put_le(out, type | 1 << 2 | n << 4, 2);
+  else
+    put_le(out, type | 3 << 2 | n << 4, 3);
+}
+
+// The literals section: raw, RLE or Huffman-coded, whichever is shortest.
+void encode_literals(const uint8_t* lit, size_t n, std::vector<uint8_t>& out) {
+  uint32_t count[256] = {};
+  for (size_t i = 0; i < n; i++) count[lit[i]]++;
+  int distinct = 0;
+  for (int s = 0; s < 256; s++) distinct += count[s] > 0;
+  if (n > 0 && distinct == 1) {
+    plain_literals_header(out, 1, n);
+    out.push_back(lit[0]);
+    return;
+  }
+  const size_t raw = (n <= 31 ? 1 : n <= 4095 ? 2 : 3) + n;
+  if (n >= 32) {
+    HufEnc h;
+    h.build(count);
+    std::vector<uint8_t> body;
+    if (h.describe(body)) {
+      const size_t tree = body.size();
+      bool single = n <= 1023;
+      if (single) {
+        h.stream(lit, n, body);
+        single = body.size() <= 1023;
+        if (!single) body.resize(tree);
+      }
+      if (!single) {
+        const size_t q = (n + 3) / 4;
+        body.resize(tree + 6);
+        size_t sizes[4];
+        for (int s = 0; s < 4; s++) {
+          const size_t before = body.size(), from = s * q, to = s < 3 ? from + q : n;
+          h.stream(lit + from, to - from, body);
+          sizes[s] = body.size() - before;
+        }
+        for (int s = 0; s < 3; s++) {  // 32 Ki literals of 11 bits at most: under 64 KiB
+          body[tree + 2 * s] = (uint8_t)sizes[s];
+          body[tree + 2 * s + 1] = (uint8_t)(sizes[s] >> 8);
+        }
+      }
+      const size_t c = body.size(), big = std::max(n, c);
+      const int fmt = single ? 0 : big <= 1023 ? 1 : big <= 16383 ? 2 : 3;
+      const size_t hsize = fmt <= 1 ? 3 : fmt == 2 ? 4 : 5;
+      if (hsize + c < raw) {
+        const int shift = fmt <= 1 ? 14 : fmt == 2 ? 18 : 22;
+        put_le(out, 2 | (uint64_t)fmt << 2 | (uint64_t)n << 4 | (uint64_t)c << shift, (int)hsize);
+        out.insert(out.end(), body.begin(), body.end());
+        return;
+      }
+    }
+  }
+  plain_literals_header(out, 0, n);
+  out.insert(out.end(), lit, lit + n);
+}
+
+struct Seq {
+  uint32_t lit_len, match_len, offset;
+};
+
+int ll_code(uint32_t v) {
+  if (v >= 64) return highbit(v) + 19;
+  int c = 35;
+  while (kLLBase[c] > v) c--;
+  return c;
+}
+
+int ml_code(uint32_t match_len) {
+  const uint32_t v = match_len - 3;
+  if (v >= 128) return highbit(v) + 36;
+  int c = 52;
+  while (kMLBase[c] > match_len) c--;
+  return c;
+}
+
+// One of the three sequence tables: its mode (0 predefined, 1 RLE, 2 FSE)
+// and encoding tables, with the description it writes.
+struct SeqTable {
+  int mode = 0;
+  FseEnc t;
+  std::vector<uint8_t> desc;
+
+  void choose(const uint32_t* count, int nsym, uint64_t total, const int16_t* def, int ndef, int def_log,
+              int max_log) {
+    int used = 0, max_s = 0, only = 0;
+    for (int s = 0; s < nsym; s++)
+      if (count[s]) {
+        used++;
+        max_s = s;
+        only = s;
+      }
+    if (used == 1) {
+      mode = 1;
+      desc.assign(1, (uint8_t)only);
+      return;
+    }
+    const int log = table_log(total, max_s, max_log);
+    const std::vector<int16_t> norm = normalize(count, max_s + 1, total, log);
+    std::vector<uint8_t> header;
+    write_ncount(header, norm, log);
+    const double fse = table_cost(count, nsym, norm.data(), max_s + 1, log) + 8.0 * header.size();
+    if (table_cost(count, nsym, def, ndef, def_log) <= fse) {
+      mode = 0;
+      t.build(def, ndef, def_log);
+    } else {
+      mode = 2;
+      t.build(norm.data(), max_s + 1, log);
+      desc = header;
+    }
+  }
+};
+
+struct Coded {
+  uint8_t ll, ml, of;
+};
+
+// The sequences section (RFC 8878 3.1.1.3.2), written in libzstd's order:
+// from the last sequence to the first, so that the decoder meets them first
+// to last.
+void encode_sequences(const std::vector<Seq>& seqs, std::vector<uint8_t>& out) {
+  const size_t n = seqs.size();
+  if (n < 128) {
+    out.push_back((uint8_t)n);
+  } else if (n < 0x7F00) {
+    out.push_back((uint8_t)((n >> 8) + 128));
+    out.push_back((uint8_t)n);
+  } else {
+    out.push_back(255);
+    put_le(out, n - 0x7F00, 2);
+  }
+  if (n == 0) return;
+  std::vector<Coded> codes(n);
+  uint32_t cll[36] = {}, cml[53] = {}, cof[32] = {};
+  for (size_t i = 0; i < n; i++) {
+    codes[i] = {(uint8_t)ll_code(seqs[i].lit_len), (uint8_t)ml_code(seqs[i].match_len),
+                (uint8_t)highbit((uint64_t)seqs[i].offset + 3)};
+    cll[codes[i].ll]++;
+    cml[codes[i].ml]++;
+    cof[codes[i].of]++;
+  }
+  SeqTable ll, of, ml;
+  ll.choose(cll, 36, n, kLLDefault, 36, 6, 9);
+  of.choose(cof, 32, n, kOFDefault, 29, 5, 8);
+  ml.choose(cml, 53, n, kMLDefault, 53, 6, 9);
+  out.push_back((uint8_t)(ll.mode << 6 | of.mode << 4 | ml.mode << 2));
+  for (const SeqTable* t : {&ll, &of, &ml}) out.insert(out.end(), t->desc.begin(), t->desc.end());
+
+  BitWriter w(out);
+  FseEncState sll{&ll.t}, sof{&of.t}, sml{&ml.t};
+  auto extras = [&](size_t i) {
+    const Seq& q = seqs[i];
+    const Coded& c = codes[i];
+    w.add(q.lit_len - kLLBase[c.ll], kLLBits[c.ll]);
+    w.add(q.match_len - kMLBase[c.ml], kMLBits[c.ml]);
+    w.add((uint64_t)q.offset + 3 - (1ull << c.of), c.of);
+  };
+  const Coded& lastc = codes[n - 1];
+  if (ml.mode != 1) sml.init(lastc.ml);
+  if (of.mode != 1) sof.init(lastc.of);
+  if (ll.mode != 1) sll.init(lastc.ll);
+  extras(n - 1);
+  for (size_t i = n - 1; i-- > 0;) {
+    if (of.mode != 1) sof.encode(w, codes[i].of);
+    if (ml.mode != 1) sml.encode(w, codes[i].ml);
+    if (ll.mode != 1) sll.encode(w, codes[i].ll);
+    extras(i);
+  }
+  if (ml.mode != 1) sml.flush(w);
+  if (of.mode != 1) sof.flush(w);
+  if (ll.mode != 1) sll.flush(w);
+  w.close();
+}
+
+inline uint32_t hash4(const uint8_t* p) { return (read_le32(p) * 2654435761u) >> (32 - kHashLog); }
+
+// Greedy matches in src[bs, be) (positions are the frame's), 4 bytes or
+// longer, within the window; the bytes between them are the literals.
+void find_sequences(const uint8_t* src, size_t bs, size_t be, std::vector<size_t>& table, std::vector<Seq>& seqs,
+                    std::vector<uint8_t>& lits) {
+  size_t anchor = bs, ip = bs;
+  while (ip + 4 <= be) {
+    const uint32_t h = hash4(src + ip);
+    const size_t cand = table[h];
+    table[h] = ip;
+    if (cand != kNoPos && ip - cand <= (1u << kWindowLog) && read_le32(src + cand) == read_le32(src + ip)) {
+      size_t m = cand, p = ip, len = 4;
+      while (p + len < be && src[m + len] == src[p + len]) len++;
+      while (p > anchor && m > 0 && src[p - 1] == src[m - 1]) p--, m--, len++;
+      lits.insert(lits.end(), src + anchor, src + p);
+      seqs.push_back({(uint32_t)(p - anchor), (uint32_t)len, (uint32_t)(p - m)});
+      ip = anchor = p + len;
+      if (ip + 2 <= be && ip >= bs + 2) table[hash4(src + ip - 2)] = ip - 2;
+      continue;
+    }
+    ip += 1 + ((ip - anchor) >> 8);
+  }
+  lits.insert(lits.end(), src + anchor, src + be);
+}
+
+void block_header(std::vector<uint8_t>& out, bool last, int type, size_t size) {
+  put_le(out, (last ? 1 : 0) | type << 1 | size << 3, 3);
+}
+
+// One frame of all of src: its content size declared, single-segment up to
+// the window, blocks of at most 128 KiB.
+void encode_frame(const uint8_t* src, size_t n, std::vector<uint8_t>& out) {
+  put_le(out, kMagic, 4);
+  const bool single = n <= (1u << kWindowLog);
+  const int fcs_flag = n < 256 && single ? 0 : n < 65536 + 256 ? 1 : n <= 0xFFFFFFFFull ? 2 : 3;
+  out.push_back((uint8_t)(fcs_flag << 6 | (single ? 1 : 0) << 5));
+  if (!single) out.push_back((uint8_t)((kWindowLog - 10) << 3));
+  if (fcs_flag == 0)
+    put_le(out, n, 1);
+  else if (fcs_flag == 1)
+    put_le(out, n - 256, 2);
+  else
+    put_le(out, n, fcs_flag == 2 ? 4 : 8);
+  if (n == 0) {
+    block_header(out, true, 0, 0);
+    return;
+  }
+  std::vector<size_t> table(1u << kHashLog, kNoPos);
+  std::vector<Seq> seqs;
+  std::vector<uint8_t> lits, body;
+  for (size_t bs = 0; bs < n; bs += kBlockMax) {
+    const size_t be = std::min(n, bs + kBlockMax), size = be - bs;
+    const bool last = be == n;
+    size_t same = 1;
+    while (same < size && src[bs + same] == src[bs]) same++;
+    if (same == size && size > 1) {
+      block_header(out, last, 1, size);
+      out.push_back(src[bs]);
+      continue;
+    }
+    seqs.clear();
+    lits.clear();
+    body.clear();
+    find_sequences(src, bs, be, table, seqs, lits);
+    encode_literals(lits.data(), lits.size(), body);
+    encode_sequences(seqs, body);
+    if (body.size() < size) {
+      block_header(out, last, 2, body.size());
+      out.insert(out.end(), body.begin(), body.end());
+    } else {
+      block_header(out, last, 0, size);
+      out.insert(out.end(), src + bs, src + be);
+    }
+  }
+}
+
 void put_message(char* msg, int cap, const char* text) {
   if (msg && cap > 0) {
     std::strncpy(msg, text, (size_t)cap - 1);
@@ -796,6 +1388,25 @@ int mp_zstd_decode(const unsigned char* src, long len, unsigned char* dst, long 
   } catch (const std::exception& e) {
     put_message(msg, msg_cap, e.what());
     return 1;
+  }
+}
+
+// The most bytes mp_zstd_encode writes for `len` bytes of input.
+long mp_zstd_encode_bound(long len) { return len + 3 * (len / (long)kBlockMax + 1) + 32; }
+
+// Encodes src as one zstd frame into dst (cap bytes, at least the bound).
+// Returns the frame's length, or -1 with a message.
+long mp_zstd_encode(const unsigned char* src, long len, unsigned char* dst, long cap, char* msg, int msg_cap) {
+  try {
+    std::vector<uint8_t> out;
+    out.reserve((size_t)len / 2 + 64);
+    encode_frame(src, (size_t)len, out);
+    if ((long)out.size() > cap) fail("zstd frame larger than the buffer");
+    std::memcpy(dst, out.data(), out.size());
+    return (long)out.size();
+  } catch (const std::exception& e) {
+    put_message(msg, msg_cap, e.what());
+    return -1;
   }
 }
 

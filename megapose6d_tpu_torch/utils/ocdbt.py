@@ -1,5 +1,5 @@
-"""A read-only OCDBT key-value store: the store orbax writes its checkpoints
-into through tensorstore.
+"""OCDBT key-value stores, the stores orbax writes its checkpoints into
+through tensorstore: `OcdbtStore` reads one, `write_ocdbt` writes one.
 
 The JAX package leaves this to tensorstore and has no counterpart. The
 format is tensorstore's "OCDBT format" page
@@ -44,11 +44,32 @@ Values are read from their data files by offset and length, so a reader
 of some keys never reads the files that hold only the others. Nodes are
 zstd-decoded by `native/zstd.cc`; a bad magic, CRC, length or layout raises
 ValueError, a missing file FileNotFoundError.
+
+    write_ocdbt("ckpt", {"step/.zarray": b"...", "step/0": b"..."})
+
+writes a new store as tensorstore lays out one commit of a single process
+(held against tensorstore's own stores in `tests/test_torch_orbax_write.py`):
+one version, generation 1, inline in the manifest; values over
+`MAX_INLINE_VALUE_BYTES` in one data file `d/<32 hex digits>` in key
+order, then the b-tree's nodes in the same file, leaves first, a level at
+a time, and the root last. A level is split into nodes as tensorstore
+splits it (`_partition`: its size estimate and split points, read off
+stores it writes), so a store of more keys than one node of
+`MAX_DECODED_NODE_BYTES` holds has the leaves and interior nodes of
+tensorstore's store of the same keys when tensorstore writes them in one
+commit (it may split a large transaction into several, and then its tree
+differs); at orbax's limit (100 MB) a checkpoint is one leaf. The config
+is orbax's: a random uuid, inline values up to 1024 bytes, version tree
+arity 16, and zstd (level 0: libzstd's default) for the manifest and the
+nodes, which `native/zstd.cc` encodes.
 """
 
 from __future__ import annotations
 
+import os
+import secrets
 import struct
+import time
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -60,6 +81,9 @@ BTREE_NODE_MAGIC = 0x0CDB20DE
 _MISSING = 2**64 - 1
 _HEADER = 14  # magic, length, and the one-byte version and compression varints
 _MAX_MANIFEST_BYTES = 1 << 24
+MAX_INLINE_VALUE_BYTES = 1024  # orbax's OCDBT config
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
 
 
 class _Reader:
@@ -216,8 +240,10 @@ class OcdbtStore:
         r = _Reader(body, "manifest")
         r.take(16)  # uuid
         kind = r.varint()
-        r.varint()  # max inline value bytes
-        self.max_node_bytes = r.varint()
+        max_inline = r.varint()
+        # A node holds at least one entry, so it may pass the configured
+        # limit by one inline value and its key; more is refused as corrupt.
+        self.max_node_bytes = r.varint() + max_inline + (1 << 16)
         self.arity_log2 = r.u8()
         if r.varint() == 1:  # zstd, and its level
             r.take(4)
@@ -354,3 +380,173 @@ class OcdbtStore:
         if len(data) != v.length:
             raise ValueError(f"OCDBT: {v.file} ends before the value of {key!r}")
         return data
+
+
+# ---------------------------------------------------------------------------
+# Writing
+# ---------------------------------------------------------------------------
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _lcp(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n
+
+
+def encode_envelope(body: bytes, magic: int) -> bytes:
+    """A manifest or node encoding: the header, `body` as a zstd frame, and
+    the CRC-32C of all that; the inverse of `decode_envelope`."""
+    frame = native.encode_zstd(body)
+    head = struct.pack(">I", magic) + struct.pack("<Q", _HEADER + len(frame) + 4) + b"\x00\x01"
+    data = head + frame
+    return data + struct.pack("<I", native.crc32c(data))
+
+
+def _file_table(paths: list[str]) -> bytes:
+    """A data file table of root-level paths (base paths empty)."""
+    raw = [p.encode() for p in paths]
+    prefix = [_lcp(raw[i - 1], raw[i]) for i in range(1, len(raw))]
+    suffix = [raw[0]] + [raw[i][prefix[i - 1]:] for i in range(1, len(raw))] if raw else []
+    return (_varint(len(raw)) + _varints(prefix) + _varints(len(x) for x in suffix) + _varints(0 for _ in raw)
+            + b"".join(suffix))
+
+
+def _keys_bytes(keys: list[bytes], common: list[int] | None) -> bytes:
+    """A node's keys, each after the one before it (and, in an interior
+    node, its child's common prefix lengths)."""
+    prefix = [_lcp(keys[i - 1], keys[i]) for i in range(1, len(keys))]
+    suffix = [keys[0]] + [keys[i][prefix[i - 1]:] for i in range(1, len(keys))]
+    return (_varints(prefix) + _varints(len(x) for x in suffix) + (_varints(common) if common is not None else b"")
+            + b"".join(suffix))
+
+
+@dataclass
+class _Entry:
+    """A leaf entry (value inline, or at `offset` in the data file) or an
+    interior entry (a child node at `offset`, `length`)."""
+    key: bytes  # the full key; an interior entry's is its subtree's first
+    last: bytes  # the subtree's last key (a leaf entry's own)
+    inline: bytes | None = None
+    offset: int = 0
+    length: int = 0
+    num_keys: int = 1
+    tree_bytes: int = 0
+    indirect_bytes: int = 0
+
+
+def _partition(entries: list[_Entry], limit: int, interior: bool) -> list[list[_Entry]]:
+    """Runs of entries in key order, one a node, as tensorstore splits a
+    level: each entry is estimated at 16 bytes, its key after the level's
+    common prefix, and its inline value (50 bytes for a value in a data
+    file, 74 for a child node); a node at the common prefix and its
+    entries. While entries remain, the rest is to fill ceil(estimate /
+    limit) nodes, and the next node takes entries until it reaches that
+    share of the rest or the next entry would take it past the limit (a
+    leaf takes at least one entry, an interior node two, and the level's
+    last entry joins the node before it while that node is under its
+    share)."""
+    prefix = _lcp(entries[0].key, entries[-1].key)
+    cum = [0]
+    for e in entries:
+        value = 74 if interior else len(e.inline) if e.inline is not None else 50
+        cum.append(cum[-1] + 16 + len(e.key) - prefix + value)
+
+    def size(i: int, j: int) -> int:
+        return prefix + cum[j] - cum[i]
+
+    nodes, i, n = [], 0, len(entries)
+    while i < n:
+        rest = size(i, n)
+        share = rest / -(-rest // limit)
+        j = i + 1
+        while j < n and ((interior and j - i < 2)
+                         or (size(i, j) < share and (size(i, j + 1) <= limit or j + 1 == n))):
+            j += 1
+        nodes.append(entries[i:j])
+        i = j
+    return nodes
+
+
+def _node_body(height: int, entries: list[_Entry], prefix: int, data_file: str) -> bytes:
+    """A b-tree node of `entries` whose keys drop their first `prefix`
+    bytes (the prefix its parents took out)."""
+    keys = [e.key[prefix:] for e in entries]
+    if height == 0:
+        indirect = [e for e in entries if e.inline is None]
+        table = _file_table([data_file] if indirect else [])
+        return (bytes([0]) + table + _varint(len(entries)) + _keys_bytes(keys, None)
+                + _varints(e.length for e in entries) + _varints(0 if e.inline is not None else 1 for e in entries)
+                + _varints(0 for _ in indirect) + _varints(e.offset for e in indirect)
+                + b"".join(e.inline for e in entries if e.inline is not None))
+    common = [_lcp(e.key, e.last) - prefix for e in entries]
+    return (bytes([height]) + _file_table([data_file]) + _varint(len(entries)) + _keys_bytes(keys, common)
+            + _varints(0 for _ in entries) + _varints(e.offset for e in entries)
+            + _varints(e.length for e in entries) + _varints(e.num_keys for e in entries)
+            + _varints(e.tree_bytes for e in entries) + _varints(e.indirect_bytes for e in entries))
+
+
+def write_ocdbt(root: str | Path, items: dict[str, bytes]) -> None:
+    """A new OCDBT store of `items` in the directory `root` (created; its
+    manifest is written last), laid out as the module docstring says."""
+    root = Path(root)
+    if (root / "manifest.ocdbt").exists():
+        raise FileExistsError(f"{root} already holds an OCDBT store")
+    (root / "d").mkdir(parents=True, exist_ok=True)
+    data_file = f"d/{secrets.token_hex(16)}"
+    keys = sorted(k.encode() for k in items)
+    entries, height, total_indirect, offset = [], 0, 0, 0
+    with open(root / data_file, "wb") as f:
+        for key in keys:
+            value = items[key.decode()]
+            if len(value) <= MAX_INLINE_VALUE_BYTES:
+                entries.append(_Entry(key, key, inline=bytes(value), length=len(value)))
+                continue
+            f.write(value)
+            entries.append(_Entry(key, key, offset=offset, length=len(value), indirect_bytes=len(value)))
+            offset += len(value)
+            total_indirect += len(value)
+        # Each level's nodes, bottom up, until one node holds the level. A
+        # node's keys drop its subtree's common prefix, which its parent's
+        # entry records (the root drops none).
+        while entries:
+            runs = _partition(entries, MAX_DECODED_NODE_BYTES, interior=height > 0)
+            level = []
+            for run in runs:
+                first, last = run[0].key, run[-1].last
+                body = _node_body(height, run, 0 if len(runs) == 1 else _lcp(first, last), data_file)
+                node = encode_envelope(body, BTREE_NODE_MAGIC)
+                f.write(node)
+                level.append(_Entry(first, last, offset=offset, length=len(node),
+                                    num_keys=sum(e.num_keys for e in run),
+                                    tree_bytes=len(node) + sum(e.tree_bytes for e in run),
+                                    indirect_bytes=sum(e.indirect_bytes for e in run)))
+                offset += len(node)
+            if len(level) == 1:
+                break
+            entries, height = level, height + 1
+    if not keys:
+        (root / data_file).unlink()
+    top = level[0] if keys else _Entry(b"", b"", offset=_MISSING, length=_MISSING)
+    version = (_varint(1) + _varint(1) + bytes([height]) + _varint(0) + _varint(top.offset) + _varint(top.length)
+               + _varint(len(keys)) + _varint(top.tree_bytes) + _varint(total_indirect)
+               + struct.pack("<Q", time.time_ns()) + _varint(0))
+    config = (secrets.token_bytes(16) + _varint(0) + _varint(MAX_INLINE_VALUE_BYTES) + _varint(MAX_DECODED_NODE_BYTES)
+              + bytes([VERSION_TREE_ARITY_LOG2]) + _varint(1) + struct.pack("<i", 0))
+    manifest = encode_envelope(config + _file_table([data_file if keys else ""]) + version, MANIFEST_MAGIC)
+    tmp = root / f"manifest.ocdbt.{os.getpid()}.tmp"
+    tmp.write_bytes(manifest)
+    tmp.replace(root / "manifest.ocdbt")
