@@ -253,6 +253,19 @@ Phases, each printing one line with its wall time:
      launches counted and held bit for bit against the plain twin), its
      poses bit for bit those of phase 4's estimator on the committed
      checkpoints.
+ 25. jax calls: the entry points called as the JAX package's callers call
+     them: phase 4's request through a positional
+     `run_inference_pipeline(obs, dets, False, 5, 5, True)` (all coarse
+     outputs kept, no depth stage, poses bit for bit the keyword call's);
+     a `PosePredictorConfig(tile_face_chunk=32)` scorer from coarse_dr
+     (poses bit for bit the 16-face one's); `render_meshes_tiled(chunk=32,
+     max_faces_per_program=96)` bit for bit its defaults' render, K1 held
+     against the plain twin and timed; `synthetic_batch_fn(z_range=)` and 3
+     steps of `train(cfg, model, mesh_db, batch_iterator, run_dir,
+     n_epochs=1, steps_per_epoch=3)` at runs/refiner_dr's width;
+     `generate_bop(..., shadows=False, ibl=False)` for 2 frames; the
+     committed detector under `Detector(..., one_instance_per_class=True)`;
+     K1's launches counted on each path.
 The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure raises and exits nonzero.
 
@@ -556,7 +569,7 @@ def scene_requests(n: int):
         check(frame.infos.scene_id == "000000" and frame.rgb.shape == HW + (3,), str(frame.infos))
         objs = frame.gt_detections()
         dets = make_detections([o.label for o in objs], np.stack([o.bbox_modal for o in objs]), device="cuda")
-        requests.append((ObservationTensor.from_numpy(frame.rgb, frame.camera_data.K), dets))
+        requests.append((ObservationTensor.from_numpy(frame.rgb, K=frame.camera_data.K), dets))
     return requests
 
 
@@ -1355,7 +1368,7 @@ def phase_rgbd() -> int:
         c, r = est.coarse_model.cfg, est.refiner_model.cfg
         check(c.backbone == r.backbone == "resnet34" and r.render_size == HW and c.compute_dtype == "bfloat16"
               and est.cfg.SO3_grid_size == 576, f"{name}: not the named width")
-        obs = ObservationTensor.from_numpy(frame.rgb, frame.camera_data.K, depth=frame.depth)
+        obs = ObservationTensor.from_numpy(frame.rgb, frame.depth, frame.camera_data.K)
         dets = make_detections([o.label for o in objs], np.stack([o.bbox_modal for o in objs]), device="cuda")
         depth_stage = est.depth_refiner is not None
         rt.visibility_kernel.launches = 0  # this configuration's path starts here
@@ -1634,7 +1647,7 @@ def train_kernel_shapes(state_r, state_c, cfg_r, cfg_c, db, synth, errors: list[
             for cfg, state in ((cfg_r, state_r), (cfg_c, state_c)):
                 draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1],
                                                    torch.Generator().manual_seed(2)), "cuda")
-                forward_loss(state.model, cfg, batch, db, draws, cfg.n_iterations)
+                forward_loss(state.model, cfg, batch, db, cfg.n_iterations, draws)
     finally:
         rt.visibility = restore
     check(len(captured) == 3, f"captured {len(captured)} launches")
@@ -1662,7 +1675,7 @@ def train_kernel_vs_plain_step() -> None:
     out = {}
     try:
         for route in ("kernel", "plain"):
-            state = tt.create_train_state(cfg, "cuda")
+            state = tt.create_train_state(cfg, device="cuda")
             restore = rt.visibility
             if route == "plain":
                 rt.visibility = lambda *a: rt.visibility_plain(*a)
@@ -1709,11 +1722,11 @@ def train_card_vs_cpu() -> None:
         draws = draw_forward_loss(cfg, 2, 128, torch.Generator().manual_seed(6))
 
         def run(dev, scale=1.0):
-            state = tt.create_train_state(cfg, dev)
+            state = tt.create_train_state(cfg, device=dev)
             render, seen = state.model.render_views, []
             state.model.render_views = lambda *a, **k: seen.append(render(*a, **k)) or seen[-1]
             b = dataclasses.replace(batch, rgbs=batch.rgbs * scale).to(dev)
-            loss, _ = forward_loss(state.model, cfg, b, dbs[dev], draws_to(draws, dev), cfg.n_iterations)
+            loss, _ = forward_loss(state.model, cfg, b, dbs[dev], cfg.n_iterations, draws_to(draws, dev))
             grads = torch.autograd.grad(loss, state.params)
             names = [n for n, _ in state.model.named_parameters()]
             return loss.item(), dict(zip(names, (g.cpu() for g in grads))), [r.cpu() for r in seen]
@@ -1749,7 +1762,7 @@ def train_overfit(n: int = 40) -> None:
     batch = synth(torch.Generator().manual_seed(7))
     draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1], torch.Generator().manual_seed(8)),
                      "cuda")
-    state = tt.create_train_state(cfg, "cuda")
+    state = tt.create_train_state(cfg, device="cuda")
     t0 = time.perf_counter()
     losses = [tt.train_step(state, cfg, batch, db, draws, cfg.n_iterations)["loss_total"] for _ in range(n)]
     print(f"  overfit, {n} steps in {time.perf_counter() - t0:.2f} s: first 3 mean {np.mean(losses[:3]):.5g}, "
@@ -2321,7 +2334,7 @@ def phase_detector(errors: list[float]) -> tuple[int, dict]:
     model = card.model
     rt.visibility_kernel.launches = 0  # the detector evaluation path starts here
     t0 = time.perf_counter()
-    rep = rdt.evaluate_detector(model, batch_fn, n_eval, True, seed=777)
+    rep = rdt.evaluate_detector(model, model.cfg, batch_fn, n_eval, True, seed=777)
     wall = time.perf_counter() - t0
     n_eval_launches = rt.visibility_kernel.launches  # read right after the path
     want = json.loads((DETECTOR_RUN / "eval.json").read_text())
@@ -2398,7 +2411,7 @@ def detector_request() -> int:
     mesh_db = MeshDataBase.from_object_ds(make_object_dataset("synthdemo.bop19", data_dir=EVAL_DATA),
                                           max_faces=ecfg["max_faces"]).batched(device="cuda")
     frame = BOPDataset(SYNTHDEMO)[1]
-    obs = ObservationTensor.from_numpy(frame.rgb, frame.camera_data.K, device="cuda")
+    obs = ObservationTensor.from_numpy(frame.rgb, K=frame.camera_data.K, device="cuda")
     phased = PoseEstimator(coarse, refiner, mesh_db, icfg, device="cuda", detector=detector)
     fused = PoseEstimator(coarse, refiner, mesh_db, dataclasses.replace(icfg, fused_pipeline=True), device="cuda",
                           detector=detector)
@@ -2746,7 +2759,7 @@ def dataset_card_vs_cpu(errors: list[float], shapes: dict) -> None:
         """(loss, gradients, {stage: [outputs per call]}) of one step on
         `dev`; `given` replaces the renders and crops, call by call, the
         crops' images scaled by `scale`."""
-        state = tt.create_train_state(cfg, dev)
+        state = tt.create_train_state(cfg, device=dev)
         model, seen = state.model, {"renders": [], "crops": []}
         render, crop = model.render_views, model.crop_inputs
 
@@ -2765,7 +2778,7 @@ def dataset_card_vs_cpu(errors: list[float], shapes: dict) -> None:
             return out
 
         model.render_views, model.crop_inputs = render_views, crop_inputs
-        loss, _ = forward_loss(model, cfg, host.to(dev), dbs[dev], draws_to(draws, dev), cfg.n_iterations)
+        loss, _ = forward_loss(model, cfg, host.to(dev), dbs[dev], cfg.n_iterations, draws_to(draws, dev))
         grads = torch.autograd.grad(loss, state.params)
         names = [n for n, _ in model.named_parameters()]
         kept = {"renders": [r.detach().cpu() for r in seen["renders"]],
@@ -2804,12 +2817,12 @@ def dataset_card_vs_cpu(errors: list[float], shapes: dict) -> None:
             ld = run_training.dataset_loader(c, list(db.labels), str(EVAL_DATA), "cuda")
             batch = next(ld).to("cuda")
             ld.close()
-            state = tt.create_train_state(c, "cuda")
+            state = tt.create_train_state(c, device="cuda")
             d = draws_to(draw_forward_loss(c, c.batch_size, db.points.shape[1], torch.Generator().manual_seed(13)),
                          "cuda")
             restore = record_visibility_inputs(captured)
             try:
-                forward_loss(state.model, c, batch, db, d, c.n_iterations)
+                forward_loss(state.model, c, batch, db, c.n_iterations, d)
             finally:
                 rt.visibility = restore
     check(len(captured) == 2, f"captured {len(captured)} launches, expected 2")
@@ -2908,7 +2921,7 @@ def phase_dataset_training(errors: list[float]) -> tuple[int, dict]:
         print(f"  4 workers: first batch after {time.perf_counter() - t0:.2f} s (the workers' start and first batch)",
               flush=True)
         for name, cfg in (("refiner", cfg_r), ("coarse", cfg_c)):
-            dataset_step_report(f"{name} (synthdemo.bop19, 4 workers)", tt.create_train_state(cfg, "cuda"), cfg,
+            dataset_step_report(f"{name} (synthdemo.bop19, 4 workers)", tt.create_train_state(cfg, device="cuda"), cfg,
                                 loader, db)
         rates = {4: loader_rate(loader, 12)}
     finally:
@@ -3078,12 +3091,12 @@ def step0_grads(cfg, rank: int, world: int, scale: float = 1.0, halves: int = 1)
     one process the mean over the batch's `halves` parts."""
     db = run_training.synthetic_mesh_db(cfg, "cuda")
     synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
-    state = tt.create_train_state(cfg, "cuda")
+    state = tt.create_train_state(cfg, device="cuda")
     if world > 1:
         draws = tt.rank_rows(synth.draw(tt.step_generator(cfg.seed, tt.BATCH_STREAM, 0)), rank, world)
         batch = synth.make(draws_to(draws, "cuda"))
         fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, 0, rank=rank, world=world)
-        loss, _ = forward_loss(state.model, cfg, batch, db, fdraws, cfg.n_iterations)
+        loss, _ = forward_loss(state.model, cfg, batch, db, cfg.n_iterations, fdraws)
         grads = tt.all_reduce_mean(list(torch.autograd.grad(loss, state.params)), torch.distributed.group.WORLD)
     else:
         grads = part_grads(state, cfg, synth, db, 0, halves, scale)
@@ -3101,7 +3114,7 @@ def replay_training(cfg, scale: float, halves: int = 1) -> list[dict]:
     all-reduce); the parameters after each step."""
     db = run_training.synthetic_mesh_db(cfg, "cuda")
     synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
-    state = tt.create_train_state(cfg, "cuda")
+    state = tt.create_train_state(cfg, device="cuda")
     steps = []
     for step in range(DP_STEPS):
         grads = part_grads(state, cfg, synth, db, step, halves, scale)
@@ -3119,7 +3132,7 @@ def part_grads(state, cfg, synth, db, step: int, halves: int, scale: float = 1.0
         batch = synth.make(draws_to(draws, "cuda"))
         batch = dataclasses.replace(batch, rgbs=batch.rgbs * scale)
         fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, step, rank=h, world=halves)
-        loss, _ = forward_loss(state.model, cfg, batch, db, fdraws, tt.n_iterations_at(cfg, step + 1))
+        loss, _ = forward_loss(state.model, cfg, batch, db, tt.n_iterations_at(cfg, step + 1), fdraws)
         g = torch.autograd.grad(loss, state.params)
         total = list(g) if total is None else [a + b for a, b in zip(total, g)]
     return [t / halves for t in total] if halves > 1 else total
@@ -3133,7 +3146,7 @@ def dp_step_times(cfg, rank: int, world: int, n: int = 4) -> dict:
 
     db = run_training.synthetic_mesh_db(cfg, "cuda")
     synth = tt.synthetic_batch_fn(db, cfg.batch_size, tuple(cfg.input_resize), device="cuda")
-    state = tt.create_train_state(cfg, "cuda")
+    state = tt.create_train_state(cfg, device="cuda")
     group = dist.group.WORLD if world > 1 else None
     marks: list = []
 
@@ -3199,13 +3212,13 @@ def label_sharded_step(cfg, rank: int, world: int) -> dict:
     objects = make_object_dataset("synthdemo.bop19", data_dir=str(EVAL_DATA))
     db_kw = dict(max_faces=cfg.max_faces, n_points=cfg.n_points_mesh, n_sym=cfg.n_sym)
     V, F = MeshDataBase.from_object_ds(objects, **db_kw).pad_targets()
-    sdb = ShardedMeshDB.build(objects, n_shards=world, devices="cuda", shard_ids=[rank], n_vertices_pad=V,
+    sdb = ShardedMeshDB.build(objects, n_shards=world, device_mesh="cuda", shard_ids=[rank], n_vertices_pad=V,
                               n_faces_pad=F, **db_kw)
     local = sdb.local_shard(rank)
     synth = tt.synthetic_batch_fn(local, cfg.batch_size // world, tuple(cfg.input_resize), device="cuda")
     batch = synth(tt.step_generator(cfg.seed, tt.BATCH_STREAM, 0, shard=rank))
     draws = tt.step_draws(cfg, batch, local, tt.DRAW_STREAM, 0, shard=rank)
-    state = tt.create_train_state(cfg, "cuda")
+    state = tt.create_train_state(cfg, device="cuda")
     metrics = tt.train_step(state, cfg, batch, local, draws, cfg.n_iterations, dist.group.WORLD)
     sums = torch.stack([p.detach().double().sum() for p in state.params]).cpu()
     gathered = [torch.empty_like(sums) for _ in range(world)]
@@ -3317,7 +3330,7 @@ def dp_worker(argv: list[str]) -> int:
         if world == 1:  # the 1-rank run's own moves: 1-ulp scalings, the replay, the batch in halves
             out["moves"] = [step0_grads(cfg, 0, 1, 1 + s * 2.0**-23) for s in (1, -1)]
             out["split"] = step0_grads(cfg, 0, 1, halves=2)
-            out["initial"] = params_of(tt.create_train_state(cfg, "cuda").model)
+            out["initial"] = params_of(tt.create_train_state(cfg, device="cuda").model)
             out["replayed"] = replay_training(cfg, 1.0)
             out["param_moves"] = [replay_training(cfg, 1 + s * 2.0**-23) for s in (1, -1)]
             out["split_params"] = replay_training(cfg, 1.0, halves=2)
@@ -3333,7 +3346,7 @@ def dp_worker(argv: list[str]) -> int:
             batch = synth.make(draws_to(tt.rank_rows(synth.draw(tt.step_generator(cfg.seed, tt.BATCH_STREAM, 0)), 0, world),
                                         "cuda"))
             fdraws = tt.step_draws(cfg, batch, db, tt.DRAW_STREAM, 0, rank=0, world=world)
-            forward_loss(tt.create_train_state(cfg, "cuda").model, cfg, batch, db, fdraws, cfg.n_iterations)
+            forward_loss(tt.create_train_state(cfg, device="cuda").model, cfg, batch, db, cfg.n_iterations, fdraws)
         finally:
             rt.visibility = restore
         errors: list[float] = []
@@ -3653,12 +3666,12 @@ def zoo_card_vs_cpu() -> None:
     draws = draw_forward_loss(cfg, 2, 128, torch.Generator().manual_seed(6))
     losses, moved = {}, {}
     for dev in ("cuda", "cpu"):
-        state = tt.create_train_state(cfg, dev)
+        state = tt.create_train_state(cfg, device=dev)
         before = {n: b.clone() for n, b in state.model.named_buffers()}
-        loss, _ = forward_loss(state.model, cfg, batch.to(dev), dbs[dev], draws_to(draws, dev), cfg.n_iterations)
+        loss, _ = forward_loss(state.model, cfg, batch.to(dev), dbs[dev], cfg.n_iterations, draws_to(draws, dev))
         losses[dev] = loss.item()
         moved[dev] = sum(int(not torch.equal(b, before[n])) for n, b in state.model.named_buffers())
-    state = tt.create_train_state(cfg, "cuda")
+    state = tt.create_train_state(cfg, device="cuda")
     metrics = tt.train_step(state, cfg, batch.to("cuda"), dbs["cuda"], draws_to(draws, "cuda"), cfg.n_iterations)
     n_buffers = len(list(state.model.named_buffers()))
     gap = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
@@ -4371,14 +4384,14 @@ def format_kernel_shapes(roots: dict[str, Path], errors: list[float], shapes: di
         loader = run_training.dataset_loader(cfg, list(db.labels), str(root), "cuda")
         batch = next(loader).to("cuda")
         loader.close()
-        state = tt.create_train_state(cfg, "cuda")
+        state = tt.create_train_state(cfg, device="cuda")
         draws = draws_to(draw_forward_loss(cfg, cfg.batch_size, db.points.shape[1],
                                            torch.Generator().manual_seed(14)), "cuda")
         captured: list = []
         restore = record_visibility_inputs(captured)
         try:
             with torch.no_grad():
-                forward_loss(state.model, cfg, batch, db, draws, cfg.n_iterations)
+                forward_loss(state.model, cfg, batch, db, cfg.n_iterations, draws)
         finally:
             rt.visibility = restore
         check(len(captured) == cfg.n_iterations, f"captured {len(captured)} launches, expected {cfg.n_iterations}")
@@ -4620,6 +4633,132 @@ def phase_write(errors: list[float], est, requests) -> int:
     return launches
 
 
+def phase_jax_calls(errors: list[float], est, requests) -> tuple[dict[str, int], dict]:
+    """Phase 25: the main entry points called as calls written against the
+    JAX package are written (its positional orders and options), each
+    path's K1 launches counted from 0 just before it and read just after.
+    Returns the launches by path and K1's shape records."""
+    from megapose6d_tpu_torch.evaluation.evaluation import load_detector
+    from megapose6d_tpu_torch.models.detector import Detector
+    from megapose6d_tpu_torch.scripts import generate_synthetic_dataset as gen
+
+    print(f"  {nvidia_smi()}", flush=True)
+    launches: dict[str, int] = {}
+    shapes: dict = {}
+    icfg = est.cfg
+    obs, dets = requests[1]
+    expected = len(launch_phases(len(dets), icfg))
+
+    # Phase 4's request, positional: (obs, dets, run_detector, n_refiner_iterations,
+    # n_pose_hypotheses, keep_all_coarse_outputs).
+    want, want_extra = est.run_inference_pipeline(obs, dets, keep_all_coarse_outputs=True)
+    t0 = time.perf_counter()
+    (got, extra), n = counted(est.run_inference_pipeline, obs, dets, False, icfg.n_refiner_iterations,
+                              icfg.n_pose_hypotheses, True)
+    wall = time.perf_counter() - t0
+    check(torch.equal(got.poses, want.poses) and "depth_refiner" not in extra
+          and torch.equal(extra["coarse"]["all_TCO"], want_extra["coarse"]["all_TCO"]),
+          "the positional pipeline call differs from the keyword one")
+    check(n == expected, f"the positional request launched K1 {n} times, expected {expected}")
+    launches["jax_calls_pipeline"] = n
+    print(f"  run_inference_pipeline(obs, dets, False, {icfg.n_refiner_iterations}, {icfg.n_pose_hypotheses}, "
+          f"True): {len(dets)} detections in {wall:.4f} s, all coarse outputs kept "
+          f"{tuple(extra['coarse']['all_TCO'].shape)}, no depth stage; poses bit for bit the keyword call's; "
+          f"K1 launches {n}", flush=True)
+
+    # A tile_face_chunk=32 scorer from the committed coarse_dr.
+    cfg_c, _ = config_from_run_json(ROOT / "runs/coarse_dr/config.json")
+    chunk32 = PosePredictor(dataclasses.replace(cfg_c, tile_face_chunk=32))
+    chunk32.load_state_dict(run_model("coarse_dr").state_dict())
+    est32 = PoseEstimator(chunk32, est.refiner_model, est.mesh_db, icfg, device="cuda")
+    t0 = time.perf_counter()
+    (out32, _), n = counted(est32.run_inference_pipeline, obs, dets)
+    wall = time.perf_counter() - t0
+    check(torch.equal(out32.poses, want.poses), "the tile_face_chunk=32 scorer's poses differ")
+    check(n == expected, f"the tile_face_chunk=32 request launched K1 {n} times, expected {expected}")
+    launches["jax_calls_chunk32"] = n
+    print(f"  PosePredictorConfig(tile_face_chunk=32) from {at_steps('coarse_dr')}: the request in {wall:.4f} s, "
+          f"poses bit for bit the 16-face config's; K1 launches {n}", flush=True)
+
+    # render_meshes_tiled at the TPU kernel's other scheduling knobs.
+    rng = np.random.RandomState(25)
+    B = 8
+    meshes = est.mesh_db.select(torch.zeros(B, dtype=torch.long, device="cuda"))
+    TCO = torch.as_tensor(random_poses(rng, B), device="cuda")
+    K = torch.as_tensor(scene_K(), device="cuda").expand(B, 3, 3)
+    args = (meshes.vertices, meshes.normals, meshes.colors, meshes.faces, meshes.face_valid, TCO, K, HW)
+    default = rt.render_meshes_tiled(*args, backface_cull=True, **meshes.texture_kw)
+    captured: list = []
+    restore = record_visibility_inputs(captured)
+    try:
+        knobs, n = counted(rt.render_meshes_tiled, *args, chunk=32, backface_cull=True, max_faces_per_program=96,
+                           **meshes.texture_kw)
+    finally:
+        rt.visibility = restore
+    check(n == 1 and all(torch.equal(a, b) for a, b in zip(knobs, default)),
+          "render_meshes_tiled(chunk=32, max_faces_per_program=96) differs from its defaults")
+    launches["jax_calls_render_knobs"] = n
+    kernel_at(f"jax_knobs_B{B}", captured, errors, shapes)
+    print(f"  render_meshes_tiled(chunk=32, max_faces_per_program=96), B={B} at {HW}: bit for bit the "
+          f"defaults' render; K1 launches {n}, held against the plain twin", flush=True)
+
+    # synthetic_batch_fn(z_range=) and 3 steps of train(cfg, model, mesh_db, batch_iterator, ...).
+    cfg, mesh_db, _ = train_setup("refiner_dr", save_epoch_interval=100, val_epoch_interval=100)
+    z_range = (0.5, 0.8)
+    synth = tt.synthetic_batch_fn(mesh_db, cfg.batch_size, tuple(cfg.input_resize), 400.0, z_range, device="cuda")
+    batch = synth(torch.Generator().manual_seed(0))
+    z = batch.TCO[:, 2, 3]
+    check(bool(((z >= z_range[0]) & (z <= z_range[1])).all()), "synthetic_batch_fn(z_range=) out of range")
+    model = PosePredictor(PosePredictorConfig(**cfg.model_config_kwargs()))
+    batches = (synth(torch.Generator().manual_seed(i)) for i in range(1, 100))
+    logs: list = []
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_jax_calls_"))
+    try:
+        t0 = time.perf_counter()
+        state, n = counted(tt.train, cfg, model, mesh_db, batches, tmp / "run", 1, 3, logs.append)
+        wall = time.perf_counter() - t0
+        written = sorted(p.name for p in (tmp / "run").iterdir())
+
+        # generate_bop(..., shadows=False, ibl=False) for 2 frames.
+        demo_db, objects = worlds.build_bop_world("demo", "cuda")
+        t1 = time.perf_counter()
+        split_dir, n_gen = counted(gen.generate_bop, demo_db, objects, tmp / "bop", 2, HW, 2, 400.0, 4, 123,
+                                   "test", True, True, False, False)
+        gen_wall = time.perf_counter() - t1
+        frames = BOPDataset(tmp / "bop", load_depth=True)
+        n_frames, rgb_shape = len(frames), frames[1].rgb.shape
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(state.model is model and state.step == 3 and len(logs) == 1 and logs[0]["epoch"] == 1
+          and np.isfinite(logs[0]["loss_total"]), f"train: step {state.step}, logs {logs}")
+    check("config.json" in written and "log.txt" in written and "checkpoints" in written, f"run_dir: {written}")
+    check(n > 0 and n % 3 == 0, f"train launched K1 {n} times")
+    launches["jax_calls_train"] = n
+    print(f"  synthetic_batch_fn(..., z_range={z_range}): depths {float(z.min()):.3f}-{float(z.max()):.3f} m; "
+          f"train(cfg, model, mesh_db, batch_iterator, run_dir, n_epochs=1, steps_per_epoch=3) at "
+          f"runs/refiner_dr's width (batch {cfg.batch_size}, {tuple(cfg.input_resize)}): {wall:.2f} s, "
+          f"loss {logs[0]['loss_total']:.4f}, run_dir {written}; K1 launches {n}", flush=True)
+    check(n_gen == 2 and n_frames == 2 and rgb_shape == HW + (3,) and split_dir.name == "test",
+          f"generate_bop(shadows=False, ibl=False): {n_gen} launches, {n_frames} frames")
+    launches["jax_calls_generate_bop"] = n_gen
+    print(f"  generate_bop(..., shadows=False, ibl=False): 2 frames in {gen_wall:.2f} s, read back; K1 launches "
+          f"{n_gen} (one pass a frame, no shadow pass)", flush=True)
+
+    # The committed detector under Detector(one_instance_per_class=True).
+    det = load_detector(DETECTOR_RUN, device="cuda")
+    one = Detector(det.model, det.labels, det.detection_th, True)
+    frame = BOPDataset(SYNTHDEMO)[1]
+    dobs = ObservationTensor.from_numpy(frame.rgb, K=frame.camera_data.K, device="cuda")
+    a, b = one.get_detections(dobs), det.get_detections(dobs, one_instance_per_class=True)
+    every = det.get_detections(dobs)
+    labels = list(a.infos["label"])
+    check(labels == list(b.infos["label"]) and torch.equal(a.bboxes, b.bboxes) and len(set(labels)) == len(labels),
+          "Detector(one_instance_per_class=True) differs from the per-call option")
+    print(f"  Detector(model, labels, {det.detection_th}, True) on a committed frame: {len(labels)} detections "
+          f"{labels} of {len(every)} without the option, the per-call option's", flush=True)
+    return launches, shapes
+
+
 def main(full: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4683,6 +4822,8 @@ def main(full: bool = False) -> int:
         phase_checkpoints()
     with Phase("write: orbax checkpoints slimmed and written by the port"):
         write_launches = phase_write(errors, est, requests)
+    with Phase("jax calls: the entry points called in the JAX package's forms"):
+        jax_call_launches, jax_call_shapes = phase_jax_calls(errors, est, requests)
     timing["by_shape"].update(vsd_shape)
     timing["by_shape"].update(depth_shapes)
     timing["by_shape"].update(train_shapes)
@@ -4692,6 +4833,7 @@ def main(full: bool = False) -> int:
     timing["by_shape"].update(dataset_shapes)
     timing["by_shape"].update(multi_shapes)
     timing["by_shape"].update(format_shapes)
+    timing["by_shape"].update(jax_call_shapes)
     record = {"kernels": [{
         "name": "visibility",
         "route": "cuda",
@@ -4700,7 +4842,7 @@ def main(full: bool = False) -> int:
         "launches": launches + rescore_launches + run_launches + depth_launches + rgbd_launches
         + depth_eval_launches + train_launches + prod_launches + final_launches + gen_launches + det_launches
         + serve_launches + dataset_launches + sum(multi_launches.values()) + sum(last_launches.values())
-        + sum(format_launches.values()) + write_launches,
+        + sum(format_launches.values()) + write_launches + sum(jax_call_launches.values()),
         "launches_by_path": {"pipeline": launches, "eval_rescore": rescore_launches, "eval_run": run_launches,
                              "depth_refiner": depth_launches, "rgbd": rgbd_launches,
                              "depth_eval": depth_eval_launches, "train": train_launches,
@@ -4708,7 +4850,7 @@ def main(full: bool = False) -> int:
                              "scene_gen": gen_launches, "detector": det_launches,
                              "detector_serving": serve_launches, "train_datasets": dataset_launches,
                              **multi_launches, **last_launches, **format_launches,
-                             "slimmed_checkpoints": write_launches},
+                             "slimmed_checkpoints": write_launches, **jax_call_launches},
         "max_abs_err": max(errors),
         **timing,
         "library_ms": None,

@@ -60,6 +60,17 @@ class ComposedTransform(SceneObservationTransform):
 # ---------------------------------------------------------------------------
 
 
+class _Enhancer:
+    """PIL's `ImageEnhance.<kind>(img)` on a uint8 array: `enhance(factor)`
+    blends the image with its degenerate image."""
+
+    def __init__(self, rgb: np.ndarray, degenerate: np.ndarray):
+        self.rgb, self.degenerate = rgb, degenerate
+
+    def enhance(self, factor: float) -> np.ndarray:
+        return imaging.blend(self.degenerate, self.rgb, factor)
+
+
 class _PillowEnhance(SceneObservationTransform):
     """`ImageEnhance.<kind>(img).enhance(factor)`: a blend of the image with
     its degenerate image, the factor drawn uniformly from the interval."""
@@ -73,9 +84,14 @@ class _PillowEnhance(SceneObservationTransform):
     def degenerate(rgb: np.ndarray) -> np.ndarray:
         raise NotImplementedError
 
+    @classmethod
+    def enhancer(cls, rgb: np.ndarray) -> _Enhancer:
+        """The counterpart of the JAX package's `enhancer(img)`."""
+        return _Enhancer(rgb, cls.degenerate(rgb))
+
     def __call__(self, obs: SceneObservation) -> SceneObservation:
         factor = random.uniform(*self.factor_interval)
-        return dataclasses.replace(obs, rgb=imaging.blend(self.degenerate(obs.rgb), obs.rgb, factor))
+        return dataclasses.replace(obs, rgb=self.enhancer(obs.rgb).enhance(factor))
 
 
 class PillowSharpness(_PillowEnhance):

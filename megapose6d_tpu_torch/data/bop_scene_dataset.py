@@ -30,8 +30,8 @@ class BOPDataset(SceneDataset):
     def __init__(
         self,
         ds_dir: str | Path,
-        split: str = "test",
         label_format: str = "obj_{label}",
+        split: str = "test",
         load_depth: bool = False,
         load_segmentation: bool = True,
     ):

@@ -17,7 +17,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
-from ..evaluation.bop import label_to_obj_id
+from ..evaluation.bop import label_to_obj_id as parse_obj_id
 from ..meshes.io import TriMesh, save_ply
 from ..utils.png import write_png
 from .scene_dataset import SceneObservation
@@ -28,14 +28,16 @@ def bop_label(obj_id: int) -> str:
     return f"obj_{obj_id:06d}"
 
 
-def write_bop_models(meshes: Iterable[tuple[int, TriMesh]], models_dir: str | Path) -> Path:
+def write_bop_models(meshes: Iterable[tuple[int, TriMesh]], models_dir: str | Path, mesh_units: str = "m") -> Path:
     """`models/obj_XXXXXX.ply` in millimetres and `models_info.json`
-    (diameter and bounding box in mm) from `(obj_id, mesh in metres)`."""
+    (diameter and bounding box in mm) from `(obj_id, mesh in mesh_units)`
+    ("m", or anything else for millimetres, written as they are)."""
     models_dir = Path(models_dir)
     models_dir.mkdir(parents=True, exist_ok=True)
+    scale = 1000.0 if mesh_units == "m" else 1.0
     infos = {}
     for obj_id, mesh in meshes:
-        mm = mesh.scaled(1000.0)
+        mm = mesh.scaled(scale)
         save_ply(mm, models_dir / f"obj_{obj_id:06d}.ply")
         v = mm.vertices
         infos[str(obj_id)] = {
@@ -47,10 +49,14 @@ def write_bop_models(meshes: Iterable[tuple[int, TriMesh]], models_dir: str | Pa
     return models_dir
 
 
-def write_scene_ds_as_bop(observations: Iterator[SceneObservation], ds_dir: str | Path, split: str = "test") -> Path:
+def write_scene_ds_as_bop(observations: Iterator[SceneObservation], ds_dir: str | Path, split: str = "test",
+                          label_to_obj_id=None) -> Path:
     """Observations as `<ds_dir>/<split>/<scene>/...` BOP scenes: poses
     camera <- model (`TWO` with the world at the camera), depth as uint16
-    millimetres (depth_scale 1), visible masks from the segmentation."""
+    millimetres (depth_scale 1), visible masks from the segmentation.
+    `label_to_obj_id` maps a label to its BOP id (default: the number of
+    `obj_000001`-style labels, `evaluation.bop.label_to_obj_id`)."""
+    to_id = label_to_obj_id or parse_obj_id
     base = Path(ds_dir) / split
     scenes: dict[str, dict[str, dict]] = {}
     for obs in observations:
@@ -69,7 +75,7 @@ def write_scene_ds_as_bop(observations: Iterator[SceneObservation], ds_dir: str 
         gt_rows, info_rows = [], []
         for n, obj in enumerate(obs.object_datas):
             TCO = np.asarray(obj.TWO, np.float64)
-            gt_rows.append({"obj_id": label_to_obj_id(obj.label), "cam_R_m2c": TCO[:3, :3].reshape(-1).tolist(),
+            gt_rows.append({"obj_id": to_id(obj.label), "cam_R_m2c": TCO[:3, :3].reshape(-1).tolist(),
                             "cam_t_m2c": (TCO[:3, 3] * 1000.0).tolist()})
             if obs.segmentation is not None:
                 mask = (obs.segmentation == obj.unique_id).astype(np.uint8)

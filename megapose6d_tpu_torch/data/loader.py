@@ -63,15 +63,17 @@ class ParallelBatchLoader:
       factory: picklable `worker_seed -> Iterator[BatchPoseData]` (numpy).
       n_workers: worker processes; 0 runs the factory inline.
       seed: base seed; worker i gets `seed + 1000003 * (i + 1)`.
+      prefetch: batches buffered ahead of the consumer (at least 2),
+        spread over the workers (`ceil(prefetch / n_workers)` each).
       pin_memory: pin each batch in page-locked memory (for CUDA copies).
-    Each worker keeps two batches ahead (the DataLoader's default).
     """
 
-    def __init__(self, factory: Callable[[int], Iterator], n_workers: int = 4, seed: int = 0,
+    def __init__(self, factory: Callable[[int], Iterator], n_workers: int = 4, seed: int = 0, prefetch: int = 8,
                  pin_memory: bool = False):
         self.factory = factory
         self.n_workers = int(n_workers)
         self.seed = int(seed)
+        self.prefetch = max(2, int(prefetch))
         self.pin_memory = pin_memory
         self._iter = None
 
@@ -84,7 +86,7 @@ class ParallelBatchLoader:
                 from .. import native
 
                 native.decoder()
-                kw = dict(multiprocessing_context="forkserver")
+                kw = dict(multiprocessing_context="forkserver", prefetch_factor=-(-self.prefetch // self.n_workers))
             loader = DataLoader(_BatchStream(self.factory, self.seed), batch_size=None, num_workers=self.n_workers,
                                 pin_memory=self.pin_memory, **kw)
             self._iter = iter(loader)
@@ -121,17 +123,20 @@ class PoseBatchFactory:
     shared), then decodes, augments, samples and collates. With
     `background_paths` (image files, such as Pascal VOC's JPEGs) a third of
     the observations get a background from them, as the JAX package's
-    `PoseDataset(apply_background_augmentation=True)`."""
+    `PoseDataset(apply_background_augmentation=True)`. The RGB
+    augmentations run unless `apply_rgb_augmentation=False`."""
 
     def __init__(self, dataset_names: tuple[str, ...], labels: tuple[str, ...], batch_size: int,
                  resize: tuple[int, int], input_depth: bool = False, min_area: float | None = None,
-                 data_dir: str | None = None, background_paths: tuple[str, ...] = ()):
+                 apply_rgb_augmentation: bool = True, data_dir: str | None = None,
+                 background_paths: tuple[str, ...] = ()):
         self.dataset_names = tuple(dataset_names)
         self.labels = tuple(labels)
         self.batch_size = int(batch_size)
         self.resize = tuple(resize)
         self.input_depth = bool(input_depth)
         self.min_area = min_area
+        self.apply_rgb_augmentation = bool(apply_rgb_augmentation)
         self.data_dir = data_dir
         self.background_paths = tuple(background_paths)
 
@@ -147,7 +152,8 @@ class PoseBatchFactory:
         ]
         obs_iter = iter(IterableMultiSceneDataset(scene_iters, seed=worker_seed))
         pose_ds = PoseDataset(
-            None, resize=self.resize, apply_depth_augmentation=self.input_depth, depth_supported=self.input_depth, min_area=self.min_area,
+            None, resize=self.resize, apply_rgb_augmentation=self.apply_rgb_augmentation,
+            apply_depth_augmentation=self.input_depth, depth_supported=self.input_depth, min_area=self.min_area,
             keep_labels_set=set(self.labels), apply_background_augmentation=bool(self.background_paths),
             background_image_paths=self.background_paths,
         )

@@ -45,9 +45,11 @@ def make_shapenet_object_dataset(shapenet_dir: str | Path, n_objects: int | None
 
 
 def make_modelnet_object_dataset(modelnet_dir: str | Path, category: str, split: str = "test",
-                                 n_objects: int | None = None) -> RigidObjectDataset:
+                                 n_objects: int | None = None, rescaled: bool = True) -> RigidObjectDataset:
     """ModelNet40, `<dir>/<category>/<split>/<category>_NNNN.obj`, in
-    metres, labelled `modelnet_<category>_<stem>`."""
+    metres, labelled `modelnet_<category>_<stem>`. `rescaled` (the
+    reference's choice of rescaled meshes) is not read: the JAX package
+    reads the meshes in metres either way."""
     objects = []
     for mesh in sorted((Path(modelnet_dir) / category / split).glob("*.obj")):
         objects.append(RigidObject(label=f"modelnet_{category}_{mesh.stem}", mesh_path=mesh, mesh_units="m"))

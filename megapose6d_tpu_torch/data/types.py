@@ -137,6 +137,10 @@ class ObservationTensor:
         return self.images.shape[-1]
 
     @property
+    def resolution(self) -> tuple[int, int]:
+        return self.images.shape[1], self.images.shape[2]
+
+    @property
     def depth(self) -> torch.Tensor | None:
         """`[B, H, W]` metres, or None without a depth channel."""
         return self.images[..., 3] if self.channels == 4 else None
@@ -144,14 +148,16 @@ class ObservationTensor:
     @staticmethod
     def from_numpy(
         rgb: np.ndarray,
-        K: np.ndarray,
-        device: str | torch.device = "cuda",
         depth: np.ndarray | None = None,
+        K: np.ndarray | None = None,
+        device: str | torch.device = "cuda",
     ) -> "ObservationTensor":
-        """From one HWC rgb image (uint8, or float in [0, 1]), its K and
-        optionally its HW depth in metres."""
+        """From one HWC rgb image (uint8, or float in [0, 1]), optionally
+        its HW depth in metres, and its K (required)."""
         if rgb.ndim != 3 or rgb.shape[-1] != 3:
             raise ValueError(f"expected an HWC rgb image, got {rgb.shape}")
+        if K is None:
+            raise ValueError("from_numpy needs K")
         img = rgb.astype(np.float32)
         if img.max() > 1.5:
             img = img / 255.0
@@ -163,3 +169,16 @@ class ObservationTensor:
             images=torch.as_tensor(img[None], device=device),
             K=torch.as_tensor(np.asarray(K, np.float32)[None], device=device),
         )
+
+    @staticmethod
+    def from_torch_layout(images_nchw, K, device: str | torch.device = "cuda") -> "ObservationTensor":
+        """From the reference's NCHW layout (`[B, C, H, W]`), transposed
+        once to NHWC."""
+        images = torch.as_tensor(images_nchw, device=device).movedim(1, -1).contiguous().float()
+        return ObservationTensor(images=images, K=torch.as_tensor(K, dtype=torch.float32, device=device))
+
+    def is_valid(self) -> bool:
+        """float32 NHWC images of 3 or 4 channels with rgb in [0, 1]."""
+        img = self.images
+        ok = img.dtype == torch.float32 and img.ndim == 4 and img.shape[-1] in (3, 4)
+        return bool(ok and 0.0 <= float(img[..., :3].min()) and float(img[..., :3].max()) <= 1.0)

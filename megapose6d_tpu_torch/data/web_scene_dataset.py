@@ -32,12 +32,13 @@ def write_scene_ds_as_wds(
     observations: Iterator[SceneObservation],
     out_dir: str | Path,
     frames_per_shard: int = 1000,
+    shard_format: str = "shard-{:06d}.tar",
     shard_offset: int = 0,
     frame_id_offset: int = 0,
 ) -> list[Path]:
-    """Write `observations` into shards of `frames_per_shard` frames.
-    `shard_offset` / `frame_id_offset` let several ranks write disjoint
-    shard ranges of one dataset."""
+    """Write `observations` into shards of `frames_per_shard` frames, shard
+    i named `shard_format.format(i)`. `shard_offset` / `frame_id_offset`
+    let several ranks write disjoint shard ranges of one dataset."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     shards: list[Path] = []
@@ -54,7 +55,7 @@ def write_scene_ds_as_wds(
         if tar is None or n_in_shard >= frames_per_shard:
             if tar is not None:
                 tar.close()
-            path = out_dir / f"shard-{len(shards) + shard_offset:06d}.tar"
+            path = out_dir / shard_format.format(len(shards) + shard_offset)
             shards.append(path)
             tar = tarfile.open(path, "w")
             n_in_shard = 0

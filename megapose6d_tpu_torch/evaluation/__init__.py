@@ -3,6 +3,7 @@
 from .bop import convert_results_to_bop, load_bop_results, run_bop_evaluation  # noqa: F401
 from .meters import (  # noqa: F401
     BOPScoreMeter,
+    Meter,
     ModelNetErrorMeter,
     compute_errors,
     compute_mssd_mspd,

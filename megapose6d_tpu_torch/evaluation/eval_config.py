@@ -10,7 +10,8 @@ and not read, as in the JAX package. The port adds `coarse_weights` / `refiner_w
 `detector_weights` (weight files that override the run directories'
 checkpoints, see `inference/load_model.py`; empty: the runs' own),
 `data_dir` (the root holding `<ds_name>/`; empty:
-`MEGAPOSE_DATA_DIR/bop_datasets`) and `device`.
+`MEGAPOSE_DATA_DIR/bop_datasets`) and `device`, keyword-only, so that the
+JAX package's positional order holds.
 """
 
 from __future__ import annotations
@@ -22,6 +23,17 @@ from typing import Any, Optional
 
 from ..inference.types import InferenceConfig
 from ..training.config import _coerce
+
+# BOP19 challenge test sets.
+BOP_TEST_DATASETS = [
+    "lmo.bop19",
+    "tless.bop19",
+    "tudl.bop19",
+    "icbin.bop19",
+    "itodd.bop19",
+    "hb.bop19",
+    "ycbv.bop19",
+]
 
 
 @dataclasses.dataclass
@@ -39,13 +51,13 @@ class EvalConfig:
     detector_run: str = ""
     coarse_run: str = ""
     refiner_run: str = ""
-    detector_weights: str = ""
-    coarse_weights: str = ""
-    refiner_weights: str = ""
+    detector_weights: str = dataclasses.field(default="", kw_only=True)
+    coarse_weights: str = dataclasses.field(default="", kw_only=True)
+    refiner_weights: str = dataclasses.field(default="", kw_only=True)
 
     # Dataset.
     ds_name: str = "ycbv.bop19"
-    data_dir: str = ""
+    data_dir: str = dataclasses.field(default="", kw_only=True)
 
     inference: InferenceConfig = dataclasses.field(default_factory=InferenceConfig)
 
@@ -71,7 +83,7 @@ class EvalConfig:
     # With `run_bop_eval`, bop_toolkit's dummy script instead of its scoring.
     debug: bool = False
 
-    device: str = "cuda"
+    device: str = dataclasses.field(default="cuda", kw_only=True)
 
 
 @dataclasses.dataclass

@@ -37,22 +37,27 @@ from .runner import EvaluationRunner, PredictionRunner
 logger = logging.getLogger(__name__)
 
 
-def load_detector(run_dir: str | Path, weights: str | Path | None = None,
+def load_detector(run_dir: str | Path, detection_th: float = 0.7, weights: str | Path | None = None,
                   device: str | torch.device = "cuda") -> Detector:
-    """A detector from its run directory's `labels.json` and `config.json`,
-    with the weights of `weights` (an npz export of a JAX run's params, an
-    orbax checkpoint directory or a port checkpoint) if given, else of the
-    run's checkpoint: a JAX run's `checkpoints/final` (orbax, as the JAX
-    package's `load_detector` reads it), else the port run's latest
-    (`run_detector_training`'s). A run without either raises; threshold 0.7."""
+    """A detector from its run directory's `labels.json` and `config.json`
+    (without one, the default configuration with one class a label, as the
+    JAX package reads its earliest runs), with the weights of `weights` (an
+    npz export of a JAX run's params, an orbax checkpoint directory or a
+    port checkpoint) if given, else of the run's checkpoint: a JAX run's
+    `checkpoints/final` (orbax, as the JAX package's `load_detector` reads
+    it), else the port run's latest (`run_detector_training`'s). A run
+    without either raises. Detections at or above `detection_th`."""
     run_dir = Path(run_dir)
     labels = json.loads((run_dir / "labels.json").read_text())
-    model = CenterNetDetector(DetectorConfig(**json.loads((run_dir / "config.json").read_text())))
+    cfg_path = run_dir / "config.json"
+    cfg = (DetectorConfig(**json.loads(cfg_path.read_text())) if cfg_path.exists()
+           else DetectorConfig(n_classes=len(labels)))
+    model = CenterNetDetector(cfg)
     final = run_dir / "checkpoints" / "final"
     source = weight_source(None, weights) if weights else (final if is_orbax_checkpoint(final)
                                                            else weight_source(run_dir, None))
     model.load_state_dict(read_weights(source, detector_state_dict_from_jax))
-    return Detector(model.to(device), labels)
+    return Detector(model.to(device), labels, detection_th)
 
 
 def _json_value(x):
@@ -158,15 +163,15 @@ def run_eval(cfg: EvalConfig, scene_ds=None, object_ds=None) -> Optional[dict]:
                          "scripts/demo_ar_baseline.py depth_refine=icp|gnc")
     coarse, refiner, mesh_db = load_or_init_models(
         object_ds, cfg.coarse_run or None, cfg.refiner_run or None,
-        cfg.coarse_weights or None, cfg.refiner_weights or None,
-        render_size=tuple(cfg.render_size), max_faces=cfg.max_faces, device=cfg.device,
+        render_size=tuple(cfg.render_size), max_faces=cfg.max_faces, coarse_weights=cfg.coarse_weights or None,
+        refiner_weights=cfg.refiner_weights or None, device=cfg.device,
     )
     estimator = PoseEstimator(coarse, refiner, mesh_db, cfg.inference, device=cfg.device)
     detector = None
     if cfg.inference.detection_type == "detector":
         if not cfg.detector_run:
             raise ValueError("detection_type='detector' needs detector_run")
-        detector = load_detector(cfg.detector_run, cfg.detector_weights or None, device=cfg.device)
+        detector = load_detector(cfg.detector_run, weights=cfg.detector_weights or None, device=cfg.device)
     runner = PredictionRunner(scene_ds, estimator, rank=cfg.rank, world_size=cfg.world_size, n_frames=cfg.n_frames,
                               detector=detector, detection_type=cfg.inference.detection_type)
     logger.info("[%s] predicting %d frames", cfg.ds_name, len(runner.frame_ids))

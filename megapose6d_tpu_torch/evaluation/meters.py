@@ -138,11 +138,31 @@ def _finite_or_inf(x: np.ndarray) -> list[float]:
     return np.where(np.isfinite(x), x, np.inf).tolist()
 
 
-class _Meter:
+class Meter:
+    """Accumulates per-frame rows in `datas` (`add`), which `summary`
+    reduces."""
+
+    def __init__(self):
+        self.datas: dict[str, list] = defaultdict(list)
+
+    def reset(self) -> None:
+        self.datas = defaultdict(list)
+
+    def add(self, pred_data, gt_data, frame=None) -> None:
+        raise NotImplementedError
+
+    def gather_distributed(self, arrays_by_rank: list[dict]) -> None:
+        """Merge the `datas` of every rank (gathered by the caller)."""
+        for datas in arrays_by_rank:
+            for k, v in datas.items():
+                self.datas[k].extend(v)
+
+
+class _Meter(Meter):
     def __init__(self, mesh_db, n_points: int):
+        super().__init__()
         self.mesh_db = mesh_db
         self.n_points = n_points
-        self.datas: dict[str, list] = defaultdict(list)
 
     def _matched(self, pred_data: TensorCollection, gt_data: TensorCollection, pred_ids, gt_ids):
         """Meshes, points, poses and intrinsics of the matched rows, on the

@@ -67,7 +67,7 @@ class PredictionRunner:
 
     def run_inference_on_observation(self, obs: SceneObservation):
         """(pose estimates, extra) of one frame, or None without detections."""
-        observation = ObservationTensor.from_numpy(obs.rgb, obs.camera_data.K, device=self.estimator.device,
+        observation = ObservationTensor.from_numpy(obs.rgb, K=obs.camera_data.K, device=self.estimator.device,
                                                    depth=obs.depth)
         detections = self.get_detections(obs, observation)
         if detections is None:

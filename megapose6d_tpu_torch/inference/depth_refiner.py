@@ -72,11 +72,14 @@ class DepthRefiner(abc.ABC):
     def refine_poses(
         self,
         predictions: TensorCollection,
+        masks=None,
         depth: Tensor | None = None,
         K: Tensor | None = None,
     ) -> tuple[TensorCollection, dict[str, Tensor]]:
         """`predictions.poses [N, 4, 4]`; `depth [H, W]` or `[1, H, W]`
-        in metres; `K [3, 3]` or `[1, 3, 3]`. Works on the mesh database's
+        in metres; `K [3, 3]` or `[1, 3, 3]`; `masks` is not read (the
+        refiners mask by the rendered depth, as the JAX package's do, which
+        ignore it too). Works on the mesh database's
         device. Returns the predictions with refined poses, and per
         prediction `valid` (and the refiner's own extra)."""
         if depth is None or K is None:
@@ -124,7 +127,7 @@ class ICPRefiner(DepthRefiner):
 
     def _refine_batch(self, key, TCO, depth_r, depth, K):
         keys = threefry.split(key, TCO.shape[0])
-        res = icp.icp_refine_pose(keys, depth, depth_r, K, n_points=self.n_points,
+        res = icp.icp_refine_pose(keys, TCO, depth, depth_r, K, n_points=self.n_points,
                                   n_iterations=self.n_iterations)
         TCO_refined, ok = _keep_failed(TCO, res.T_delta @ TCO, res.valid)
         return TCO_refined, {"residual": res.residual, "valid": ok}

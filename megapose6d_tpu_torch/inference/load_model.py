@@ -195,10 +195,10 @@ def load_or_init_models(
     object_dataset: RigidObjectDataset,
     coarse_run: str | Path | None = None,
     refiner_run: str | Path | None = None,
-    coarse_weights: str | Path | None = None,
-    refiner_weights: str | Path | None = None,
     render_size: tuple[int, int] = (240, 320),
     max_faces: int = 4096,
+    coarse_weights: str | Path | None = None,
+    refiner_weights: str | Path | None = None,
     seed: int = 0,
     device: str | torch.device = "cuda",
 ) -> tuple[PosePredictor, PosePredictor, BatchedMeshes]:
@@ -213,19 +213,23 @@ def load_or_init_models(
 def load_named_model(
     model_name: str,
     object_dataset: RigidObjectDataset,
+    runs: dict[str, str | Path] | None = None,
+    max_faces: int = 4096,
+    compute_dtype: str | None = None,
+    *,
     coarse_run: str | Path | None = None,
     refiner_run: str | Path | None = None,
     coarse_weights: str | Path | None = None,
     refiner_weights: str | Path | None = None,
-    max_faces: int = 4096,
-    compute_dtype: str | None = None,
     seed: int = 0,
     device: str | torch.device = "cuda",
     **inference_overrides,
 ) -> PoseEstimator:
     """A `PoseEstimator` for a `NAMED_MODELS` configuration.
 
-    A run directory gives a model's configuration and weights (a weights
+    `runs` is `{"coarse": run_dir, "refiner": run_dir}`, as in the JAX
+    package; `coarse_run` / `refiner_run` name one role's run alone. A run
+    directory gives a model's configuration and weights (a weights
     argument overrides them); without one the model is the named configuration's (resnet34,
     240x320) with weights drawn from `seed` (coarse) and `seed + 1`
     (refiner), computing in `compute_dtype`, by default bfloat16 on the
@@ -233,6 +237,9 @@ def load_named_model(
     inference parameters. The depth refiner is ICP for `depth_refiner`
     "ICP" or `run_depth_refiner`, GNC-TLS for "teaserpp"."""
     info = NAMED_MODELS[model_name]
+    runs = runs or {}
+    coarse_run = coarse_run or runs.get("coarse")
+    refiner_run = refiner_run or runs.get("refiner")
     device = torch.device(device)
     dtype = compute_dtype or ("bfloat16" if device.type == "cuda" else "float32")
     mesh_db = MeshDataBase.from_object_ds(object_dataset, max_faces=max_faces).batched(device=device)

@@ -145,14 +145,17 @@ class PoseEstimator:
       coarse_model / refiner_model: `PosePredictor`s (weights loaded).
       mesh_db: padded `BatchedMeshes` covering all labels in play.
       cfg: `InferenceConfig`.
-      device: where the models, meshes and work live.
       depth_refiner: a `DepthRefiner` on the same mesh database, for
         `run_depth_refiner`.
-      mesh_db_coarse: a database of the same labels with fewer faces, for
-        the coarse sweep and the rescore (default: `mesh_db`).
       detector: a `models.detector.Detector` for `run_detector=True`.
       device_mesh: devices to split the hypotheses over (the sharded
         mode); the first must be `device`. A device may repeat.
+      mesh_db_coarse: a database of the same labels with fewer faces, for
+        the coarse sweep and the rescore (default: `mesh_db`).
+      device: where the models, meshes and work live.
+
+    The JAX package's `coarse_params` and `refiner_params` have no
+    counterpart: a torch module holds its weights.
     """
 
     def __init__(
@@ -161,11 +164,11 @@ class PoseEstimator:
         refiner_model: PosePredictor,
         mesh_db: BatchedMeshes,
         cfg: InferenceConfig = InferenceConfig(),
-        device: str | torch.device = "cuda",
         depth_refiner: DepthRefiner | None = None,
-        mesh_db_coarse: BatchedMeshes | None = None,
         detector=None,
         device_mesh: Sequence[torch.device | str] | None = None,
+        mesh_db_coarse: BatchedMeshes | None = None,
+        device: str | torch.device = "cuda",
     ):
         if cfg.run_depth_refiner and depth_refiner is None:
             raise ValueError("run_depth_refiner needs a depth_refiner")
@@ -575,8 +578,8 @@ class PoseEstimator:
         run_detector: bool | None = None,
         n_refiner_iterations: int | None = None,
         n_pose_hypotheses: int | None = None,
-        run_depth_refiner: bool | None = None,
         keep_all_coarse_outputs: bool = False,
+        run_depth_refiner: bool | None = None,
     ) -> tuple[TensorCollection, dict[str, Any]]:
         """Full pipeline on ONE observation.
 
@@ -586,9 +589,9 @@ class PoseEstimator:
           detections: infos (`label`, `score`, ...) + `bboxes [D, 4]`, and
             `TCO_init [D, 4, 4]` for `coarse_estimation_type="external"`;
             None with `run_detector` takes the detector's.
-          run_depth_refiner: None takes `cfg.run_depth_refiner`.
           keep_all_coarse_outputs: also return every coarse hypothesis's
             pose as `extra["coarse"]["all_TCO"]`.
+          run_depth_refiner: None takes `cfg.run_depth_refiner`.
         Returns:
           (the detections' infos with `pose_score` and `pose_logit` columns
           added, and the tensors `poses [D, 4, 4]`, `pose_score [D]`,

@@ -40,16 +40,18 @@ def make_detections(
     labels: Sequence[str],
     bboxes,
     scores=None,
+    batch_im_ids=None,
     device: str | torch.device = "cuda",
 ) -> TensorCollection:
     """Detections: infos `label, score, batch_im_id, instance_id` (as the
-    JAX package's `make_detections`) + `bboxes [D, 4]` (x1, y1, x2, y2)."""
+    JAX package's `make_detections`; `batch_im_id` 0 unless `batch_im_ids`
+    names each detection's image) + `bboxes [D, 4]` (x1, y1, x2, y2)."""
     n = len(labels)
     bboxes = torch.as_tensor(np.asarray(bboxes, np.float32).reshape(n, 4), device=device)
     infos = {
         "label": list(labels),
         "score": np.ones(n) if scores is None else np.asarray(scores),
-        "batch_im_id": np.zeros(n, np.int64),
+        "batch_im_id": np.zeros(n, np.int64) if batch_im_ids is None else np.asarray(batch_im_ids),
         "instance_id": np.arange(n, dtype=np.int64),
     }
     return TensorCollection(infos=infos, bboxes=bboxes)

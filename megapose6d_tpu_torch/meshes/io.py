@@ -396,12 +396,13 @@ def _cluster_once(mesh: TriMesh, cell: float) -> TriMesh:
 TEXTURE_SIZE, TEXTURE_CELLS = 192, 24
 
 
-def make_random_texture(seed: int) -> np.ndarray:
-    """Random block texture `[192, 192, 3]` uint8: 24 x 24 blocks of
-    colours drawn uniformly in [0.1, 1] by `np.random.RandomState(seed)`."""
+def make_random_texture(size: int = 128, cells: int = 16, seed: int = 0) -> np.ndarray:
+    """Random block texture `[size, size, 3]` uint8: `cells x cells` blocks
+    of colours drawn uniformly in [0.1, 1] by `np.random.RandomState(seed)`
+    (the textured primitives take 192 and 24)."""
     rng = np.random.RandomState(seed)
-    blocks = rng.uniform(0.1, 1.0, size=(TEXTURE_CELLS, TEXTURE_CELLS, 3))
-    up = TEXTURE_SIZE // TEXTURE_CELLS
+    blocks = rng.uniform(0.1, 1.0, size=(cells, cells, 3))
+    up = size // cells
     return (np.kron(blocks, np.ones((up, up, 1))) * 255).astype(np.uint8)
 
 
@@ -436,7 +437,7 @@ def make_cube(half_extent: float = 0.05, color=(0.8, 0.2, 0.2), textured: bool =
             u0, u1 = fx / 3 + pad, (fx + 1) / 3 - pad
             v0, v1 = fy / 2 + pad, (fy + 1) / 2 - pad
             uvs[4 * f : 4 * f + 4] = [[u0, v0], [u1, v0], [u1, v1], [u0, v1]]
-        texture = make_random_texture(seed)
+        texture = make_random_texture(TEXTURE_SIZE, TEXTURE_CELLS, seed)
     return TriMesh(
         verts,
         np.asarray(faces, np.int32),
@@ -485,7 +486,7 @@ def make_uv_sphere(
         np.asarray(faces, np.int32),
         vertex_colors=np.tile(np.asarray(color, np.float32), (len(verts), 1)),
         vertex_uvs=uvs,
-        texture=make_random_texture(seed) if textured else None,
+        texture=make_random_texture(TEXTURE_SIZE, TEXTURE_CELLS, seed) if textured else None,
     ).with_computed_normals()
 
 
@@ -538,7 +539,8 @@ def _textured_cylinder(radius: float, length: float, n_seg: int, seed: int) -> T
             faces.append([center, base + jn, base + j] if s == 0 else [center, base + j, base + jn])
     return TriMesh(np.asarray(verts, np.float32), np.asarray(faces, np.int32),
                    vertex_colors=np.full((len(verts), 3), 0.7, np.float32),
-                   vertex_uvs=np.asarray(uvs, np.float32), texture=make_random_texture(seed)).with_computed_normals()
+                   vertex_uvs=np.asarray(uvs, np.float32),
+                   texture=make_random_texture(TEXTURE_SIZE, TEXTURE_CELLS, seed)).with_computed_normals()
 
 
 def make_cone(radius: float = 0.02, height: float = 0.06, n_seg: int = 24, color=(0.8, 0.6, 0.2),
@@ -585,7 +587,8 @@ def _textured_cone(radius: float, height: float, n_seg: int, seed: int) -> TriMe
         faces.append([center, cap + (j + 1) % n_seg, cap + j])  # faces -z
     return TriMesh(np.asarray(verts, np.float32), np.asarray(faces, np.int32),
                    vertex_colors=np.full((len(verts), 3), 0.7, np.float32),
-                   vertex_uvs=np.asarray(uvs, np.float32), texture=make_random_texture(seed)).with_computed_normals()
+                   vertex_uvs=np.asarray(uvs, np.float32),
+                   texture=make_random_texture(TEXTURE_SIZE, TEXTURE_CELLS, seed)).with_computed_normals()
 
 
 def make_axes(length: float = 0.1, radius_ratio: float = 0.03) -> TriMesh:

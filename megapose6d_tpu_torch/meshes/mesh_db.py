@@ -72,6 +72,7 @@ class RigidObject:
     scaling_factor: float = 1.0
     symmetries_discrete: list = dataclasses.field(default_factory=list)
     symmetries_continuous: list = dataclasses.field(default_factory=list)
+    ypr_offset_deg: tuple[float, float, float] = (0.0, 0.0, 0.0)
 
     @property
     def scale(self) -> float:
@@ -97,12 +98,16 @@ class RigidObjectDataset:
 
     def __init__(self, objects: Sequence[RigidObject]):
         self.objects = list(objects)
-        if len({o.label for o in self.objects}) != len(self.objects):
+        self._by_label = {o.label: o for o in self.objects}
+        if len(self._by_label) != len(self.objects):
             raise ValueError("duplicate object labels")
 
     @property
     def labels(self) -> list[str]:
         return [o.label for o in self.objects]
+
+    def get_object_by_label(self, label: str) -> RigidObject:
+        return self._by_label[label]
 
     def filter_objects(self, keep_labels: set[str]) -> "RigidObjectDataset":
         """The objects whose label is in `keep_labels`, in order."""
@@ -172,6 +177,13 @@ class BatchedMeshes:
     @property
     def device(self) -> torch.device:
         return self.vertices.device
+
+    @property
+    def n_labels(self) -> int:
+        return self.vertices.shape[0]
+
+    def replace(self, **changes) -> "BatchedMeshes":
+        return dataclasses.replace(self, **changes)
 
     def label_to_index(self, labels: Sequence[str]) -> torch.Tensor:
         table = {l: i for i, l in enumerate(self.labels)}
@@ -247,8 +259,8 @@ class MeshDataBase:
         F = _round_up(min(self.max_faces, max(m.n_faces for m in self.meshes.values())), align)
         return V, F
 
-    def batched(self, align: int = 128, device: str | torch.device = "cuda", n_vertices_pad: int | None = None,
-                n_faces_pad: int | None = None) -> BatchedMeshes:
+    def batched(self, align: int = 128, n_vertices_pad: int | None = None, n_faces_pad: int | None = None,
+                device: str | torch.device = "cuda") -> BatchedMeshes:
         """Pack to padded tensors on `device`. `n_vertices_pad` /
         `n_faces_pad` force the pad targets, so that databases built apart
         (the label shards of `sharded_db.ShardedMeshDB`) agree on shapes."""

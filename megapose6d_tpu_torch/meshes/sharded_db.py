@@ -58,17 +58,17 @@ class ShardedMeshDB:
     """The shards built in this process, each on its device.
 
     Attributes:
-      shards: shard id -> its `BatchedMeshes` of `per_shard` labels.
-      padded_labels: every shard's labels as its arrays hold them.
       shard_labels: every shard's labels without the padding (what the
         sampler draws from).
       per_shard: labels per shard, padding included.
+      shards: shard id -> its `BatchedMeshes` of `per_shard` labels.
+      padded_labels: every shard's labels as its arrays hold them.
     """
 
-    shards: dict[int, BatchedMeshes]
-    padded_labels: list[list[str]]
     shard_labels: list[list[str]]
     per_shard: int
+    shards: dict[int, BatchedMeshes]
+    padded_labels: list[list[str]]
 
     @property
     def n_shards(self) -> int:
@@ -91,7 +91,7 @@ class ShardedMeshDB:
         cls,
         object_ds: RigidObjectDataset,
         n_shards: int,
-        devices: Sequence[torch.device | str] | torch.device | str = "cuda",
+        device_mesh: Sequence[torch.device | str] | torch.device | str | None = None,
         seed: int = 0,
         shard_ids: Sequence[int] | None = None,
         n_vertices_pad: int | None = None,
@@ -100,14 +100,15 @@ class ShardedMeshDB:
         **db_kw,
     ) -> "ShardedMeshDB":
         """Split `object_ds`'s labels into `n_shards` and build the shards
-        `shard_ids` (all by default), shard i on `devices[i]` (or all on
-        `devices`). Shards built in one call share their pad targets (the
+        `shard_ids` (all by default), shard i on `device_mesh[i]` (or all on
+        `device_mesh`, "cuda" when None). Shards built in one call share their pad targets (the
         largest shard's, unless forced); shards built apart, one per rank,
         need `n_vertices_pad` and `n_faces_pad`."""
         shards = split_labels(object_ds.labels, n_shards, seed)
         build_ids = list(range(n_shards)) if shard_ids is None else list(shard_ids)
         if shard_ids is not None and len(build_ids) < n_shards and not (n_vertices_pad and n_faces_pad):
             raise ValueError("shards built apart need n_vertices_pad and n_faces_pad to agree on shapes")
+        devices = "cuda" if device_mesh is None else device_mesh
         if isinstance(devices, (str, torch.device)):
             devices = [devices] * n_shards
         by_label = {o.label: o for o in object_ds.objects}
@@ -116,7 +117,7 @@ class ShardedMeshDB:
         targets = [db.pad_targets(align) for db in dbs.values()]
         V = n_vertices_pad or max(v for v, _ in targets)
         F = n_faces_pad or max(f for _, f in targets)
-        built = {sid: _pad_labels(db.batched(align, devices[sid], V, F), shards[sid]) for sid, db in dbs.items()}
+        built = {sid: _pad_labels(db.batched(align, V, F, device=devices[sid]), shards[sid]) for sid, db in dbs.items()}
         return cls(shards=built, padded_labels=shards, shard_labels=[list(dict.fromkeys(s)) for s in shards],
                    per_shard=len(shards[0]))
 

@@ -26,13 +26,15 @@ def world_objects(labels: tuple[str, str] = ("cube", "sphere")) -> RigidObjectDa
     ])
 
 
-def build_world(max_faces: int = 2048, device: str | torch.device = "cuda",
-                objects: RigidObjectDataset | None = None) -> BatchedMeshes:
-    """The world's objects (default `world_objects()`) in a
-    `BatchedMeshes` on `device`. At 2048 faces the sphere is not
-    decimated; below, decimation bakes its texture into vertex colours."""
-    objects = objects or world_objects()
-    return MeshDataBase.from_object_ds(objects, max_faces=max_faces, n_points=512, n_sym=4).batched(device=device)
+def build_world(max_faces: int = 2048, return_objects: bool = False, labels: tuple[str, str] = ("cube", "sphere"),
+                device: str | torch.device = "cuda", objects: RigidObjectDataset | None = None):
+    """The world's objects (default `world_objects(labels)`) in a
+    `BatchedMeshes` on `device`, and with `return_objects` the objects too.
+    At 2048 faces the sphere is not decimated; below, decimation bakes its
+    texture into vertex colours."""
+    objects = objects or world_objects(tuple(labels))
+    db = MeshDataBase.from_object_ds(objects, max_faces=max_faces, n_points=512, n_sym=4).batched(device=device)
+    return (db, objects) if return_objects else db
 
 
 def bop_world_objects(world: str = "demo") -> RigidObjectDataset:

@@ -7,8 +7,12 @@ reference checkpoints' BatchNorm backbone: `zoo_resnet*` normalizes with
 the running statistics (carried across from flax's `batch_stats` or from
 a reference checkpoint), `zoo_resnet*-train` with the batch's while the
 module trains, updating the running ones as flax does. Parameters are float32; the forward pass
-computes in `compute_dtype` (bfloat16 for the committed runs), which a
-caller may override per call, and normalizes in float32. Details that
+computes in `dtype` (bfloat16 for the committed runs), which a caller may
+override per call, and normalizes in float32. The constructors take the
+flax modules' fields in their order; a torch module's input width
+(`cin`, `in_channels`) and, for the spatial head, its input size
+(`input_hw`) are keyword-only, since torch needs them when it builds the
+module where flax infers them. Details that
 follow flax and differ from torch's defaults: GroupNorm eps is 1e-6,
 BatchNorm eps 1e-5, and the spatial head flattens the feature map in NHWC
 order.
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 Tensor = torch.Tensor
+Dtype = torch.dtype
 GN_EPS = 1e-6
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99  # flax's: running = 0.99 * running + 0.01 * batch
@@ -133,17 +138,19 @@ class Conv(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """torchvision-style BasicBlock (2x 3x3 conv + skip)."""
+    """torchvision-style BasicBlock (2x 3x3 conv + skip), computing in its
+    input's dtype."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1, groups: int = 32):
+    def __init__(self, features: int, strides: int = 1, norm_groups: int = 32, dtype: Dtype = torch.float32, *,
+                 cin: int):
         super().__init__()
-        self.conv1 = Conv(cin, features, 3, stride, 1)
-        self.norm1 = GroupNorm(groups, features)
+        self.conv1 = Conv(cin, features, 3, strides, 1)
+        self.norm1 = GroupNorm(norm_groups, features)
         self.conv2 = Conv(features, features, 3, 1, 1)
-        self.norm2 = GroupNorm(groups, features)
+        self.norm2 = GroupNorm(norm_groups, features)
         self.downsample = None
-        if cin != features or stride != 1:
-            self.downsample = nn.Sequential(Conv(cin, features, 1, stride), GroupNorm(groups, features))
+        if cin != features or strides != 1:
+            self.downsample = nn.Sequential(Conv(cin, features, 1, strides), GroupNorm(norm_groups, features))
 
     def forward(self, x: Tensor) -> Tensor:
         y = F.relu(self.norm1(self.conv1(x)))
@@ -161,18 +168,19 @@ class ResNet(nn.Module):
 
     def __init__(
         self,
-        in_channels: int,
-        input_hw: tuple[int, int],
         stage_sizes=(3, 4, 6, 3),
         width: int = 64,
         n_features: int = 512,
         norm_groups: int = 32,
-        compute_dtype: torch.dtype = torch.float32,
+        dtype: Dtype = torch.float32,
         pool: str = "avg",
         spatial_ch: int = 64,
+        *,
+        in_channels: int,
+        input_hw: tuple[int, int] | None = None,
     ):
         super().__init__()
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = dtype
         self.pool = pool
         self.stem = Conv(in_channels, width, 7, 2, 3)
         self.stem_norm = GroupNorm(norm_groups, width)
@@ -180,12 +188,14 @@ class ResNet(nn.Module):
         for i, n_blocks in enumerate(stage_sizes):
             features = width * 2**i
             for b in range(n_blocks):
-                blocks.append(BasicBlock(cin, features, 2 if (i > 0 and b == 0) else 1, norm_groups))
+                blocks.append(BasicBlock(features, 2 if (i > 0 and b == 0) else 1, norm_groups, cin=cin))
                 cin = features
         self.blocks = nn.Sequential(*blocks)
         if pool == "spatial":
             self.head_conv = Conv(cin, spatial_ch, 1)
             self.head_norm = GroupNorm(min(8, spatial_ch), spatial_ch)
+            if input_hw is None:
+                raise ValueError("the spatial head needs input_hw")
             h, w = input_hw
             for _ in range(5):  # stem, max pool and three strided stages
                 h, w = -(-h // 2), -(-w // 2)
@@ -214,12 +224,13 @@ class WideResNetBlock(nn.Module):
     relu, 3x3 conv, plus the input (through a 1x1 conv of the activated
     input when the shape changes)."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1, groups: int = 16):
+    def __init__(self, features: int, strides: int = 1, norm_groups: int = 16, dtype: Dtype = torch.float32, *,
+                 cin: int):
         super().__init__()
-        self.norm1 = GroupNorm(groups, cin)
-        self.shortcut = Conv(cin, features, 1, stride) if cin != features or stride != 1 else None
-        self.conv1 = Conv(cin, features, 3, stride, 1)
-        self.norm2 = GroupNorm(groups, features)
+        self.norm1 = GroupNorm(norm_groups, cin)
+        self.shortcut = Conv(cin, features, 1, strides) if cin != features or strides != 1 else None
+        self.conv1 = Conv(cin, features, 3, strides, 1)
+        self.norm2 = GroupNorm(norm_groups, features)
         self.conv2 = Conv(features, features, 3, 1, 1)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -236,22 +247,23 @@ class WideResNet(nn.Module):
 
     def __init__(
         self,
-        in_channels: int,
         stage_sizes=(2, 2, 2, 2),
         width: int = 64,
         widen: int = 2,
         n_features: int = 512,
         norm_groups: int = 16,
-        compute_dtype: torch.dtype = torch.float32,
+        dtype: Dtype = torch.float32,
+        *,
+        in_channels: int,
     ):
         super().__init__()
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = dtype
         self.stem = Conv(in_channels, width, 3, 1, 1)
         blocks, cin = [], width
         for i, n_blocks in enumerate(stage_sizes):
             features = width * widen * 2**i
             for b in range(n_blocks):
-                blocks.append(WideResNetBlock(cin, features, 2 if b == 0 else 1, norm_groups))
+                blocks.append(WideResNetBlock(features, 2 if b == 0 else 1, norm_groups, cin=cin))
                 cin = features
         self.blocks = nn.Sequential(*blocks)
         self.norm = GroupNorm(norm_groups, cin)
@@ -267,14 +279,16 @@ class WideResNet(nn.Module):
 class ZooBasicBlockV2(nn.Module):
     """Pre-activation block of the reference's checkpoints: BatchNorm,
     relu, 3x3 conv, BatchNorm, relu, 3x3 conv, plus the input (through a
-    norm-free 1x1 conv of the activated input when the shape changes)."""
+    norm-free 1x1 conv of the activated input when the shape changes).
+    `train=True` normalizes with the batch's statistics (see `BatchNorm`)."""
 
-    def __init__(self, cin: int, features: int, stride: int = 1, batch_stats: bool = False):
+    def __init__(self, features: int, strides: int = 1, dtype: Dtype = torch.float32, train: bool = False, *,
+                 cin: int):
         super().__init__()
-        self.bn1 = BatchNorm(cin, batch_stats)
-        self.downsample = Conv(cin, features, 1, stride) if cin != features or stride != 1 else None
-        self.conv1 = Conv(cin, features, 3, stride, 1)
-        self.bn2 = BatchNorm(features, batch_stats)
+        self.bn1 = BatchNorm(cin, train)
+        self.downsample = Conv(cin, features, 1, strides) if cin != features or strides != 1 else None
+        self.conv1 = Conv(cin, features, 3, strides, 1)
+        self.bn2 = BatchNorm(features, train)
         self.conv2 = Conv(features, features, 3, 1, 1)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -287,26 +301,29 @@ class ZooBasicBlockV2(nn.Module):
 class ZooWideResNet(nn.Module):
     """The reference checkpoints' backbone: a 5x5/2 BatchNorm stem, max
     pool, four pre-activation stages, global mean; `[B, H, W, C]` ->
-    `[B, 8 * width]` float32 (no Dense). `batch_stats=True` is the
-    trainable form (`zoo_resnet*-train`, see `BatchNorm`)."""
+    `[B, 8 * width]` float32 (no Dense; `n_features` is not read, as in
+    the JAX package). `train=True` is the trainable form
+    (`zoo_resnet*-train`, see `BatchNorm`)."""
 
     def __init__(
         self,
-        in_channels: int,
         stage_sizes=(3, 4, 6, 3),
         width: int = 64,
-        compute_dtype: torch.dtype = torch.float32,
-        batch_stats: bool = False,
+        n_features: int = 512,
+        dtype: Dtype = torch.float32,
+        train: bool = False,
+        *,
+        in_channels: int,
     ):
         super().__init__()
-        self.compute_dtype = compute_dtype
+        self.compute_dtype = dtype
         self.stem = Conv(in_channels, width, 5, 2, 2)
-        self.stem_bn = BatchNorm(width, batch_stats)
+        self.stem_bn = BatchNorm(width, train)
         blocks, cin = [], width
         for i, n_blocks in enumerate(stage_sizes):
             features = width * 2**i
             for b in range(n_blocks):
-                blocks.append(ZooBasicBlockV2(cin, features, 2 if (i > 0 and b == 0) else 1, batch_stats))
+                blocks.append(ZooBasicBlockV2(features, 2 if (i > 0 and b == 0) else 1, train=train, cin=cin))
                 cin = features
         self.blocks = nn.Sequential(*blocks)
 
@@ -336,17 +353,16 @@ def make_backbone(
     in_channels: int,
     input_hw: tuple[int, int],
     n_features: int = 512,
-    compute_dtype: torch.dtype = torch.float32,
+    dtype: Dtype = torch.float32,
 ) -> nn.Module:
-    """Backbone registry, the JAX package's names."""
+    """Backbone registry, the JAX package's names, for inputs of
+    `in_channels` channels at `input_hw` (what flax infers)."""
     if name not in _BACKBONES:
         raise ValueError(f"unknown backbone: {name}")
     stages, kind = _BACKBONES[name]
     if kind == "wide":
-        return WideResNet(in_channels, stages, n_features=n_features, compute_dtype=compute_dtype)
+        return WideResNet(stages, n_features=n_features, dtype=dtype, in_channels=in_channels)
     if kind.startswith("zoo"):
-        return ZooWideResNet(in_channels, stages, compute_dtype=compute_dtype, batch_stats=kind == "zoo-train")
-    return ResNet(
-        in_channels, input_hw, stages, n_features=n_features,
-        compute_dtype=compute_dtype, pool=kind,
-    )
+        return ZooWideResNet(stages, dtype=dtype, train=kind == "zoo-train", in_channels=in_channels)
+    return ResNet(stages, n_features=n_features, dtype=dtype, pool=kind, in_channels=in_channels,
+                  input_hw=input_hw)

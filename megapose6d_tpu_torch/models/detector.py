@@ -80,8 +80,8 @@ class CenterNetDetector(nn.Module):
         w = cfg.width
         self.stem = Conv(3, w, 7, 2, 3)
         self.stem_norm = GroupNorm(8, w)
-        self.blocks = nn.Sequential(BasicBlock(w, w, 2, 8), BasicBlock(w, 2 * w, 2, 8),
-                                    BasicBlock(2 * w, 4 * w, 2, 8))
+        self.blocks = nn.Sequential(BasicBlock(w, 2, 8, cin=w), BasicBlock(2 * w, 2, 8, cin=w),
+                                    BasicBlock(4 * w, 2, 8, cin=2 * w))
         n_up = {4: 2, 8: 1, 16: 0}[cfg.stride]
         cin, ups = 4 * w, []
         for _ in range(n_up):
@@ -204,15 +204,18 @@ def segmentation_loss(outputs: dict[str, Tensor], gt_seg: Tensor, stride: int) -
 
 class Detector:
     """Detections of one observation: the model's top `max_detections`
-    peaks at or above `detection_th`, optionally (per call) one per class
-    (the highest), with per-instance masks (the class's segmentation, upsampled
+    peaks at or above `detection_th`, optionally one per class (the
+    highest; `one_instance_per_class`, which a call may override), with
+    per-instance masks (the class's segmentation, upsampled
     to the image, above 0.5 and inside the box) when the model predicts
     masks. Runs on the model's device."""
 
-    def __init__(self, model: CenterNetDetector, labels, detection_th: float = 0.7):
+    def __init__(self, model: CenterNetDetector, labels, detection_th: float = 0.7,
+                 one_instance_per_class: bool = False):
         self.model = model.eval()
         self.labels = list(labels)
         self.detection_th = detection_th
+        self.one_instance_per_class = one_instance_per_class
 
     @property
     def device(self) -> torch.device:
@@ -235,8 +238,10 @@ class Detector:
         return out
 
     def get_detections(self, observation, detection_th: float | None = None,
-                       one_instance_per_class: bool = False) -> TensorCollection:
+                       one_instance_per_class: bool | None = None) -> TensorCollection:
         th = self.detection_th if detection_th is None else detection_th
+        if one_instance_per_class is None:
+            one_instance_per_class = self.one_instance_per_class
         out = self.infer(observation.images[..., :3].to(self.device, torch.float32))
         scores = out["scores"][0].cpu().numpy()
         classes = out["classes"][0].cpu().numpy()

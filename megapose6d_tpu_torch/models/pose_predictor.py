@@ -61,21 +61,19 @@ class PosePredictorConfig:
     mv_crop_points: int = 200
     renderer: str = "tiled"  # "tiled" (the CUDA kernel on the card) | "scan" (plain torch)
     face_chunk: int = 64  # the scan renderer's face chunk
-    # The tiled renderer's faces per chunk: `rasterizer_tiled.FACE_CHUNK`,
-    # the only value taken. Kept so that configs that carry it load.
-    tile_face_chunk: int = rasterizer_tiled.FACE_CHUNK
-    # How many hypotheses share one program of the JAX package's Pallas
-    # kernel. It changes no pixel there, and has no effect here: the CUDA
-    # kernel's blocks are tiles of one image. Read so that run configs
-    # that carry it load.
+    # The JAX package's Pallas kernel's faces per chunk and hypotheses per
+    # program. Neither changes a pixel there; both are passed to
+    # `render_meshes_tiled`, whose CUDA kernel keeps its own layout (chunks
+    # of `rasterizer_tiled.FACE_CHUNK` faces, one image's tiles a launch).
+    tile_face_chunk: int = 16
     tile_hyp_pack: int = 1
     backface_cull: bool = True  # meshes from MeshDataBase are winding-normalized
     z_near: float = 0.01
 
     def __post_init__(self):
-        if self.tile_face_chunk != rasterizer_tiled.FACE_CHUNK:
-            raise ValueError(f"tile_face_chunk {self.tile_face_chunk}: the tiled renderer takes chunks of "
-                             f"{rasterizer_tiled.FACE_CHUNK} faces only")
+        for name in ("tile_face_chunk", "tile_hyp_pack"):
+            if int(getattr(self, name)) < 1:
+                raise ValueError(f"{name} must be positive, not {getattr(self, name)}")
 
     @property
     def n_inputs(self) -> int:
@@ -188,7 +186,7 @@ class PosePredictor(nn.Module):
             O_vertices=points, output_size=self.cfg.render_size, lamb=self.cfg.crop_lamb,
             depth_dim=3 if self.cfg.input_depth else None,
         )
-        K_crop = get_K_crop_resize(K, boxes_crop, self.cfg.render_size)
+        K_crop = get_K_crop_resize(K, boxes_crop, tuple(images.shape[1:3]), self.cfg.render_size)
         return images_cropped, K_crop, boxes_rend, boxes_crop
 
     def compute_crops_multiview(
@@ -209,7 +207,7 @@ class PosePredictor(nn.Module):
             output_size=self.cfg.render_size, lamb=self.cfg.crop_lamb,
             return_crops=False, im_size=im_hw,
         )
-        return get_K_crop_resize(K_mv, boxes_crop, self.cfg.render_size).reshape(B, V, 3, 3)
+        return get_K_crop_resize(K_mv, boxes_crop, im_hw, self.cfg.render_size).reshape(B, V, 3, 3)
 
     @torch.no_grad()
     def render_views(
@@ -242,7 +240,8 @@ class PosePredictor(nn.Module):
         light = dict(light_ambient=light_ambient, light_point=light_point)
         if cfg.renderer == "tiled":
             out = rasterizer_tiled.render_meshes_tiled(
-                *args, z_near=cfg.z_near, backface_cull=cfg.backface_cull, **light, **mesh_mv.texture_kw)
+                *args, z_near=cfg.z_near, chunk=cfg.tile_face_chunk, backface_cull=cfg.backface_cull,
+                hyp_pack=cfg.tile_hyp_pack, **light, **mesh_mv.texture_kw)
         elif cfg.renderer == "scan":  # two-sided, as the JAX package's scan branch
             out = rasterizer.render_meshes(*args, z_near=cfg.z_near, chunk=cfg.face_chunk, **light,
                                            **mesh_mv.texture_kw)

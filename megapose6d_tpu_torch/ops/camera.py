@@ -47,10 +47,11 @@ def masked_boxes_from_uv(uv: Tensor, valid: Tensor) -> Tensor:
 
 
 def get_K_crop_resize(
-    K: Tensor, boxes: Tensor, crop_resize: tuple[int, int]
+    K: Tensor, boxes: Tensor, orig_size: tuple[int, int], crop_resize: tuple[int, int]
 ) -> Tensor:
     """Intrinsics of the crop `boxes [B, 4]` resized to `crop_resize`
-    (h, w), pixel-center convention."""
+    (h, w), pixel-center convention. `orig_size` (h, w of the original
+    image) is not read, as in the JAX package and the reference."""
     final_height, final_width = min(crop_resize), max(crop_resize)
     crop_width = boxes[..., 2] - boxes[..., 0]
     crop_height = boxes[..., 3] - boxes[..., 1]

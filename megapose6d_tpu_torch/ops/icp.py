@@ -164,10 +164,12 @@ def icp_point_to_plane(
 
 
 def icp_refine_pose(
-    keys: np.ndarray,  # [B, 2] uint32, one key per object
+    key: np.ndarray,  # [B, 2] uint32, one threefry key per object
+    TCO_pred: Tensor | None,  # [B, 4, 4], not read
     depth_measured: Tensor,  # [H, W] metres
     depth_rendered: Tensor,  # [B, H, W] metres, renders of the predictions
     K: Tensor,  # [3, 3]
+    mask: Tensor | None = None,  # [H, W] or [B, H, W] bool, extra mask on the measured depth
     n_points: int = 1024,
     n_iterations: int = 30,
     depth_range: tuple[float, float] = (0.2, 5.0),
@@ -175,7 +177,9 @@ def icp_refine_pose(
     """Refine each prediction: sample measured and rendered surface points,
     shift the rendered ones onto the measured centroid, then point-to-plane
     ICP. The returned `T_delta` includes the shift; apply it as
-    `TCO_refined = T_delta @ TCO_pred`."""
+    `TCO_refined = T_delta @ TCO_pred`. The JAX package's function on one
+    object, batched over the objects (its `vmap`): `key` holds each
+    object's key, and `TCO_pred` is not read there either."""
     B, H, W = depth_rendered.shape
     dev = depth_rendered.device
     xyz_tgt = depth_to_xyz(depth_measured, K).reshape(-1, 3)
@@ -183,10 +187,13 @@ def icp_refine_pose(
     xyz_src = depth_to_xyz(depth_rendered, K)  # [B, H, W, 3]
 
     # Measured points only where the render is valid too.
-    tgt_ok = (depth_measured > depth_range[0]) & (depth_measured < depth_range[1]) & (depth_rendered > 0)
+    tgt_ok = (depth_measured > depth_range[0]) & (depth_measured < depth_range[1])
+    if mask is not None:
+        tgt_ok = tgt_ok & mask
+    tgt_ok = tgt_ok & (depth_rendered > 0)
     src_ok = (depth_rendered > 0) & torch.isfinite(xyz_src).all(-1)
 
-    k12 = np.stack([threefry.split(k) for k in np.asarray(keys, np.uint32)])  # [B, 2, 2]
+    k12 = np.stack([threefry.split(k) for k in np.asarray(key, np.uint32)])  # [B, 2, 2]
     u1 = uniform_fields(k12[:, 0], (H, W), dev)
     u2 = uniform_fields(k12[:, 1], (H, W), dev)
     src_idx, src_valid = _masked_sample_idx(u1, src_ok, n_points)

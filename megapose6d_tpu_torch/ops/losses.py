@@ -17,8 +17,8 @@ from .se3 import make_se3, rotmat_from_ortho6d, transform_pts
 
 Tensor = torch.Tensor
 
-l1: Callable[[Tensor], Tensor] = torch.abs
-l2: Callable[[Tensor], Tensor] = torch.square
+l1: Callable[[Tensor], Tensor] = lambda d: torch.abs(d)  # noqa: E731
+l2: Callable[[Tensor], Tensor] = lambda d: d**2  # noqa: E731
 
 
 def loss_CO_symmetric(

@@ -46,6 +46,10 @@ MAX_SPLIT = 16  # blocks (a thread block cluster) that may share a tile's chain
 # an H100 (PERF.md §6).
 SPLIT_BY_TILES = ((150, 16), (600, 8), (6000, 3))
 REBASE_HW = (32, 128)  # the TPU kernel's tile; a tile lies in one such cell
+# The TPU kernel's scheduling knobs, which `render_meshes_tiled` takes and
+# does not read: its tile height and the faces one program holds.
+JAX_TILE_H = 32
+MAX_FACES_PER_PROGRAM = 8192
 N_ATTR = 6  # r, g, b, nx, ny, nz
 COEF_W = 32  # 9 edge + 3 invz + 18 attr + 2 pad
 
@@ -475,12 +479,16 @@ def render_meshes_tiled(
     K: Tensor,
     resolution: tuple[int, int],
     z_near: float = 0.01,
+    chunk: int = 16,
     light_ambient: float | Tensor = 0.1,
     light_point: float | Tensor = 0.4,
     backface_cull: bool = False,
+    tile_h: int = JAX_TILE_H,
+    hyp_pack: int = 1,
     uvs: Tensor | None = None,
     textures: Tensor | None = None,
     has_tex: Tensor | None = None,
+    max_faces_per_program: int = MAX_FACES_PER_PROGRAM,
 ) -> RenderOutput:
     """Render `B` meshes (`vertices/normals/colors [B, V, 3]`, `faces
     [B, F, 3]`, `face_valid [B, F]`) at poses `TCO [B, 4, 4]` with
@@ -489,7 +497,21 @@ def render_meshes_tiled(
     `backface_cull=True` needs outward-CCW winding and closed surfaces
     (meshes from `MeshDataBase`). Poses with non-finite entries render
     empty. Textured meshes pass `uvs [B, V, 2]`, `textures [B, TS, TS, 3]`
-    uint8 and `has_tex [B]`."""
+    uint8 and `has_tex [B]`.
+
+    `chunk`, `tile_h`, `hyp_pack` and `max_faces_per_program` are the TPU
+    kernel's scheduling knobs (faces per chunk, tile height, hypotheses a
+    program, faces a program before the face axis is rendered in segments
+    merged by depth). They change no pixel there (the JAX package's
+    `tests/test_rasterizer_tiled.py::test_chunk_sizes_equivalent` and
+    `::test_face_segmentation_equivalence`), so any positive values are
+    taken here and not read: the CUDA kernel keeps its own layout (16 x 32
+    tiles, chunks of `FACE_CHUNK` faces, the whole face table in global
+    memory, planes rebased to the 32 x 128 cell)."""
+    for name, value in (("chunk", chunk), ("tile_h", tile_h), ("hyp_pack", hyp_pack),
+                        ("max_faces_per_program", max_faces_per_program)):
+        if int(value) < 1:
+            raise ValueError(f"{name} must be positive, not {value}")
     if uvs is None or textures is None or has_tex is None:
         uvs = textures = has_tex = None  # textured only with all three
     colors = apply_uv_as_colors(colors, uvs, has_tex)

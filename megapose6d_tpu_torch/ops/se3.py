@@ -139,9 +139,13 @@ def draw_random_rotations(shape: tuple[int, ...], generator: torch.Generator) ->
     return torch.randn(tuple(shape) + (4,), generator=generator)
 
 
-def random_rotations(normals: Tensor) -> Tensor:
-    """Haar-uniform rotations `[..., 3, 3]` from standard normal 4-vectors
-    `[..., 4]` (normalised, they are uniform on S^3)."""
+def random_rotations(shape: tuple[int, ...] | None = None, normals: Tensor | None = None,
+                     generator: torch.Generator | None = None) -> Tensor:
+    """Haar-uniform rotations `shape + (3, 3)` from standard normal
+    4-vectors `normals [..., 4]` (normalised, they are uniform on S^3),
+    drawn from `generator` when not given (the JAX package's key)."""
+    if normals is None:
+        normals = draw_random_rotations(shape, generator)
     return rotmat_from_quat(normals)
 
 
@@ -154,9 +158,14 @@ def draw_small_random_rotations(
     return axis, torch.rand(tuple(shape), generator=generator)
 
 
-def small_random_rotations(axis_normals: Tensor, uniforms: Tensor, max_angle_rad: float) -> Tensor:
+def small_random_rotations(shape: tuple[int, ...] | None, max_angle_rad: float, axis_normals: Tensor | None = None,
+                           uniforms: Tensor | None = None, generator: torch.Generator | None = None) -> Tensor:
     """Rotations by `uniforms * max_angle_rad` about the Haar-uniform axes
-    `axis_normals / |axis_normals|`; `[..., 3, 3]`."""
+    `axis_normals / |axis_normals|`; `shape + (3, 3)`.
+    The draws (`draw_small_random_rotations`) come from `generator` when
+    not given (the JAX package's key)."""
+    if axis_normals is None:
+        axis_normals, uniforms = draw_small_random_rotations(shape, generator)
     axis = axis_normals / (torch.linalg.norm(axis_normals, dim=-1, keepdim=True) + 1e-12)
     half = uniforms * (max_angle_rad / 2.0)
     q = torch.cat([axis * torch.sin(half)[..., None], torch.cos(half)[..., None]], -1)  # xyzw
@@ -171,14 +180,18 @@ def draw_pose_noise(n: int, generator: torch.Generator) -> tuple[Tensor, Tensor]
 
 def add_pose_noise(
     TCO: Tensor,
-    euler_normals: Tensor,
-    trans_normals: Tensor,
     euler_deg_std: tuple[float, float, float] = (15.0, 15.0, 15.0),
     trans_std: tuple[float, float, float] = (0.01, 0.01, 0.05),
+    euler_normals: Tensor | None = None,
+    trans_normals: Tensor | None = None,
+    generator: torch.Generator | None = None,
 ) -> Tensor:
     """`R_out = R @ R_noise(euler)`, `t_out = t + trans_normals * trans_std`,
     with static-frame XYZ euler angles `euler_normals * euler_deg_std` in
-    degrees; `TCO [B, 4, 4]`, normals `[B, 3]`."""
+    degrees; `TCO [B, 4, 4]`, normals `[B, 3]`, drawn from `generator`
+    (`draw_pose_noise`) when not given (the JAX package's key)."""
+    if euler_normals is None:
+        euler_normals, trans_normals = (t.to(TCO) for t in draw_pose_noise(TCO.shape[0], generator))
     euler_std = torch.tensor(euler_deg_std, dtype=TCO.dtype, device=TCO.device) * (torch.pi / 180.0)
     R_noise = rotmat_from_euler_sxyz(euler_normals * euler_std)
     t_noise = trans_normals * torch.tensor(trans_std, dtype=TCO.dtype, device=TCO.device)

@@ -52,11 +52,12 @@ def load_qua_grid(path: str | Path, device: str | torch.device = "cuda") -> torc
     return rotmat_from_quat(torch.as_tensor(xyzw, dtype=torch.float32, device=device))
 
 
-def build_prune_table(grid, parent_grid) -> tuple[np.ndarray, np.ndarray]:
+def build_prune_table(grid, parent_grid, max_children: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Voronoi assignment of `grid [M, 3, 3]` to its nearest rotation of
     `parent_grid [M1, 3, 3]` (largest trace of `R P^T`, in float64), as
     padded per-parent child lists: children `[M1, C]` int32 (indices into
-    `grid`, padded with index 0) and valid `[M1, C]` bool.
+    `grid`, padded with index 0) and valid `[M1, C]` bool. C is the largest
+    parent's count of children, or `max_children` (a parent's first C kept).
 
     The hierarchical coarse stage scores the parent grid first, then only
     the children of the best parents; `grid` stays the hypothesis
@@ -65,11 +66,11 @@ def build_prune_table(grid, parent_grid) -> tuple[np.ndarray, np.ndarray]:
     P = np.asarray(torch.as_tensor(parent_grid).cpu(), np.float64)
     parent_of = np.einsum("mij,pij->mp", R, P).argmax(axis=1)  # [M]
     M1 = P.shape[0]
-    C = int(np.bincount(parent_of, minlength=M1).max())
+    C = int(np.bincount(parent_of, minlength=M1).max()) if max_children is None else int(max_children)
     children = np.zeros((M1, C), np.int32)
     valid = np.zeros((M1, C), bool)
     for p in range(M1):
-        ids = np.nonzero(parent_of == p)[0]
+        ids = np.nonzero(parent_of == p)[0][:C]
         children[p, : len(ids)] = ids
         valid[p, : len(ids)] = True
     return children, valid

@@ -156,7 +156,7 @@ def run(args: dict[str, str]) -> tuple[dict, dict[str, TensorCollection]]:
         logger.info("depth-refined summary: %s", depth_summary)
     det_summary = None
     if args["detector_dir"]:
-        detector = load_detector(args["detector_dir"], args["detector_weights"] or None, device=device)
+        detector = load_detector(args["detector_dir"], weights=args["detector_weights"] or None, device=device)
         preds["detector"] = PredictionRunner(
             scene_ds, PoseEstimator(coarse, refiner, mesh_db, cfg, device=device), detector=detector,
             detection_type="detector").get_predictions()["final"]

@@ -151,8 +151,8 @@ def evaluate(args: dict[str, str], mesh_db: BatchedMeshes, models: Models, batch
     pts = meshes.points[:, :256]
 
     # (a/b) refiner-only from noised ground truth.
-    TCO_init = add_pose_noise(batch.TCO, noise[0].to(device), noise[1].to(device),
-                              euler_deg_std=(15, 15, 15), trans_std=(0.01, 0.01, 0.05))
+    TCO_init = add_pose_noise(batch.TCO, euler_deg_std=(15, 15, 15), trans_std=(0.01, 0.01, 0.05),
+                              euler_normals=noise[0].to(device), trans_normals=noise[1].to(device))
     TCO_ref = TCO_init
     for _ in range(n_it):
         TCO_ref = refiner.refine_step(batch.rgbs, batch.K, TCO_ref, meshes)["TCO_output"]

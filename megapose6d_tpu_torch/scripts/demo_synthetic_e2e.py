@@ -103,8 +103,8 @@ def eval_set(mesh_db: BatchedMeshes, n_eval: int, input_res: tuple[int, int]) ->
     synth = tt.synthetic_batch_fn(mesh_db, n_eval, input_res, f=400.0, device=device)
     batch = synth.make({k: v.to(device) for k, v in eval_draws(len(mesh_db.labels), n_eval).items()})
     euler, trans = noise_draws(n_eval)
-    TCO_init = add_pose_noise(batch.TCO, euler.to(device), trans.to(device), euler_deg_std=(15, 15, 15),
-                              trans_std=(0.01, 0.01, 0.05))
+    TCO_init = add_pose_noise(batch.TCO, euler_deg_std=(15, 15, 15), trans_std=(0.01, 0.01, 0.05),
+                              euler_normals=euler.to(device), trans_normals=trans.to(device))
     return batch, TCO_init
 
 

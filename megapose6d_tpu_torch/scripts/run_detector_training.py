@@ -75,6 +75,13 @@ class DetectorBatches:
         return batch
 
 
+def make_batch_fn(mesh_db: BatchedMeshes, batch_size: int, resolution, n_obj: int, f: float = 400.0,
+                  with_seg: bool = False) -> DetectorBatches:
+    """The detector's batches under the JAX package's name: `key -> batch`
+    (`DetectorBatches`)."""
+    return DetectorBatches(mesh_db, batch_size, resolution, n_obj, f, with_seg)
+
+
 def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int, decay_steps: int, end_value: float):
     """optax's `warmup_cosine_decay_schedule(init_value=0, ...)` in its
     float32 arithmetic: `count -> lr` (a float32 value). The cosine is
@@ -235,22 +242,22 @@ def main(argv=None) -> DetectorRun:
 
     run = DetectorRun(model.eval(), opt_state, done)
     if int(args["n_eval"]):
-        run.report = evaluate_detector(model, batch_fn, int(args["n_eval"]), predict_masks, seed=seed + 777)
+        run.report = evaluate_detector(model, model.cfg, batch_fn, int(args["n_eval"]), predict_masks, seed=seed + 777)
         (run_dir / "eval.json").write_text(json.dumps(run.report, indent=2))
         logger.info("detector eval: %s", json.dumps(run.report))
     return run
 
 
 @torch.no_grad()
-def evaluate_detector(model: CenterNetDetector, batch_fn: DetectorBatches, n_batches: int, predict_masks: bool,
-                      seed: int = 777) -> dict:
+def evaluate_detector(model: CenterNetDetector, cfg: DetectorConfig | None, batch_fn: DetectorBatches, n_batches: int,
+                      predict_masks: bool, seed: int = 777) -> dict:
     """Held-out metrics over `n_batches` batches keyed from `PRNGKey(seed)`:
     recall at IoU 0.5 of the detections above 0.3 among the top 8, the mean
     IoU and class accuracy of each ground-truth box's best match, and with
     masks the mean IoU of the class's segmentation (logit > 0) with the
     ground truth at the head's stride."""
     model.eval()
-    s = model.cfg.stride
+    s = (cfg or model.cfg).stride
     ious, cls_ok, found, mask_ious = [], [], [], []
     key = threefry.PRNGKey(seed)
     for _ in range(n_batches):

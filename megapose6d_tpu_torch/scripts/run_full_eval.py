@@ -1,7 +1,8 @@
 """Evaluation sweep: datasets x (detection type, coarse estimation type).
 
 Counterpart of `megapose6d_tpu/scripts/run_full_eval.py`: for each dataset
-of `ds_names` and each pair of `detection_coarse_types`, one `run_eval`
+of `ds_names` (empty: the seven BOP19 test sets, `BOP_TEST_DATASETS`) and
+each pair of `detection_coarse_types`, one `run_eval`
 under `<save_dir>/<ds_name>/<detection>+<coarse>/` with its
 `eval_config.json`, and every summary in `<save_dir>/all_summaries.json`
 keyed `<ds_name>/<detection>+<coarse>`, as the JAX package lays them out.
@@ -26,6 +27,7 @@ from pathlib import Path
 
 from ..evaluation.bop import run_bop_evaluation
 from ..evaluation.eval_config import (
+    BOP_TEST_DATASETS,
     BOPEvalConfig,
     EvalConfig,
     FullEvalConfig,
@@ -58,13 +60,12 @@ def run_full_eval(cfg: FullEvalConfig) -> dict:
     """Every evaluation of the sweep; returns (and writes) all summaries."""
     if not cfg.detection_coarse_types:
         raise ValueError("need detection_coarse_types")
-    if not cfg.ds_names:
-        raise ValueError("need ds_names (the BOP test datasets are not ported)")
+    ds_names = cfg.ds_names or BOP_TEST_DATASETS
     if cfg.save_dir is None:
         raise ValueError("FullEvalConfig.save_dir is not set")
     all_summaries: dict[str, dict] = {}
     bop_eval_cfgs: list[BOPEvalConfig] = []
-    for ds_name in cfg.ds_names:
+    for ds_name in ds_names:
         for det_type, coarse_type in cfg.detection_coarse_types:
             save_key, eval_cfg = create_eval_cfg(cfg, det_type, coarse_type, ds_name)
             if cfg.skip_inference:  # the saved results are only listed, as in the JAX package

@@ -78,7 +78,7 @@ def load_observation(example_dir: Path, load_depth: bool = False, device="cuda")
     depth = None
     if load_depth and (example_dir / "image_depth.png").exists():
         depth = read_png(example_dir / "image_depth.png").astype(np.float32) / 1000.0
-    return ObservationTensor.from_numpy(rgb, camera_data.K, device=device, depth=depth)
+    return ObservationTensor.from_numpy(rgb, depth, camera_data.K, device=device)
 
 
 def load_detections(example_dir: Path, device="cuda"):
@@ -131,7 +131,7 @@ def run_inference(args) -> Path:
     detections = load_detections(example_dir, device=args.device)
     coarse, refiner, mesh_db = load_or_init_models(
         make_object_dataset(example_dir), args.coarse_run, args.refiner_run,
-        args.coarse_weights, args.refiner_weights, device=args.device,
+        coarse_weights=args.coarse_weights, refiner_weights=args.refiner_weights, device=args.device,
     )
     cfg = InferenceConfig(
         SO3_grid_size=args.so3_grid_size,

@@ -49,6 +49,7 @@ from ..training.config import (
 from ..training.forward_loss import draws_to
 from ..training.train import (
     BATCH_STREAM,
+    N_VAL_BATCHES,
     VAL_BATCH_STREAM,
     TrainState,
     rank_rows,
@@ -160,7 +161,7 @@ def main(argv: list[str] | None = None) -> TrainState | None:
         mesh_db = dataset_mesh_db(cfg, meta["object_dataset"] or cfg.train_datasets[0], data_dir, device)
         loader = dataset_loader(cfg, mesh_db.labels, data_dir, device, rank, n_dp)
         try:
-            return train(cfg, mesh_db, batches=loader, val_batches=None, log_fn=log_fn, reduce_over=reduce_over)
+            return train(cfg, None, mesh_db, loader, log_fn=log_fn, reduce_over=reduce_over)
         finally:
             loader.close()
 
@@ -173,10 +174,9 @@ def main(argv: list[str] | None = None) -> TrainState | None:
                                    synth.device))
 
     return train(
-        cfg, mesh_db,
-        batches=lambda step: rows(BATCH_STREAM, step),
-        val_batches=lambda epoch, i: rows(VAL_BATCH_STREAM, (epoch << 8) + i),
-        log_fn=log_fn, reduce_over=reduce_over,
+        cfg, None, mesh_db, lambda step: rows(BATCH_STREAM, step), log_fn=log_fn,
+        val_iterator=lambda epoch, i: rows(VAL_BATCH_STREAM, (epoch << 8) + i), n_val_batches=N_VAL_BATCHES,
+        reduce_over=reduce_over,
     )
 
 

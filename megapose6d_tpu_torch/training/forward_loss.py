@@ -66,6 +66,9 @@ class BatchPoseData:
             return self.rgbs
         return torch.cat([self.rgbs, self.depths[..., None]], -1)
 
+    def replace(self, **changes) -> "BatchPoseData":
+        return dataclasses.replace(self, **changes)
+
     def _map(self, fn) -> "BatchPoseData":
         return BatchPoseData(**{
             f.name: None if getattr(self, f.name) is None else fn(getattr(self, f.name))
@@ -129,19 +132,19 @@ def make_hypotheses(
         if H != 1:
             raise ValueError("coarse_z_up+auto-depth takes one hypothesis")
         TCO_init = tco_init_from_boxes_zup_autodepth(batch.bboxes, meshes.points, batch.K)
-        TCO_init = add_pose_noise(TCO_init, draws["euler"], draws["trans"],
-                                  euler_deg_std=(0, 0, 0), trans_std=(0.01, 0.01, 0.05))
+        TCO_init = add_pose_noise(TCO_init, euler_deg_std=(0, 0, 0), trans_std=(0.01, 0.01, 0.05),
+                                  euler_normals=draws["euler"], trans_normals=draws["trans"])
         return TCO_init[:, None], None
 
     if method == "refiner_gt+noise":
         flat = batch.TCO.repeat_interleave(H, dim=0)
-        noisy = add_pose_noise(flat, draws["euler"], draws["trans"],
-                               euler_deg_std=cfg.init_euler_deg_std, trans_std=cfg.init_trans_std)
+        noisy = add_pose_noise(flat, cfg.init_euler_deg_std, cfg.init_trans_std,
+                               euler_normals=draws["euler"], trans_normals=draws["trans"])
         return noisy.reshape(B, H, 4, 4), None
 
     if method == "coarse_classif_multiview_paper":
-        TCO_gt_noise = add_pose_noise(batch.TCO, draws["euler"], draws["trans"],
-                                      euler_deg_std=cfg.init_euler_deg_std, trans_std=cfg.init_trans_std)
+        TCO_gt_noise = add_pose_noise(batch.TCO, cfg.init_euler_deg_std, cfg.init_trans_std,
+                                      euler_normals=draws["euler"], trans_normals=draws["trans"])
         TCV_O = multiview.make_TCO_multiview(
             TCO_gt_noise, TCO_gt_noise[..., :3, 3], multiview_type="sphere_26views", n_views=27,
             remove_TCO_rendering=True, views_inplane_rotations=True,
@@ -168,12 +171,12 @@ def make_hypotheses(
         # within `coarse_pos_angle_deg` of the ground truth's orbit.
         thresh = math.radians(cfg.coarse_pos_angle_deg)
         R_gt = batch.TCO[:, :3, :3]
-        R_rand = random_rotations(draws["rot"])  # [B, H, 3, 3]
+        R_rand = random_rotations(normals=draws["rot"])  # [B, H, 3, 3]
         R_hard = R_gt[:, None] @ small_random_rotations(
-            draws["hard_axis"], draws["hard_u"], math.radians(cfg.coarse_hard_neg_max_deg))
+            None, math.radians(cfg.coarse_hard_neg_max_deg), draws["hard_axis"], draws["hard_u"])
         use_hard = draws["hard_sel"] < cfg.coarse_hard_neg_frac
         R_rand = torch.where(use_hard[..., None, None], R_hard, R_rand)
-        R_pos = R_gt @ small_random_rotations(draws["small_axis"], draws["small_u"], thresh * 0.8)
+        R_pos = R_gt @ small_random_rotations(None, thresh * 0.8, draws["small_axis"], draws["small_u"])
         force = draws["force"] > FORCE_POSITIVE_ABOVE
         slot = torch.nn.functional.one_hot(draws["pos_slot"], H).bool()
         put = force[:, None] & slot
@@ -212,11 +215,11 @@ def forward_loss(
     cfg: TrainingConfig,
     batch: BatchPoseData,
     mesh_db: BatchedMeshes,
-    draws: dict,
     n_iterations: int,
+    draws: dict,
 ) -> tuple[Tensor, dict[str, Tensor]]:
     """The scalar training loss and its metrics, from `draws` (see
-    `draw_forward_loss`, on the batch's device)."""
+    `draw_forward_loss`, on the batch's device; the JAX package's key)."""
     B = batch.batch_size
     H = cfg.n_hypotheses
     meshes = mesh_db.select(batch.mesh_idx)

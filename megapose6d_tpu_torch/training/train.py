@@ -54,7 +54,6 @@ from ..ops import cropping, rasterizer, rasterizer_tiled
 from ..ops.camera import masked_boxes_from_uv, project_points_robust
 from ..ops.se3 import make_se3, rotmat_from_quat
 from ..ops.so3_grid import super_fibonacci_quats
-from ..parallel.distributed import reduce_dict
 from ..parallel.mesh import batch_sharding
 from .config import TrainingConfig, save_config
 from .forward_loss import BatchPoseData, draw_forward_loss, draws_to, forward_loss
@@ -63,7 +62,8 @@ Tensor = torch.Tensor
 
 # Streams of `step_generator`.
 DRAW_STREAM, BATCH_STREAM, VAL_DRAW_STREAM, VAL_BATCH_STREAM = 0, 1, 2, 3
-# Validation batches per validation epoch.
+# Validation batches per validation epoch of `scripts/run_training`'s
+# synthetic runs.
 N_VAL_BATCHES = 2
 
 
@@ -181,16 +181,21 @@ class Adam:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (float32 parameters), Adam's state and the step."""
+    """The step, Adam's state, the model (float32 parameters) and Adam.
+    The JAX package's `apply_fn`, `params` and `tx` are the model's
+    `forward`, its parameters (`params`) and `optimizer`."""
 
+    step: int
+    opt_state: dict
     model: PosePredictor
     optimizer: Adam
-    opt_state: dict
-    step: int = 0
 
     @property
     def params(self) -> list[Tensor]:
         return list(self.model.parameters())
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads: list[Tensor], clip_grad_norm: float) -> Tensor:
         """Clip, update, count the step; returns the norm before clipping."""
@@ -201,14 +206,28 @@ class TrainState:
         return norm
 
 
-def create_train_state(cfg: TrainingConfig, device: str | torch.device = "cuda") -> TrainState:
-    """The model of `cfg` with weights drawn from `cfg.seed` (flax's
-    initializers, `PosePredictor.init_weights`) and a fresh Adam."""
-    model = PosePredictor(PosePredictorConfig(**cfg.model_config_kwargs()))
+def make_optimizer(cfg: TrainingConfig, steps_per_epoch: int) -> Adam:
+    """Adam (AdamW when `weight_decay > 0`) on `make_lr_schedule`; the
+    clip by `clip_grad_norm` before it is `TrainState.apply_gradients`'s."""
+    return Adam(make_lr_schedule(cfg, steps_per_epoch), cfg.weight_decay)
+
+
+def create_train_state(cfg: TrainingConfig, model: PosePredictor | None = None, mesh_db: BatchedMeshes | None = None,
+                       input_res: tuple[int, int] | None = None,
+                       device: str | torch.device = "cuda") -> TrainState:
+    """`model` (by default the model of `cfg`) with weights drawn from
+    `cfg.seed` (flax's initializers, `PosePredictor.init_weights`; the JAX
+    package draws them from its key) on `device`, and a fresh Adam.
+    `mesh_db` and `input_res` are not read: the weights' shapes depend on
+    neither (the JAX package traces its init on them)."""
+    if model is None:
+        model = PosePredictor(PosePredictorConfig(**cfg.model_config_kwargs()))
+    elif not isinstance(model, torch.nn.Module):
+        raise TypeError(f"model must be a PosePredictor, not {type(model).__name__}")
     model.init_weights(torch.Generator().manual_seed(cfg.seed)).to(device).train()
     steps_per_epoch = max(1, cfg.epoch_size // cfg.batch_size)
-    optimizer = Adam(make_lr_schedule(cfg, steps_per_epoch), cfg.weight_decay)
-    return TrainState(model, optimizer, Adam.init(list(model.parameters())))
+    return TrainState(step=0, opt_state=Adam.init(list(model.parameters())), model=model,
+                      optimizer=make_optimizer(cfg, steps_per_epoch))
 
 
 def step_draws(cfg: TrainingConfig, batch: BatchPoseData, mesh_db: BatchedMeshes, stream: int,
@@ -239,7 +258,7 @@ def train_step(
     batch-statistics BatchNorms of `zoo_resnet*-train` normalize over all
     the ranks' rows (`synced_batch_stats`)."""
     with synced_batch_stats(state.model, reduce_over):
-        loss, metrics = forward_loss(state.model, cfg, batch, mesh_db, draws, n_iterations)
+        loss, metrics = forward_loss(state.model, cfg, batch, mesh_db, n_iterations, draws)
         grads = list(torch.autograd.grad(loss, state.params))
     if reduce_over is not None:
         keys = sorted(metrics)
@@ -272,14 +291,13 @@ class SyntheticBatches:
     CPU, `make(draws)` renders it from draws on the device, and a call
     does both."""
 
-    z_range = (0.35, 0.9)  # depth of the object's centre, metres
-
     def __init__(self, mesh_db: BatchedMeshes, batch_size: int, input_res: tuple[int, int],
                  f: float, domain_rand: bool, occlude: bool, device: str | torch.device,
-                 renderer: str = "tiled", face_chunk: int = 64):
+                 renderer: str = "tiled", face_chunk: int = 64, z_range: tuple[float, float] = (0.35, 0.9)):
         if renderer not in ("tiled", "scan"):
             raise ValueError(f"unknown renderer {renderer!r}")
         self.renderer, self.face_chunk = renderer, face_chunk
+        self.z_range = tuple(z_range)  # depth of the object's centre, metres
         self.mesh_db = mesh_db._map(lambda x: x.to(device))
         self.batch_size, self.input_res = batch_size, tuple(input_res)
         self.domain_rand, self.occlude = domain_rand, occlude
@@ -358,14 +376,16 @@ def synthetic_batch_fn(
     batch_size: int,
     input_res: tuple[int, int] = (240, 320),
     f: float = 400.0,
+    z_range: tuple[float, float] = (0.35, 0.9),
+    face_chunk: int = 64,
+    renderer: str | None = None,
     domain_rand: bool = False,
     occlude: bool = False,
     device: str | torch.device = "cuda",
-    face_chunk: int = 64,
-    renderer: str | None = None,
 ) -> SyntheticBatches:
     """`generator -> BatchPoseData`: random ground-truth scenes of the DB's
-    objects on `device`, rendered unlit on black by the tiled renderer with
+    objects on `device`, the objects' centres at depths drawn uniformly in
+    `z_range` (metres), rendered unlit on black by the tiled renderer with
     backface culling, or with `renderer="scan"` by the scan renderer
     (two-sided, `face_chunk` faces a step). `renderer=None` is "tiled" on
     every device (the JAX package picks "scan" on a CPU).
@@ -376,7 +396,7 @@ def synthetic_batch_fn(
     keeps its pixels where it is nearer; the pose and box stay the
     target's. Hypothesis renders stay unlit either way."""
     return SyntheticBatches(mesh_db, batch_size, input_res, f, domain_rand, occlude, device,
-                            renderer or "tiled", face_chunk)
+                            renderer or "tiled", face_chunk, z_range)
 
 
 # ---------------------------------------------------------------------------
@@ -501,39 +521,49 @@ def batch_source(batches: Callable[[int], BatchPoseData] | Iterator[BatchPoseDat
 
 def train(
     cfg: TrainingConfig,
-    mesh_db: BatchedMeshes,
-    batches: Callable[[int], BatchPoseData] | Iterator[BatchPoseData],
-    val_batches: Callable[[int, int], BatchPoseData] | None,
-    log_fn: Callable[[dict], None],
+    model: PosePredictor | None = None,
+    mesh_db: BatchedMeshes | None = None,
+    batch_iterator: Callable[[int], BatchPoseData] | Iterator[BatchPoseData] | None = None,
+    run_dir: str | Path | None = None,
+    n_epochs: int | None = None,
+    steps_per_epoch: int | None = None,
+    log_fn: Callable[[dict], None] | None = None,
+    input_res: tuple[int, int] | None = None,
+    val_iterator: Callable[[int, int], BatchPoseData] | Iterator[BatchPoseData] | None = None,
+    n_val_batches: int = 4,
     reduce_over=None,
 ) -> TrainState:
-    """Train on `batches` (see `batch_source`) on `mesh_db`'s device for
-    `cfg.n_epochs` epochs of `epoch_size // batch_size` steps: per-epoch
-    metric averages as JSON lines in `<run_dir>/<run_id>/log.txt`, also
-    passed to `log_fn`, the iteration ramp, validation every
-    `val_epoch_interval` epochs on `val_batches(epoch, i)` for
-    `N_VAL_BATCHES` batches (forward loss only; none without
-    `val_batches`, as on the dataset path), checkpoints every
+    """Train `model` (by default the model of `cfg`, see
+    `create_train_state`) on `batch_iterator` (see `batch_source`) on
+    `mesh_db`'s device for `n_epochs` (default `cfg.n_epochs`) epochs of
+    `steps_per_epoch` (default `epoch_size // batch_size`) steps:
+    per-epoch metric averages as JSON lines in `run_dir/log.txt` (default
+    `<cfg.run_dir>/<run_id>`), also passed to `log_fn`, the iteration ramp,
+    validation every `val_epoch_interval` epochs on `n_val_batches` batches
+    of `val_iterator` (forward loss only; an iterator, or a callable
+    `(epoch, i) -> batch`; none without it), checkpoints every
     `save_epoch_interval` epochs and at the end. `resume_run_id` restores
     parameters, Adam and the step and continues at the saved epoch + 1;
     `pretrain_run_id` restores the weights only (a JAX or port run, or an npz,
-    under `run_dir`).
+    under `cfg.run_dir`).
 
     Data parallel with `reduce_over` (a process group of W ranks, each
-    with the same `cfg`): `batches` gives rank r its `batch_size / W`
-    samples of each step (its rows of the global batch, or its own
-    loader's batch), and the rank takes the same rows of the step's draws;
-    every rank restores a resumed run; the epoch's metrics go through
-    `reduce_dict`, and only rank 0 writes `config.json`, `log.txt` and
-    checkpoints."""
+    with the same `cfg`; the JAX package's `device_mesh`): `batch_iterator`
+    gives rank r its `batch_size / W` samples of each step (its rows of the
+    global batch, or its own loader's batch), and the rank takes the same
+    rows of the step's draws; every rank restores a resumed run; the
+    epoch's metrics go through `reduce_dict`, and only rank 0 writes
+    `config.json`, `log.txt` and checkpoints."""
     rank, world = (0, 1) if reduce_over is None else (dist.get_rank(reduce_over), dist.get_world_size(reduce_over))
     if cfg.batch_size % world:
         raise ValueError(f"batch_size {cfg.batch_size} does not split over {world} ranks")
-    run_dir = Path(cfg.run_dir) / cfg.run_id
+    if mesh_db is None or batch_iterator is None:
+        raise ValueError("train needs a mesh_db and a batch_iterator")
+    run_dir = Path(run_dir or Path(cfg.run_dir) / cfg.run_id)
     if rank == 0:
         run_dir.mkdir(parents=True, exist_ok=True)
         save_config(cfg, run_dir / "config.json")
-    state = create_train_state(cfg, device=mesh_db.device)
+    state = create_train_state(cfg, model, mesh_db, input_res, device=mesh_db.device)
     start_epoch = 1
     if cfg.resume_run_id:
         state, ckpt_epoch = load_checkpoint(Path(cfg.run_dir) / cfg.resume_run_id, state)
@@ -541,9 +571,14 @@ def train(
     elif cfg.pretrain_run_id:
         state = load_pretrained(Path(cfg.run_dir) / cfg.pretrain_run_id, state)
 
-    steps_per_epoch = max(1, cfg.epoch_size // cfg.batch_size)
-    batch_at = batch_source(batches, state.step, mesh_db.device)
-    for epoch in range(start_epoch, cfg.n_epochs + 1):
+    n_epochs = n_epochs or cfg.n_epochs
+    steps_per_epoch = steps_per_epoch or max(1, cfg.epoch_size // cfg.batch_size)
+    batch_at = batch_source(batch_iterator, state.step, mesh_db.device)
+    val_at = None
+    if val_iterator is not None:
+        val_at = val_iterator if callable(val_iterator) else (
+            lambda epoch, i, stream=iter(val_iterator): next(stream).to(mesh_db.device, non_blocking=True))
+    for epoch in range(start_epoch, n_epochs + 1):
         n_iter = n_iterations_at(cfg, epoch)
         sums: dict[str, float] = {}
         t0 = time.monotonic()
@@ -555,23 +590,26 @@ def train(
                 sums[k] = sums.get(k, 0.0) + v
         log = {k: v / steps_per_epoch for k, v in sums.items()}
         log.update(epoch=epoch, n_iterations=n_iter, time_per_epoch=time.monotonic() - t0)
-        if val_batches is not None and epoch % max(1, cfg.val_epoch_interval) == 0:
+        if val_at is not None and epoch % max(1, cfg.val_epoch_interval) == 0:
             val_losses = []
             with torch.no_grad(), synced_batch_stats(state.model, reduce_over):
-                for i in range(N_VAL_BATCHES):
-                    vb = val_batches(epoch, i)
+                for i in range(n_val_batches):
+                    vb = val_at(epoch, i)
                     draws = step_draws(cfg, vb, mesh_db, VAL_DRAW_STREAM, (epoch << 8) + i, rank=rank,
                                        world=world)
-                    val_losses.append(float(forward_loss(state.model, cfg, vb, mesh_db, draws, n_iter)[0]))
+                    val_losses.append(float(forward_loss(state.model, cfg, vb, mesh_db, n_iter, draws)[0]))
             log["val_loss"] = sum(val_losses) / len(val_losses)
         if world > 1:
+            from ..parallel.distributed import reduce_dict  # here: parallel.distributed imports data, data training
+
             reduced = reduce_dict(log, group=reduce_over)
             log = {**{k: reduced[k] for k in log}, "epoch": epoch, "n_iterations": n_iter}
         if rank != 0:
             continue
         with open(run_dir / "log.txt", "a") as fh:
             fh.write(json.dumps(log) + "\n")
-        log_fn(log)
-        if epoch % cfg.save_epoch_interval == 0 or epoch == cfg.n_epochs:
+        if log_fn:
+            log_fn(log)
+        if epoch % cfg.save_epoch_interval == 0 or epoch == n_epochs:
             save_checkpoint(run_dir, state, epoch)
     return state

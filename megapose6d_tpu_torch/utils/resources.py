@@ -11,13 +11,15 @@ from __future__ import annotations
 import torch
 
 
-def device_memory_stats(device: str | torch.device = "cuda") -> dict[str, int]:
+def device_memory_stats(device: str | torch.device | None = None) -> dict[str, int]:
     """`bytes_in_use` and `peak_bytes_in_use` (tensors this process has
     allocated on the card, now and at the peak), `bytes_reserved` (held by
     its caching allocator), `bytes_free` and `bytes_limit` (the card's free
-    and total memory). Raises without a card."""
+    and total memory) of `device` (None: the current card). Raises without
+    a card."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_memory_stats: no CUDA card")
+    device = torch.cuda.current_device() if device is None else device
     stats = torch.cuda.memory_stats(device)
     free, total = torch.cuda.mem_get_info(device)
     return {

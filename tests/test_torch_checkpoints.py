@@ -146,7 +146,7 @@ def test_npz_round_trip_loads_the_checkpoint(exported):
     assert flatten(tree).keys() == flatten(params).keys()
     coarse, refiner, db = load_or_init_models(
         load_bop_object_dataset(SCENE / "models"), RUNS / "coarse_dr", RUNS / "refiner_dr",
-        exported["coarse_dr"][2], exported["refiner_dr"][2], device="cpu")
+        coarse_weights=exported["coarse_dr"][2], refiner_weights=exported["refiner_dr"][2], device="cpu")
     for model, run in ((coarse, "coarse_dr"), (refiner, "refiner_dr")):
         expected = state_dict_from_jax(exported[run][1])
         got = model.state_dict()
@@ -309,7 +309,7 @@ def run_pipelines(exported, view_ids, n_det, icfg):
         j = jest.run_inference_pipeline(
             JObservation.from_numpy(rgb, None, K), jmake_detections(labels, boxes))
         t = test.run_inference_pipeline(
-            ObservationTensor.from_numpy(rgb, K, device="cpu"), make_detections(labels, boxes, device="cpu"))
+            ObservationTensor.from_numpy(rgb, None, K, device="cpu"), make_detections(labels, boxes, device="cpu"))
         out.append((j, t))
     return out
 

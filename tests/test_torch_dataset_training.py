@@ -119,7 +119,7 @@ def test_first_batch_loss_matches_jax():
     tmodel = PosePredictor(PosePredictorConfig(**cfg.model_config_kwargs()))
     tmodel.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, params)))
     draws = jax_forward_loss_draws(key, cfg, 2, tdb.points.shape[1])
-    tloss, tmetrics = forward_loss(tmodel, cfg, tb, tdb, draws, cfg.n_iterations)
+    tloss, tmetrics = forward_loss(tmodel, cfg, tb, tdb, cfg.n_iterations, draws)
     np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
     for k in jmetrics:
         np.testing.assert_allclose(float(tmetrics[k]), float(jmetrics[k]), rtol=1e-5, err_msg=k)

@@ -187,7 +187,7 @@ def test_icp_refine_pose_matches_jax(cube_scene, nan_pixels):
     fn = jax.jit(jax.vmap(lambda k, dr: jicp.icp_refine_pose(
         k, jnp.eye(4), jnp.asarray(measured), dr, jnp.asarray(K), n_points=512, n_iterations=25)))
     ja = fn(keys, jnp.asarray(rendered))
-    tb = ticp.icp_refine_pose(np.asarray(keys), T_(measured), T_(rendered), T_(K),
+    tb = ticp.icp_refine_pose(np.asarray(keys), None, T_(measured), T_(rendered), T_(K),
                               n_points=512, n_iterations=25)
     np.testing.assert_array_equal(np.asarray(ja.valid), tb.valid.numpy())
     assert bool(tb.valid.all()) and torch.isfinite(tb.T_delta).all()

@@ -149,8 +149,8 @@ def test_evaluate_detector_matches_jax():
     tm.load_state_dict(detector_state_dict_from_jax(jax.tree.map(np.asarray, jd.params)))
     j = jtrain.evaluate_detector(jd.model, jd.params, jd.model.cfg,
                                  jtrain.make_batch_fn(jdb, n_scenes, (240, 320), 2, with_seg=True), 1, True, seed=777)
-    t = ttrain.evaluate_detector(tm.eval(), ttrain.DetectorBatches(tdb, n_scenes, (240, 320), 2, with_seg=True), 1,
-                                 True, seed=777)
+    t = ttrain.evaluate_detector(tm.eval(), tm.cfg, ttrain.make_batch_fn(tdb, n_scenes, (240, 320), 2, with_seg=True),
+                                 1, True, seed=777)
     assert t.keys() == j.keys() and t["n_gt"] == j["n_gt"] >= n_scenes
     assert t["recall@iou0.5"] == j["recall@iou0.5"] and t["class_accuracy"] == j["class_accuracy"]
     assert abs(t["mean_iou_matched"] - j["mean_iou_matched"]) <= 1e-4

@@ -93,7 +93,7 @@ def test_resnet18_spatial_conv_flops_by_hand():
     from torch.utils.flop_counter import FlopCounterMode
 
     in_ch, B = 9, 3  # the coarse model's input: observation rgb + render rgb + normals
-    net = ResNet(in_ch, RENDER, stage_sizes=(2, 2, 2, 2), pool="spatial")
+    net = ResNet(stage_sizes=(2, 2, 2, 2), pool="spatial", in_channels=in_ch, input_hw=RENDER)
     x = torch.zeros((B,) + RENDER + (in_ch,))
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         net(x)

@@ -68,7 +68,7 @@ def test_forward_loss_and_grads_match_jax(case):
     tmodel = PosePredictor(PosePredictorConfig(**cfg.model_config_kwargs()))
     tmodel.load_state_dict(state_dict_from_jax(jax.tree.map(np.asarray, params)))
     draws = jax_forward_loss_draws(key, cfg, 2, tdb_.points.shape[1])
-    tloss, tmetrics = forward_loss(tmodel, cfg, tb, tdb_, draws, cfg.n_iterations)
+    tloss, tmetrics = forward_loss(tmodel, cfg, tb, tdb_, cfg.n_iterations, draws)
     names = [n for n, _ in tmodel.named_parameters()]
     tgrads = dict(zip(names, torch.autograd.grad(tloss, list(tmodel.parameters()))))
 

@@ -83,7 +83,7 @@ def test_camera_ops(rng):
     boxes = np.sort(rng.uniform(0, 300, size=(6, 2, 2)).astype(np.float32), axis=1)
     boxes = boxes.transpose(0, 2, 1).reshape(6, 4)[:, [0, 2, 1, 3]]
     close(jcam.get_K_crop_resize(jnp.asarray(K), jnp.asarray(boxes), (240, 320), (240, 320)),
-          tcam.get_K_crop_resize(T_(K), T_(boxes), (240, 320)), atol=1e-3, rtol=1e-6)
+          tcam.get_K_crop_resize(T_(K), T_(boxes), (240, 320), (240, 320)), atol=1e-3, rtol=1e-6)
     close(jcam.get_K_resize(jnp.asarray(K), (240, 320), (120, 160)),
           tcam.get_K_resize(T_(K), (240, 320), (120, 160)), atol=1e-4, rtol=1e-6)
 

@@ -211,23 +211,31 @@ def test_ocdbt_stores_tensorstore_reads(tmp_path, monkeypatch, n, node_bytes):
 def test_ocdbt_one_node_layout_as_tensorstore(tmp_path):
     """One commit of tensorstore under orbax's config against the port's
     store: the same leaf (keys, value lengths, which are inline), indirect
-    values in key order at the same offsets of one data file."""
+    values in key order at the same offsets of one data file (tensorstore
+    is asked again while it splits the transaction into several commits,
+    as in `test_ocdbt_tree_layout_as_tensorstore`)."""
     rng = np.random.default_rng(4)
     items = {f"k{i:02d}": rng.integers(0, 256, s, dtype=np.uint8).tobytes()
              for i, s in enumerate([0, 1, 1023, 1024, 1025, 3000, 40, 70_000])}
     cfg = {"max_inline_value_bytes": 1024, "max_decoded_node_bytes": 100_000_000, "version_tree_arity_log2": 4,
            "compression": {"id": "zstd"}}
-    kv = kvstore(tmp_path / "ts", config=cfg)
-    with ts.Transaction() as txn:
-        for k, v in items.items():
-            kv.with_transaction(txn)[k] = v
+    for attempt in range(5):
+        kv = kvstore(tmp_path / f"ts{attempt}", config=cfg)
+        with ts.Transaction() as txn:
+            for k, v in items.items():
+                kv.with_transaction(txn)[k] = v
+        if OcdbtStore(tmp_path / f"ts{attempt}").version.generation == 2:  # the empty store, then one commit
+            break
+    else:
+        pytest.fail("tensorstore split the transaction into several commits five times")
     write_ocdbt(tmp_path / "port", items)
-    stores = [OcdbtStore(tmp_path / name) for name in ("ts", "port")]
+    names = (f"ts{attempt}", "port")
+    stores = [OcdbtStore(tmp_path / name) for name in names]
     for store in stores:
         assert store.version.root_height == 0 and store.version.num_keys == len(items)
     layout = [[(k, s.value(k).inline is None, s.value(k).offset) for k in s.list()] for s in stores]
     assert layout[0] == layout[1]
-    assert [len(list((tmp_path / name / "d").iterdir())) for name in ("ts", "port")] == [1, 1]
+    assert [len(list((tmp_path / name / "d").iterdir())) for name in names] == [1, 1]
 
 
 def tree_nodes(root: Path) -> list[tuple[int, list[bytes]]]:

@@ -1,8 +1,9 @@
 """The port's package-level names: for each subpackage, every public name
 that the JAX package's `__init__.py` binds (its `from .module import ...`
 names and the functions it defines) imports from the port's subpackage of
-the same name, except the JAX-only names listed below with their reasons;
-no package-level name hides a submodule of the same name. Then
+the same name, except the JAX-only names that `tests/test_torch_signatures.py`
+lists with their reasons (`JAX_ONLY`, the one list of both tests); no
+package-level name hides a submodule of the same name. Then
 `meshes.make_axes` and `native.supports` against the JAX package's."""
 
 from __future__ import annotations
@@ -14,28 +15,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from tests.test_torch_signatures import jax_only_reason
+
 ROOT = Path(__file__).resolve().parents[1]
 SUBPACKAGES = ["meshes", "training", "evaluation", "models", "data", "utils", "parallel", "visualization",
                "interop", "native", "inference"]
-
-# JAX-only names: what the port does instead.
-JAX_ONLY = {
-    "training": {"make_train_step": "a jit factory of a jax train step; the port's step is "
-                                    "`training.train.train_step`, eager PyTorch",
-                 "train": "the JAX `__init__.py` binds its loop over its submodule `training.train`; the "
-                          "port's `training.train` stays the module (its loop `training.train.train`), "
-                          "which the port's scripts import as `from ..training import train as tt`",
-                 "forward_loss": "the JAX `__init__.py` binds the function over its submodule "
-                                 "`training.forward_loss`; the port's stays the module (the function "
-                                 "`training.forward_loss.forward_loss`), which its tests import as a module"},
-    "evaluation": {"Meter": "the JAX meters' public base class; the port's meters share a private base"},
-    "data": {"PandasTensorCollection": "a pandas DataFrame beside JAX arrays; the port's is "
-                                       "`TensorCollection`, with no pandas on the card's machine"},
-    "parallel": {"replicated": "a JAX NamedSharding; the port's devices are a list of torch devices and "
-                               "a replicated tensor is a copy on each"},
-    "interop": {"pose_predictor_params_from_torch": "reference weights into flax params; the port loads "
-                                                    "them with `pose_predictor_state_dict_from_reference`"},
-}
 
 
 def jax_public_names(sub: str) -> list[str]:
@@ -69,8 +53,7 @@ def test_no_exported_name_hides_a_submodule(sub):
 def test_every_public_name_of_the_jax_package(sub):
     names = jax_public_names(sub)
     assert names, sub
-    only = JAX_ONLY.get(sub, {})
-    assert set(only) <= set(names), f"{sub}: JAX-only names the JAX package does not export"
+    only = {n: r for n in names if (r := jax_only_reason(sub, n)) is not None}
     port = importlib.import_module(f"megapose6d_tpu_torch.{sub}")
     missing = [n for n in names if n not in only and not hasattr(port, n)]
     assert missing == [], f"megapose6d_tpu_torch.{sub} lacks {missing}"

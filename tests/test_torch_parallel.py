@@ -204,11 +204,13 @@ def run(tmp_path_factory):
 
     model = PosePredictor(PosePredictorConfig(**CFG.model_config_kwargs()))
     model.load_state_dict(sd)
-    state = tt.TrainState(model, tt.Adam(tt.make_lr_schedule(CFG, 1)), tt.Adam.init(list(model.parameters())))
+    state = tt.TrainState(step=0, opt_state=tt.Adam.init(list(model.parameters())), model=model,
+                          optimizer=tt.Adam(tt.make_lr_schedule(CFG, 1)))
     one_rank = tt.train_step(state, CFG, tb, tdb_, dp_draws, CFG.n_iterations)
     one_rank_params = {n: p.detach() for n, p in model.named_parameters()}
     zoo.load_state_dict(zoo_sd)
-    state = tt.TrainState(zoo, tt.Adam(tt.make_lr_schedule(ZOO_CFG, 1)), tt.Adam.init(list(zoo.parameters())))
+    state = tt.TrainState(step=0, opt_state=tt.Adam.init(list(zoo.parameters())), model=zoo,
+                          optimizer=tt.Adam(tt.make_lr_schedule(ZOO_CFG, 1)))
     zoo_metrics = tt.train_step(state, ZOO_CFG, tb, tdb_, dp_draws, ZOO_CFG.n_iterations)
     labels = [list(jsdb.batched.labels[r * jsdb.per_shard:(r + 1) * jsdb.per_shard]) for r in range(2)]
     return dict(ranks=ranks, j_dp=j_dp, j_sh=j_sh, one_rank=(one_rank, one_rank_params), j_labels=labels,
@@ -221,7 +223,7 @@ def shard_grads(sd: dict, sh_batches: list, sh_draws: list) -> tuple[dict, dict]
     """The mean over the two shards of the port's single-process
     gradients, and each tensor's largest move when every observation is
     scaled by 1 +- 2^-23."""
-    sdb = ShardedMeshDB.build(objects(), 2, devices="cpu", seed=SHARD_SEED, max_faces=256, n_points=128, n_sym=4,
+    sdb = ShardedMeshDB.build(objects(), 2, device_mesh="cpu", seed=SHARD_SEED, max_faces=256, n_points=128, n_sym=4,
                               align=32, **PADS)
 
     def mean_grads(scale: float) -> dict:
@@ -230,7 +232,7 @@ def shard_grads(sd: dict, sh_batches: list, sh_draws: list) -> tuple[dict, dict]
             model = PosePredictor(PosePredictorConfig(**CFG.model_config_kwargs()))
             model.load_state_dict(sd)
             b = BatchPoseData(**dict(sh_batches[r], rgbs=sh_batches[r]["rgbs"] * scale))
-            loss, _ = forward_loss(model, CFG, b, sdb.local_shard(r), sh_draws[r], CFG.n_iterations)
+            loss, _ = forward_loss(model, CFG, b, sdb.local_shard(r), CFG.n_iterations, sh_draws[r])
             for (n, _), g in zip(model.named_parameters(), torch.autograd.grad(loss, list(model.parameters()))):
                 out[n] = out.get(n, 0) + g.numpy() / 2
         return out

@@ -49,8 +49,10 @@ def gt_boxes():
     return np.concatenate([box, box + 5.0])
 
 
-@pytest.fixture(scope="module")
-def pipelines():
+def build_estimators():
+    """Both packages' estimators on the same weights, and the request: (JAX
+    estimator, port estimator, JAX (observation, detections), port
+    (observation, detections))."""
     jobjs = RigidObjectDataset([
         RigidObject(label="cube", mesh=make_cube(0.04)),
         RigidObject(label="sphere", mesh=make_uv_sphere(0.035, 8, 12)),
@@ -88,14 +90,19 @@ def pipelines():
 
     jest = JPoseEstimator(models["coarse"][0], models["coarse"][1], models["refiner"][0],
                           models["refiner"][1], jdb, JInferenceConfig(**CFG))
-    jout, jextra = jest.run_inference_pipeline(
-        JObservation(images=obs, K=K[None]), jmake_detections(["cube", "sphere"], gt_boxes()))
-
     test = PoseEstimator(models["coarse"][2], models["refiner"][2], tmesh, InferenceConfig(**CFG),
                          device="cpu")
-    tout, textra = test.run_inference_pipeline(
-        ObservationTensor(torch.as_tensor(np.array(obs)), torch.as_tensor(K[None])),
-        make_detections(["cube", "sphere"], gt_boxes(), device="cpu"))
+    jargs = (JObservation(images=obs, K=K[None]), jmake_detections(["cube", "sphere"], gt_boxes()))
+    targs = (ObservationTensor(torch.as_tensor(np.array(obs)), torch.as_tensor(K[None])),
+             make_detections(["cube", "sphere"], gt_boxes(), device="cpu"))
+    return jest, test, jargs, targs
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    jest, test, jargs, targs = build_estimators()
+    jout, jextra = jest.run_inference_pipeline(*jargs)
+    tout, textra = test.run_inference_pipeline(*targs)
     return (jout, jextra), (tout, textra), test
 
 

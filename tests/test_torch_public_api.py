@@ -87,8 +87,7 @@ def _detections(rng, n: int):
     scores = np.round(rng.uniform(size=n), 1)  # ties among the scores
     ims = rng.randint(0, 3, n)
     j = jtypes.make_detections(labels, boxes, scores, ims)
-    t = ttypes.make_detections(labels, boxes, scores, device="cpu")
-    t.infos["batch_im_id"] = ims.astype(np.int64)
+    t = ttypes.make_detections(labels, boxes, scores, ims, device="cpu")
     return j, t
 
 

@@ -51,7 +51,7 @@ def objects(pkg):
 @pytest.fixture(scope="module")
 def dbs():
     jdb = JShardedMeshDB.build(objects("jax"), n_shards=N_SHARDS, seed=SEED, **PADS, **DB_KW)
-    tdb_ = ShardedMeshDB.build(objects("torch"), n_shards=N_SHARDS, devices="cpu", seed=SEED, **PADS, **DB_KW)
+    tdb_ = ShardedMeshDB.build(objects("torch"), n_shards=N_SHARDS, device_mesh="cpu", seed=SEED, **PADS, **DB_KW)
     return jdb, tdb_
 
 
@@ -86,8 +86,8 @@ def test_pad_targets():
             host.batched(align=8, device="cpu", **bad)
     # Shards built apart need the targets.
     with pytest.raises(ValueError):
-        ShardedMeshDB.build(objects("torch"), n_shards=N_SHARDS, devices="cpu", shard_ids=[1], **DB_KW)
-    one = ShardedMeshDB.build(objects("torch"), n_shards=N_SHARDS, devices="cpu", seed=SEED, shard_ids=[1],
+        ShardedMeshDB.build(objects("torch"), n_shards=N_SHARDS, device_mesh="cpu", shard_ids=[1], **DB_KW)
+    one = ShardedMeshDB.build(objects("torch"), n_shards=N_SHARDS, device_mesh="cpu", seed=SEED, shard_ids=[1],
                               **PADS, **DB_KW)
     assert list(one.shards) == [1] and one.local_shard(1).vertices.shape[1:] == (32, 3)
     with pytest.raises(KeyError):

@@ -153,7 +153,7 @@ def test_checkpoint_round_trip(tmp_path, dbs):
     for a, b in zip(state.params + state.opt_state["mu"] + state.opt_state["nu"],
                     fresh.params + fresh.opt_state["mu"] + fresh.opt_state["nu"]):
         assert torch.equal(a, b)
-    pre = tt.load_pretrained(tmp_path / "a", tt.create_train_state(dataclasses.replace(cfg, seed=5), "cpu"))
+    pre = tt.load_pretrained(tmp_path / "a", tt.create_train_state(dataclasses.replace(cfg, seed=5), device="cpu"))
     assert pre.step == 0 and all(torch.equal(a, b) for a, b in zip(state.params, pre.params))
     assert all((m == 0).all() for m in pre.opt_state["mu"])
     # Pretraining from an npz export of JAX params (`/`-joined keys).
@@ -161,7 +161,7 @@ def test_checkpoint_round_trip(tmp_path, dbs):
     flat = {"/".join(k.key for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_flatten_with_path(params)[0]}
     np.savez(tmp_path / "jax.npz", **flat)
-    pre = tt.load_pretrained(tmp_path / "jax.npz", tt.create_train_state(cfg, "cpu"))
+    pre = tt.load_pretrained(tmp_path / "jax.npz", tt.create_train_state(cfg, device="cpu"))
     want = state_dict_from_jax(jax.tree.map(np.asarray, params))
     assert all(torch.equal(want[n], p) for n, p in pre.model.named_parameters())
     shutil.rmtree(tmp_path)

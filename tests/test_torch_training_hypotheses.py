@@ -98,6 +98,6 @@ def test_port_draws_statistics(dbs):
     p_other = frac * pos_deg / hard_max + (1 - frac) * haar_within(pos_deg)
     assert abs(forced - (0.7 + 0.3 * p_other)) < 0.03
 
-    R = random_rotations(draws["rot"])
+    R = random_rotations(normals=draws["rot"])
     tr = R.diagonal(dim1=-2, dim2=-1).sum(-1).flatten()
     assert abs(tr.mean().item()) < 0.05 and abs((tr**2).mean().item() - 1) < 0.05

@@ -180,17 +180,27 @@ def test_split_for_launch_shapes(n_tiles, n_chunks, split):
 
 
 def test_other_chunk_sizes_are_refused(tmp_path):
-    """16 faces a chunk on every device: a model config naming another
-    size, directly or in a run's config.json, raises; phase A refuses a
-    face count that is not a multiple of 16, and phase B on the CPU chunk
-    lists that count chunks of another size."""
-    with pytest.raises(ValueError, match="tile_face_chunk"):
-        PosePredictorConfig(tile_face_chunk=8)
-    assert PosePredictorConfig(tile_face_chunk=16).tile_face_chunk == trt.FACE_CHUNK == 16
+    """16 faces a chunk in the kernel's phases on every device: phase A
+    refuses a face count that is not a multiple of 16, and phase B on the
+    CPU chunk lists that count chunks of another size. A model config
+    takes the JAX package's chunk and pack options (any positive value,
+    directly or in a run's config.json; they change no pixel) and passes
+    them to the renderer, which keeps its 16-face chunk; 0 raises."""
+    for bad in (dict(tile_face_chunk=0), dict(tile_hyp_pack=0)):
+        with pytest.raises(ValueError, match="tile_"):
+            PosePredictorConfig(**bad)
+    assert PosePredictorConfig(tile_face_chunk=8).tile_face_chunk == 8
+    assert PosePredictorConfig().tile_face_chunk == trt.FACE_CHUNK == 16
     d = json.loads((ROOT / "runs/refiner_dr/config.json").read_text())
     (tmp_path / "config.json").write_text(json.dumps({**d, "tile_face_chunk": 32}))
-    with pytest.raises(ValueError, match="tile_face_chunk"):
-        config_from_run_json(tmp_path / "config.json")
+    assert config_from_run_json(tmp_path / "config.json")[0].tile_face_chunk == 32
+    mesh = make_uv_sphere(0.04, 12, 16)
+    T = torch.eye(4)[None]
+    T[0, 2, 3] = 0.4
+    args = [torch.as_tensor(a)[None] for a in (mesh.vertices, mesh.vertex_normals, mesh.vertex_colors, mesh.faces,
+                                                np.ones(mesh.n_faces, bool))]
+    with pytest.raises(ValueError, match="chunk"):
+        trt.render_meshes_tiled(*args, T, torch.as_tensor(K)[None], (H, W), chunk=0)
     screen, n, c, f, fv = scene()[0]
     with pytest.raises(ValueError, match="multiple"):
         trt.prepare(*map(torch.as_tensor, (screen, n, c, f[:, 8:], fv[:, 8:])), (H, W), 0.01)

@@ -59,7 +59,8 @@ def step(inputs: dict, batch: BatchPoseData, db, draws: dict, cfg_key: str = "cf
     cfg = TrainingConfig(**inputs[cfg_key])
     model = PosePredictor(PosePredictorConfig(**cfg.model_config_kwargs()))
     model.load_state_dict(inputs[weights_key])
-    state = tt.TrainState(model, tt.Adam(tt.make_lr_schedule(cfg, 1)), tt.Adam.init(list(model.parameters())))
+    state = tt.TrainState(step=0, opt_state=tt.Adam.init(list(model.parameters())), model=model,
+                          optimizer=tt.Adam(tt.make_lr_schedule(cfg, 1)))
     metrics = tt.train_step(state, cfg, batch, db, draws, cfg.n_iterations, reduce_over=dist.group.WORLD)
     names = [n for n, _ in model.named_parameters()]
     return {"metrics": metrics, "mu": dict(zip(names, state.opt_state["mu"])),
@@ -131,7 +132,7 @@ def main() -> None:
     out["data_parallel"] = step(inputs, batch, dp["db"], tt.rank_rows(dp["draws"], rank, world))
 
     sh = inputs["label_sharded"]
-    db = ShardedMeshDB.build(objects(), n_shards=world, devices="cpu", seed=sh["seed"], shard_ids=[rank],
+    db = ShardedMeshDB.build(objects(), n_shards=world, device_mesh="cpu", seed=sh["seed"], shard_ids=[rank],
                              max_faces=256, n_points=128, n_sym=4, align=32, **sh["pads"])
     out["label_sharded"] = step(inputs, BatchPoseData(**sh["batches"][rank]), db.local_shard(rank),
                                 sh["draws"][rank])
